@@ -1,0 +1,35 @@
+"""Carry a params tree given as numpy arrays into the port's layout.
+
+The JAX package's params tree (``jax.tree_util.tree_map(np.asarray,
+params)`` on the caller's side, or a GGUF transcode's numpy tree) maps
+one to one onto the port's: the same keys, the same stacked ``[L, ...]``
+layer leaves, weights ``[K, O]``, and quantized leaves as ``{"q4", "s"}``
+or ``{"q", "s"}`` dicts. Only the array type changes, so the JAX decoder
+and the port compute on identical weights.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
+    """numpy → torch on ``device``, bit for bit. bfloat16 arrays (numpy's
+    extension dtype, as JAX hands them out) travel as their 16-bit
+    patterns."""
+    a = np.array(a)   # a private, writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16
+                                                       ).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree: Any, device="cpu") -> Any:
+    """A (nested dict) params tree of numpy arrays → the same tree of
+    torch tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device)

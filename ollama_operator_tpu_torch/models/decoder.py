@@ -1,0 +1,307 @@
+"""Decoder-only transformer (llama family) in PyTorch.
+
+Counterpart of ``ollama_operator_tpu/models/decoder.py`` for the paged
+serving path: ``init_params``, ``prefill_chunk``, ``paged_insert`` and
+``forward_with_cache_paged`` at T=1. The params tree keeps the JAX
+package's layout (plain dicts of tensors, layer leaves stacked on a
+leading ``n_layers`` axis, weights ``[K, O]``, quantized leaves as
+``{"q4", "s"}`` / ``{"q", "s"}`` dicts):
+
+  tok_emb [V, D]   out_norm_w [D]   lm_head [D, V] (absent when tied)
+  layers/ attn_norm_w [L, D]  wq [L, D, H*hd]  wk/wv [L, D, KvH*hd]
+          wo [L, H*hd, D]  mlp_norm_w [L, D]
+          w_gate/w_up [L, D, F]  w_down [L, F, D]  (bq/bk/bv optional)
+
+Layers run as a Python loop (PyTorch is eager; the JAX package scans).
+The KV pools are updated in place (the JAX functions are pure and return
+new pools; here the same pools come back), which saves a pool-sized copy
+per step. On the card every int4 projection runs the qmm4 kernel, prefill
+attention the flash-prefill kernel and decode attention the paged-decode
+kernel (``ops/``); on the CPU the same calls run their plain versions.
+
+Architecture features outside this slice (layernorm, parallel blocks,
+MoE, alternating sliding attention, qk-norm, sandwich norms, plain MLPs,
+output biases) raise in :func:`check_supported`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import quant as Q
+from ..ops.attention import chunk_attention
+from ..ops.norms import rms_norm
+from ..ops.paged import paged_decode_attention
+from ..ops.quant_cache import quantize_kv
+from ..ops.rope import apply_rope, rope_angles_cfg
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+
+# page 0 of every pool is the trash page (runtime/paged.TRASH_PAGE)
+TRASH_PAGE = 0
+
+
+def check_supported(cfg: ModelConfig) -> ModelConfig:
+    """Raise for architecture features this port does not run yet."""
+    missing = [name for name, on in (
+        ("layernorm", cfg.norm_type != "rmsnorm"),
+        ("parallel_block", cfg.parallel_block),
+        ("mixture of experts", cfg.n_experts > 0),
+        ("altern_sliding", cfg.altern_sliding),
+        ("qk_norm", cfg.qk_norm),
+        ("post_norms", cfg.post_norms),
+        ("plain mlp", cfg.mlp_type != "gated"),
+        ("out_bias", cfg.out_bias)) if on]
+    if missing:
+        raise NotImplementedError(
+            f"the torch port does not run {', '.join(missing)} yet")
+    return cfg
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype: torch.dtype = torch.bfloat16,
+                device="cpu") -> Params:
+    """Random weights with the JAX package's distributions (normal with
+    std 0.02 for matrices, ones for norm weights, zeros for biases); the
+    bits differ, since the generators differ. Each leaf is filled one
+    [K, O] slice at a time, so f32 temporaries stay one slice big.
+    ``generator`` must live on ``device``."""
+    check_supported(cfg)
+    L, D, Fd, V = cfg.n_layers, cfg.dim, cfg.ffn_dim, cfg.vocab_size
+
+    def w(*shape, scale=0.02):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        flat = out.reshape(-1, *shape[-2:])
+        for i in range(flat.shape[0]):
+            flat[i] = torch.randn(shape[-2:], generator=generator,
+                                  dtype=torch.float32, device=device) * scale
+        return out
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    layers = {"attn_norm_w": ones(L, D),
+              "wq": w(L, D, cfg.q_dim), "wk": w(L, D, cfg.kv_dim),
+              "wv": w(L, D, cfg.kv_dim), "wo": w(L, cfg.q_dim, D),
+              "w_up": w(L, D, Fd), "w_down": w(L, Fd, D),
+              "mlp_norm_w": ones(L, D), "w_gate": w(L, D, Fd)}
+    if cfg.attn_bias:
+        for k, n in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                     ("bv", cfg.kv_dim)):
+            layers[k] = torch.zeros((L, n), dtype=dtype, device=device)
+    params: Params = {"tok_emb": w(V, D), "out_norm_w": ones(D),
+                      "layers": layers}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = w(D, V)
+    return params
+
+
+# --------------------------------------------------------------------------
+# building blocks
+# --------------------------------------------------------------------------
+
+def _attn_scale(cfg: ModelConfig) -> float:
+    if cfg.attn_scale_mult:
+        return cfg.attn_scale_mult
+    return 1.0 / math.sqrt(cfg.attn_scale or cfg.head_dim)
+
+
+def _norm(cfg: ModelConfig, x, w):
+    return rms_norm(x, w, cfg.norm_eps, cfg.norm_weight_offset)
+
+
+def _act(cfg: ModelConfig, x):
+    if cfg.act == "silu":
+        return F.silu(x)
+    return F.gelu(x, approximate="none" if cfg.act == "gelu" else "tanh")
+
+
+def _layer(params: Params, i: int) -> Dict[str, Any]:
+    """Layer ``i``'s leaves (views into the stacked tensors)."""
+    return {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
+                else v[i]) for k, v in params["layers"].items()}
+
+
+def _qkv(cfg: ModelConfig, lp, h, cos, sin):
+    B, T, _ = h.shape
+    q = Q.matmul(h, lp["wq"])
+    k = Q.matmul(h, lp["wk"])
+    v = Q.matmul(h, lp["wv"])
+    if "bq" in lp:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = q.reshape(B, T, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    return (apply_rope(q, cos, sin, cfg.rotary_dim),
+            apply_rope(k, cos, sin, cfg.rotary_dim), v)
+
+
+def _mlp(cfg: ModelConfig, lp, x):
+    g = _act(cfg, Q.matmul(x, lp["w_gate"]))
+    u = Q.matmul(x, lp["w_up"])
+    return Q.matmul(g * u, lp["w_down"])
+
+
+def _residual(cfg: ModelConfig, lp, x, attn):
+    rm = cfg.residual_multiplier or 1.0
+    x = x + rm * attn
+    return x + rm * _mlp(cfg, lp, _norm(cfg, x, lp["mlp_norm_w"]))
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens):
+    x = params["tok_emb"][tokens]
+    if cfg.emb_scale:
+        x = (x.float() * math.sqrt(cfg.dim)).to(x.dtype)
+    if cfg.emb_multiplier:
+        x = (x.float() * cfg.emb_multiplier).to(x.dtype)
+    return x
+
+
+def _unembed(cfg: ModelConfig, params: Params, x):
+    """Final norm + LM head → f32 logits."""
+    x = _norm(cfg, x, params["out_norm_w"])
+    if not cfg.tie_embeddings and Q.is_quantized(params["lm_head"]):
+        logits = Q.matmul(x, params["lm_head"], out_dtype=torch.float32)
+    else:
+        head = (params["tok_emb"].t() if cfg.tie_embeddings
+                else params["lm_head"])
+        logits = (x @ head).float()
+    if cfg.logit_scale:
+        logits = logits / cfg.logit_scale
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
+
+
+# --------------------------------------------------------------------------
+# forward passes
+# --------------------------------------------------------------------------
+
+def prefill_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The layers of :func:`prefill_chunk` without the LM head: returns
+    (hidden [B, T, D], k [L, B, KvH, T, hd], v [...]). The engine
+    unembeds only the row it samples from."""
+    B, T = tokens.shape
+    scale = _attn_scale(cfg)
+    positions = torch.arange(T, device=tokens.device).expand(B, T)
+    cos, sin = rope_angles_cfg(positions, cfg)
+    x = _embed(cfg, params, tokens)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = _norm(cfg, x, lp["attn_norm_w"])
+        q, k, v = _qkv(cfg, lp, h, cos, sin)
+        k = k.transpose(1, 2)                          # [B, KvH, T, hd]
+        v = v.transpose(1, 2)
+        attn = chunk_attention(cfg, q, k, v, scale)
+        x = _residual(cfg, lp, x, Q.matmul(attn.reshape(B, T, -1), lp["wo"]))
+        ks.append(k)
+        vs.append(v)
+    return x, torch.stack(ks), torch.stack(vs)
+
+
+def prefill_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A fresh chunk at positions [0, T) with no prior cache.
+
+    tokens [B, T] (right-padded; callers read logits at n_valid-1).
+    Returns (logits [B, T, V] f32, k [L, B, KvH, T, hd], v [...]), K/V
+    head-first like the cache."""
+    x, ks, vs = prefill_hidden(params, cfg, tokens)
+    return _unembed(cfg, params, x), ks, vs
+
+
+def _pool_dims(k_pool) -> Tuple[int, ...]:
+    return tuple((k_pool["q"] if isinstance(k_pool, dict) else k_pool).shape)
+
+
+def paged_insert(cfg: ModelConfig, k_pool, v_pool, ks, vs,
+                 table_row: torch.Tensor, n_valid: int):
+    """Insert a fresh B=1 prefill chunk (ks/vs [L, 1, KvH, Tb, hd] from
+    :func:`prefill_chunk`) into the pool pages listed by ``table_row``
+    [NBLK]. Positions >= n_valid go to the trash page, so an admission
+    allocates pages only for real tokens. Updates the pools in place and
+    returns them."""
+    L, P, KvH, ps, hd = _pool_dims(k_pool)
+    Tb = ks.shape[3]
+    dev = ks.device
+    t = torch.arange(Tb, device=dev)
+    pg = torch.where(t < n_valid, table_row.long()[t // ps],
+                     torch.full_like(t, TRASH_PAGE))
+    idx = (torch.arange(L, device=dev)[:, None, None], pg[None, None, :],
+           torch.arange(KvH, device=dev)[None, :, None],
+           (t % ps)[None, None, :])
+    if isinstance(k_pool, dict):
+        for pool, x in ((k_pool, ks), (v_pool, vs)):
+            codes, scales = quantize_kv(x[:, 0])
+            pool["q"][idx] = codes
+            pool["s"][idx] = scales
+    else:
+        k_pool[idx] = ks[:, 0].to(k_pool.dtype)
+        v_pool[idx] = vs[:, 0].to(v_pool.dtype)
+    return k_pool, v_pool
+
+
+def _scatter_kv_pools(kp, vp, i: int, k, v, pg_w, off_w):
+    """Quantize (int8 pools) and write one layer's fresh K/V
+    [B, KvH, T, hd] into the pools at (page, offset) per (row, position);
+    pg_w/off_w [B, T]. In place."""
+    KvH = k.shape[1]
+    idx = (pg_w[:, None, :],
+           torch.arange(KvH, device=k.device)[None, :, None],
+           off_w[:, None, :])
+    if isinstance(kp, dict):
+        for pool, x in ((kp, k), (vp, v)):
+            codes, scales = quantize_kv(x)
+            pool["q"][i][idx] = codes
+            pool["s"][i][idx] = scales
+    else:
+        kp[i][idx] = k.to(kp.dtype)
+        vp[i][idx] = v.to(vp.dtype)
+
+
+def forward_with_cache_paged(params: Params, cfg: ModelConfig,
+                             tokens: torch.Tensor, k_pool, v_pool,
+                             tables: torch.Tensor, lengths: torch.Tensor,
+                             attn_blocks: int):
+    """One decode step (T=1) against the paged pool.
+
+    tokens [B, 1]; tables [B, NBLK] int32 physical page per logical
+    block; lengths [B] int32 cached tokens per row — the new token of row
+    b is written at position lengths[b] (page tables[b, lengths[b]//ps],
+    the trash page past the table) before attention, and attention
+    includes it. ``attn_blocks`` bounds the attended width in blocks.
+    Returns (logits [B, 1, V] f32, k_pool, v_pool), pools updated in
+    place."""
+    B, T = tokens.shape
+    if T != 1:
+        raise NotImplementedError("paged forward runs decode steps (T=1); "
+                                  "prefix extends wait for a later slice")
+    L, P, KvH, ps, hd = _pool_dims(k_pool)
+    scale = _attn_scale(cfg)
+    positions = lengths.long()[:, None]                     # [B, 1]
+    cos, sin = rope_angles_cfg(positions, cfg)
+    NBLK = tables.shape[1]
+    blk = positions // ps
+    pg_w = torch.where(blk < NBLK,
+                       tables.long().gather(1, blk.clamp(max=NBLK - 1)),
+                       torch.full_like(blk, TRASH_PAGE))
+    off_w = positions % ps
+    x = _embed(cfg, params, tokens)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = _norm(cfg, x, lp["attn_norm_w"])
+        q, k, v = _qkv(cfg, lp, h, cos, sin)
+        _scatter_kv_pools(k_pool, v_pool, i, k.transpose(1, 2),
+                          v.transpose(1, 2), pg_w, off_w)
+        attn = paged_decode_attention(
+            q, k_pool, v_pool, i, tables, lengths, scale, cfg.attn_softcap,
+            cfg.sliding_window, nblk=attn_blocks)
+        x = _residual(cfg, lp, x, Q.matmul(attn.reshape(B, T, -1), lp["wo"]))
+    return _unembed(cfg, params, x), k_pool, v_pool

@@ -1,0 +1,244 @@
+"""Weight-only int8/int4 quantization (W8A16 / W4A16) and the int4
+dequant-matmul kernel's wrapper.
+
+Counterpart of ``ollama_operator_tpu/ops/quant.py`` and of the Pallas
+``qmm4_pallas`` in ``ops/pallas/quant.py``. A quantized linear is a dict
+leaf of the params tree, in the JAX package's layouts:
+
+    int8: {"q":  int8  [..., K,   O], "s": f32 [..., K/32, O]}
+    int4: {"q4": uint8 [..., K/2, O], "s": f32 [..., K/32, O]}
+
+symmetric, group-wise along the contracted (input) axis with group 32.
+int4 packing is group-local: within each group of 32 rows, byte j holds
+row j in its low nibble and row j + 16 in its high nibble, both biased by
++8.
+
+:func:`qmm4` launches ``csrc/qmm4.cu`` for tensors on the card and runs
+:func:`qmm4_plain` for tensors on the CPU; :func:`matmul` sends every int4
+matmul through it, prefill included.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from . import cuda_build
+
+GROUP = 32
+
+# matmul leaves worth quantizing; tok_emb stays dense (it is a gather)
+QUANT_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+QUANT_TOP_KEYS = ("lm_head",)
+
+
+def is_quantized(w: Any) -> bool:
+    return isinstance(w, dict) and ("q" in w or "q4" in w) and "s" in w
+
+
+def is_int4(w: Any) -> bool:
+    return isinstance(w, dict) and "q4" in w
+
+
+def _per_slice(fn, w: torch.Tensor, out_shapes, out_dtypes):
+    """Apply ``fn`` ([K, O] → tuple of tensors) to every [K, O] slice of a
+    stacked leaf, writing into preallocated outputs: the f32 temporaries
+    stay one slice big, whatever the leaf."""
+    *lead, K, O = w.shape
+    outs = [torch.empty((*lead, *shp), dtype=dt, device=w.device)
+            for shp, dt in zip(out_shapes, out_dtypes)]
+    flat_w = w.reshape(-1, K, O)
+    flats = [o.reshape(-1, *o.shape[len(lead):]) for o in outs]
+    for i in range(flat_w.shape[0]):
+        for f, r in zip(flats, fn(flat_w[i])):
+            f[i] = r
+    return outs
+
+
+def _quantize_slice(w: torch.Tensor, qmax: int) -> Tuple[torch.Tensor, ...]:
+    K, O = w.shape
+    wr = w.float().reshape(K // GROUP, GROUP, O)
+    s = wr.abs().amax(dim=-2, keepdim=True) / float(qmax)
+    q = torch.round(torch.where(s > 0, wr / torch.clamp(s, min=1e-30),
+                                torch.zeros((), device=w.device)))
+    q = q.clamp(-qmax, qmax).to(torch.int8).reshape(K, O)
+    return q, s[:, 0, :]
+
+
+def quantize_groupwise(w: torch.Tensor, group: int = GROUP
+                       ) -> Dict[str, torch.Tensor]:
+    """Symmetric int8 per group along the input axis:
+    w [..., K, O] → {"q" int8 [..., K, O], "s" f32 [..., K/32, O]}."""
+    assert group == GROUP and w.shape[-2] % GROUP == 0, w.shape
+    K, O = w.shape[-2:]
+    q, s = _per_slice(lambda x: _quantize_slice(x, 127), w,
+                      [(K, O), (K // GROUP, O)], [torch.int8, torch.float32])
+    return {"q": q, "s": s}
+
+
+def pack_int4(q: torch.Tensor, bias: int = 8) -> torch.Tensor:
+    """Codes in [-7, 7] ([..., K, O]) → group-local nibbles
+    ([..., K/2, O] uint8)."""
+    *lead, K, O = q.shape
+    assert K % GROUP == 0
+    qr = (q.reshape(*lead, K // GROUP, GROUP, O).to(torch.int16) + bias
+          ).to(torch.uint8)
+    lo, hi = qr[..., :GROUP // 2, :], qr[..., GROUP // 2:, :]
+    return (lo | (hi << 4)).reshape(*lead, K // 2, O)
+
+
+def unpack_int4(q4: torch.Tensor, bias: int = 8) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: [..., K/2, O] uint8 → int8
+    [..., K, O]."""
+    *lead, Kp, O = q4.shape
+    h = GROUP // 2
+    b = q4.reshape(*lead, Kp // h, h, O)
+    lo = (b & 0xF).to(torch.int8) - bias
+    hi = (b >> 4).to(torch.int8) - bias
+    return torch.cat([lo, hi], dim=-2).reshape(*lead, 2 * Kp, O)
+
+
+def quantize_groupwise_int4(w: torch.Tensor, group: int = GROUP
+                            ) -> Dict[str, torch.Tensor]:
+    """Symmetric int4 per group along the input axis, nibble-packed:
+    w [..., K, O] → {"q4" uint8 [..., K/2, O], "s" f32 [..., K/32, O]}.
+    Codes clip to [-7, 7]."""
+    assert group == GROUP and w.shape[-2] % GROUP == 0, w.shape
+    K, O = w.shape[-2:]
+
+    def one(x):
+        q, s = _quantize_slice(x, 7)
+        return pack_int4(q), s
+
+    q4, s = _per_slice(one, w, [(K // 2, O), (K // GROUP, O)],
+                       [torch.uint8, torch.float32])
+    return {"q4": q4, "s": s}
+
+
+def dequantize_groupwise(qw: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Inverse of the quantizers (f32)."""
+    q = unpack_int4(qw["q4"]) if is_int4(qw) else qw["q"]
+    s = qw["s"]
+    *lead, K, O = q.shape
+    G = s.shape[-2]
+    qr = q.reshape(*lead, G, K // G, O).float()
+    return (qr * s[..., :, None, :].float()).reshape(*lead, K, O)
+
+
+def qmm_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
+              ) -> torch.Tensor:
+    """x [N, K] @ dequant(int8 q [K, O], s [K/32, O]) → [N, O] f32."""
+    return x.float() @ dequantize_groupwise({"q": q, "s": s})
+
+
+def qmm4_plain(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor
+               ) -> torch.Tensor:
+    """Plain version of the qmm4 kernel: x [N, K] @ dequant(q4 [K/2, O],
+    s [K/32, O]) → [N, O] f32, the weight dequantized to f32 (code times
+    f32 group scale) before an f32 product."""
+    return x.float() @ dequantize_groupwise({"q4": q4, "s": s})
+
+
+_ROW_TILES = (1, 2, 4, 8, 16)
+_TILE_O = 256        # columns per CTA in csrc/qmm4.cu
+_STAGE_GROUPS = 4    # groups staged per shared-memory pass
+_TARGET_CTAS = 264   # two per SM on the H100's 132
+
+
+def qmm4_plan(N: int, K: int, O: int) -> Tuple[int, int, int]:
+    """(row tile, K splits, groups per split) for the qmm4 kernel: the
+    smallest row tile that covers N (up to 16), and K split across CTAs
+    only when column and row tiles alone leave the card underfilled."""
+    nt = next(t for t in _ROW_TILES if t >= min(N, 16))
+    ctas = -(-O // _TILE_O) * -(-N // nt)
+    G = K // GROUP
+    ksplit = 1
+    if ctas < _TARGET_CTAS:
+        ksplit = max(1, min(-(-_TARGET_CTAS // ctas), G // _STAGE_GROUPS))
+    gps = -(-G // ksplit)
+    gps = -(-gps // _STAGE_GROUPS) * _STAGE_GROUPS
+    return nt, -(-G // gps), gps
+
+
+def qmm4(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor
+         ) -> torch.Tensor:
+    """x [N, K] @ dequant(q4 [K/2, O], s [K/32, O]) → [N, O] f32.
+
+    On the card this launches ``csrc/qmm4.cu`` (x bf16, K % 32 == 0,
+    O % 4 == 0) for every N and raises on anything it does not take; on
+    the CPU it runs :func:`qmm4_plain`."""
+    if not cuda_build.on_card(x, q4, s):
+        return qmm4_plain(x, q4, s)
+    N, K = x.shape
+    Kp, O = q4.shape
+    if x.dtype != torch.bfloat16 or q4.dtype != torch.uint8 or \
+            s.dtype != torch.float32:
+        raise TypeError(f"qmm4 kernel takes bf16 x, uint8 codes, f32 "
+                        f"scales; got {x.dtype}, {q4.dtype}, {s.dtype}")
+    if 2 * Kp != K or K % GROUP or O % 4 or s.shape != (K // GROUP, O):
+        raise ValueError(f"qmm4 kernel: x {tuple(x.shape)}, q4 "
+                         f"{tuple(q4.shape)}, s {tuple(s.shape)} unsupported")
+    x, q4, s = x.contiguous(), q4.contiguous(), s.contiguous()
+    nt, ksplit, gps = qmm4_plan(N, K, O)
+    out = torch.empty((N, O), dtype=torch.float32, device=x.device)
+    work = (torch.empty((ksplit, N, O), dtype=torch.float32,
+                        device=x.device) if ksplit > 1 else out)
+    fn = cuda_build.function(
+        "qmm4", "qmm4_bf16",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    rc = fn(x.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(),
+            work.data_ptr(), N, K, O, nt, ksplit, gps,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(rc, "qmm4")
+    cuda_build.launches["qmm4"] += 1
+    return out
+
+
+def matmul(x: torch.Tensor, w: Any,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Linear against a dense tensor or a quantized dict leaf. Every int4
+    matmul goes through :func:`qmm4` (the kernel on the card), whatever
+    the token count. int8 weights run their plain version on the CPU;
+    their kernel (``qmm_pallas``) is not ported yet, so on the card they
+    raise."""
+    if not is_quantized(w):
+        y = x @ w
+        return y.to(out_dtype) if out_dtype is not None else y
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if is_int4(w):
+        y = qmm4(x2, w["q4"], w["s"])
+    elif x.device.type == "cpu":
+        y = qmm_plain(x2, w["q"], w["s"])
+    else:
+        raise NotImplementedError(
+            "int8 weights on the card need the qmm (W8A16) kernel, which "
+            "is not ported yet; serve int4")
+    return y.reshape(*lead, -1).to(out_dtype or x.dtype)
+
+
+def quantize_params(params: Dict[str, Any], bits: int = 4,
+                    keys_layer=QUANT_LAYER_KEYS,
+                    keys_top=QUANT_TOP_KEYS) -> Dict[str, Any]:
+    """Quantize the big matmul leaves of a decoder params tree to int8
+    (``bits=8``) or packed int4 (``bits=4``). Leaves are popped from
+    ``params`` one at a time, so each dense leaf can be freed as soon as
+    its quantized replacement exists (peak memory: the dense tree plus
+    one slice's f32 temporaries)."""
+    assert bits in (8, 4), bits
+    quant = quantize_groupwise if bits == 8 else quantize_groupwise_int4
+    out: Dict[str, Any] = {}
+    for k in list(params.keys()):
+        v = params[k]
+        if k == "layers":
+            lo = {}
+            for lk in list(v.keys()):
+                lo[lk] = quant(v.pop(lk)) if lk in keys_layer else v[lk]
+            out[k] = lo
+        elif k in keys_top:
+            out[k] = quant(params.pop(k))
+        else:
+            out[k] = v
+    return out

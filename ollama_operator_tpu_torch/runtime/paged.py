@@ -1,0 +1,328 @@
+"""Host-side page accounting for the paged KV cache.
+
+The device side is a physical page pool ``[L, P, KvH, page_size, hd]``
+(``models/decoder.forward_with_cache_paged`` + the paged-decode kernel in
+``ops/paged.py``); this module owns which physical page backs which
+logical block of which slot. Pure host bookkeeping — numpy block tables are
+uploaded per dispatch (a few KB), never read back.
+
+Page 0 is the **trash page**: bucket-padding positions beyond a prompt's
+valid length scatter their garbage K/V there, so admissions only allocate
+pages for real tokens and no masking depends on page contents.
+
+Pages are **reference counted** so the radix prefix cache
+(``runtime/radix.py``) can map one physical page into many slots at once:
+a page's refcount is the number of slot block-table entries mapping it
+plus the number of radix-tree pins holding it. ``grow`` allocates private
+pages (rc=1); ``map_shared`` stitches an already-resident page into
+another slot read-only (rc+=1); ``pin``/``unpin`` are the tree's share.
+A page returns to the free list exactly when its refcount hits zero —
+``check()`` asserts that accounting invariant and the test suite runs it
+after every test (autouse fixture in conftest.py).
+
+**Epoch-fenced reclamation**: double-buffered async dispatch
+launches decode program N+1 before materialising N's tokens, so a page
+freed between the two launches may still be read (or written, for the
+slot's new positions) by the in-flight program through the block table it
+captured at launch. The table therefore carries a monotonic dispatch
+epoch: ``advance_epoch()`` stamps each ``decode_n_launch``; while any
+launched epoch is un-retired, a page whose refcount hits zero goes to a
+FIFO **quarantine** stamped with the current epoch instead of the free
+list, and becomes allocatable only once ``retire_epoch(e)`` certifies the
+program launched at its stamp has been materialised (vLLM's deferred
+block reclamation / SGLang's radix fencing, host-side). Retirement is
+driven by CALLERS at deterministic call-stream positions (the scheduler
+after waiting a handle, supervised restart via ``drain_quarantine``) so
+multi-host follower replay — which never materialises tokens — keeps
+byte-identical free lists. When no dispatch is outstanding
+(epoch == retired, the synchronous path) frees hit the pool directly,
+exactly as before.
+
+Fused speculative decoding needs NO states beyond these: a spec dispatch
+maps pages for its worst case (k+1 positions) via the same
+``prepare_decode`` growth path, draft tokens write into those
+already-mapped pages, and rejection just moves ``lengths`` back
+(``Engine.spec_ack``) — the rejected positions sit above the advanced
+length, are never attended, and are overwritten by the next dispatch.
+Nothing is freed on rejection, so nothing new can race the fence.
+
+A copy of ``ollama_operator_tpu/runtime/paged.py`` without its fault-
+injection hook and its dp-sharded table (the torch port serves one device).
+llama.cpp's unified KV cell pool plays this role upstream; here the
+allocator is explicit so
+the engine can admit many more concurrent slots than dense max_slots ×
+max_seq_len HBM would allow, preempt (victim-select) when the pool runs
+dry (SURVEY.md §7 hard-part 2), and share prefix pages across requests
+the way vLLM/SGLang block pools do.
+"""
+
+from __future__ import annotations
+
+import weakref
+from collections import Counter
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+TRASH_PAGE = 0
+
+# every live PageTable, so the test suite can sweep the accounting
+# invariant after each test without plumbing engine internals around
+_LIVE: "weakref.WeakSet[PageTable]" = weakref.WeakSet()
+
+
+def live_tables() -> List["PageTable"]:
+    """Snapshot of every PageTable still referenced anywhere (test hook)."""
+    return list(_LIVE)
+
+
+class PagesExhausted(RuntimeError):
+    """No free pages for the requested allocation (caller may preempt)."""
+
+
+class PageTable:
+    """Block tables + free-list for ``n_slots`` sequences over ``n_pages``
+    physical pages of ``page_size`` tokens (page 0 reserved as trash)."""
+
+    def __init__(self, n_slots: int, n_pages: int, page_size: int,
+                 max_blocks: int):
+        assert n_pages > 1, "need at least one non-trash page"
+        self.page_size = page_size
+        self.n_pages = n_pages
+        self.max_blocks = max_blocks
+        # LIFO free list → recently-freed pages are reused first (warm HBM)
+        self._free: List[int] = list(range(n_pages - 1, TRASH_PAGE, -1))
+        self._owned: Dict[int, List[int]] = {s: [] for s in range(n_slots)}
+        self.tables = np.full((n_slots, max_blocks), TRASH_PAGE, np.int32)
+        # per-page refcount = slot mappings + radix pins; _pins is the
+        # radix tree's share of it (rc - pins = live slot mappings)
+        self._rc = np.zeros((n_pages,), np.int32)
+        self._pins = np.zeros((n_pages,), np.int32)
+        # epoch fence: dispatches launched / known-materialised, plus the
+        # FIFO of (launch-epoch stamp, page) entries whose reclamation is
+        # deferred until their stamp retires (module docstring)
+        self._epoch = 0
+        self._retired = 0
+        self._quarantine: List[tuple] = []
+        _LIVE.add(self)
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def blocks_for(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.page_size)
+
+    def grow(self, slot: int, n_tokens: int) -> bool:
+        """Ensure ``slot`` owns pages covering logical positions
+        [0, n_tokens). Returns False (allocating nothing) when the pool
+        can't satisfy it — the caller preempts or queues."""
+        owned = self._owned[slot]
+        need = self.blocks_for(n_tokens) - len(owned)
+        if need <= 0:
+            return True
+        if need > len(self._free):
+            return False
+        if len(owned) + need > self.max_blocks:
+            raise ValueError(
+                f"slot {slot}: {n_tokens} tokens exceed "
+                f"{self.max_blocks} blocks of {self.page_size}")
+        for _ in range(need):
+            pg = self._free.pop()
+            assert self._rc[pg] == 0, f"free page {pg} had rc {self._rc[pg]}"
+            self._rc[pg] = 1
+            self.tables[slot, len(owned)] = pg
+            owned.append(pg)
+        return True
+
+    def map_shared(self, slot: int, pages: Sequence[int]):
+        """Stitch already-resident ``pages`` (radix prefix hits) into
+        ``slot``'s block table read-only, after its current blocks, in
+        order. Each page's refcount is bumped — the slot is now one of
+        its co-owners and MUST NOT write into it (copy-on-write first)."""
+        owned = self._owned[slot]
+        if len(owned) + len(pages) > self.max_blocks:
+            raise ValueError(
+                f"slot {slot}: {len(owned)}+{len(pages)} shared blocks "
+                f"exceed {self.max_blocks}")
+        for pg in pages:
+            assert pg != TRASH_PAGE and self._rc[pg] >= 1, \
+                f"page {pg} is not live (rc={int(self._rc[pg])})"
+            self._rc[pg] += 1
+            self.tables[slot, len(owned)] = pg
+            owned.append(pg)
+
+    def _reclaim(self, pg: int):
+        """A page's refcount just hit zero: return it to the pool — via
+        the epoch quarantine while a launched dispatch is un-retired (its
+        captured block table may still reference the page), directly
+        otherwise (synchronous flow, today's semantics)."""
+        if self._epoch > self._retired:
+            self._quarantine.append((self._epoch, pg))
+        else:
+            self._free.append(pg)
+
+    def release(self, slot: int):
+        """Drop all of ``slot``'s page mappings (table row resets to
+        trash); pages whose refcount reaches zero return to the pool
+        (through the epoch fence while a dispatch is in flight)."""
+        owned = self._owned[slot]
+        for pg in owned:
+            self._rc[pg] -= 1
+            assert self._rc[pg] >= 0, f"double free of page {pg}"
+            if self._rc[pg] == 0:
+                self._reclaim(pg)
+        owned.clear()
+        self.tables[slot, :] = TRASH_PAGE
+
+    def alloc_pinned(self) -> Optional[int]:
+        """Allocate one page owned solely by the radix tree (rc = pins
+        = 1, no slot mapping): the disagg KV import uploads transferred
+        bytes into it and grafts it into the tree, with no slot in the
+        picture. ``check()`` stays clean (rc == mappings + pins).
+        Returns None on a dry pool — the caller evicts or stops."""
+        if not self._free:
+            return None
+        pg = self._free.pop()
+        assert self._rc[pg] == 0, f"free page {pg} had rc {self._rc[pg]}"
+        self._rc[pg] = 1
+        self._pins[pg] = 1
+        return pg
+
+    def pin(self, pg: int):
+        """Take a radix-tree reference on a live page: it survives the
+        owning slot's release until ``unpin``."""
+        assert pg != TRASH_PAGE and self._rc[pg] >= 1, \
+            f"cannot pin dead page {pg}"
+        self._rc[pg] += 1
+        self._pins[pg] += 1
+
+    def unpin(self, pg: int):
+        """Drop a radix-tree reference; frees the page at rc zero
+        (through the epoch fence while a dispatch is in flight — radix
+        eviction must not recycle a page an in-flight program reads)."""
+        assert self._pins[pg] >= 1, f"page {pg} is not pinned"
+        self._pins[pg] -= 1
+        self._rc[pg] -= 1
+        if self._rc[pg] == 0:
+            self._reclaim(pg)
+
+    # ------------------------------------------------------------------
+    # dispatch-epoch fence (async double-buffering; module docstring)
+    # ------------------------------------------------------------------
+    @property
+    def quarantined(self) -> int:
+        """Pages parked in the epoch quarantine (not yet allocatable)."""
+        return len(self._quarantine)
+
+    @property
+    def quiescent(self) -> bool:
+        """True when every launched dispatch has retired — no in-flight
+        program can still read or write ANY page through a captured
+        block table. This is the gate for spilling a page's bytes to the
+        host tier: a host copy taken while a dispatch is in
+        flight could race the device writes; a quiescent copy cannot.
+        Pure mirrored host state, so followers take identical spill
+        branches at identical call-stream positions."""
+        return self._epoch <= self._retired
+
+    def advance_epoch(self) -> int:
+        """Stamp one launched dispatch; returns its epoch. Pages freed
+        from now on quarantine under this stamp until it retires."""
+        self._epoch += 1
+        return self._epoch
+
+    def retire_epoch(self, epoch: int):
+        """The program launched at ``epoch`` (and, by the donated-state
+        device ordering, every earlier one) has been materialised: drain
+        quarantine entries stamped at or before it into the free list, in
+        FIFO order — deterministic from call order alone, so follower
+        replay reproduces the exact free list."""
+        e = min(int(epoch), self._epoch)
+        if e <= self._retired:
+            return
+        self._retired = e
+        q = self._quarantine
+        i = 0
+        while i < len(q) and q[i][0] <= e:
+            self._free.append(q[i][1])
+            i += 1
+        if i:
+            del q[:i]
+
+    def drain_quarantine(self) -> int:
+        """Retire everything outstanding (supervised restart / verified-
+        idle pipeline: no launched program can still read these pages).
+        Returns the number of pages returned to the pool."""
+        n = len(self._quarantine)
+        self.retire_epoch(self._epoch)
+        return n
+
+    def shared_refs(self, pg: int) -> int:
+        """Slot mappings of ``pg`` beyond the tree's pins — a pinned page
+        with shared_refs == 0 is referenced only by the radix tree and is
+        safe to evict (unpin frees it immediately)."""
+        return int(self._rc[pg]) - int(self._pins[pg])
+
+    def slot_pages(self, slot: int) -> List[int]:
+        """The physical pages backing ``slot``, in block order (copy)."""
+        return list(self._owned[slot])
+
+    def owned_blocks(self, slot: int) -> int:
+        return len(self._owned[slot])
+
+    def free_for(self, slot: int) -> int:
+        """Pages available to ``slot`` (its allocation domain's free count
+        — the whole pool here; a dp shard's pool in ShardedPageTable)."""
+        return len(self._free)
+
+    @property
+    def data_pages(self) -> int:
+        """Max pages one slot could ever hold (pool minus the trash page)."""
+        return self.n_pages - 1
+
+    def check(self):
+        """Accounting invariant: every non-trash page is EXACTLY ONE of —
+        on the free list once with no references, in the epoch quarantine
+        once with no references (rc 0, unmapped, unpinned: a quarantined
+        page is dead to every slot and to the radix tree, merely not yet
+        reallocatable), or referenced with rc == slot mappings + pins ≥ 1.
+        Nothing leaked, nothing double freed, block-table rows consistent
+        with the ownership lists, quarantine stamps sane. Debug/test hook
+        (an autouse fixture runs it after every test)."""
+        free = Counter(self._free)
+        quar = Counter(pg for _, pg in self._quarantine)
+        mapped: Counter = Counter()
+        for owned in self._owned.values():
+            mapped.update(owned)
+        assert free[TRASH_PAGE] == 0, "trash page on the free list"
+        assert quar[TRASH_PAGE] == 0, "trash page in quarantine"
+        assert mapped[TRASH_PAGE] == 0, "trash page mapped to a slot"
+        assert self._retired <= self._epoch, (
+            f"retired epoch {self._retired} ahead of launched "
+            f"{self._epoch}")
+        stamps = [e for e, _ in self._quarantine]
+        assert stamps == sorted(stamps), "quarantine stamps out of order"
+        assert all(self._retired < e <= self._epoch for e in stamps), (
+            f"quarantine stamp outside ({self._retired}, {self._epoch}]")
+        for pg in range(TRASH_PAGE + 1, self.n_pages):
+            f, m, p = free[pg], mapped[pg], int(self._pins[pg])
+            rc, qn = int(self._rc[pg]), quar[pg]
+            assert f <= 1, f"page {pg} on the free list {f} times"
+            assert qn <= 1, f"page {pg} quarantined {qn} times"
+            assert not (f and qn), f"page {pg} both free and quarantined"
+            if f or qn:
+                assert rc == 0 and m == 0 and p == 0, (
+                    f"page {pg} {'free' if f else 'quarantined'} but "
+                    f"referenced (rc={rc}, mapped={m}, pins={p})")
+            else:
+                assert rc == m + p and rc >= 1, (
+                    f"page {pg} leaked or miscounted "
+                    f"(rc={rc}, mapped={m}, pins={p})")
+        for slot, owned in self._owned.items():
+            row = self.tables[slot]
+            assert list(row[:len(owned)]) == owned, (
+                f"slot {slot}: table row disagrees with ownership")
+            assert (row[len(owned):] == TRASH_PAGE).all(), (
+                f"slot {slot}: stale table entries past owned blocks")
+

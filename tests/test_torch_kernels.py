@@ -1,0 +1,130 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+The JAX side runs each Pallas kernel in interpret mode on the CPU, as the
+JAX package's own tests do; the port runs the plain PyTorch version that
+stands beside each CUDA kernel (the wrapper picks it because the tensors
+are on the CPU; the CUDA kernels themselves are checked against the same
+plain versions on the card by ``chip_smoke.py``). Everything is f32.
+Tolerances: 1e-4 abs/rel for attention (f32 softmax sums reassociated
+across blocks), 2e-5 for the int4 matmul (f32 dot of the same dequantized
+weights, summed in another order).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ollama_operator_tpu.ops import quant as jquant
+from ollama_operator_tpu.ops.pallas.flash import flash_prefill as jflash
+from ollama_operator_tpu.ops.pallas.paged import paged_decode_attention_v3
+from ollama_operator_tpu.ops.pallas.quant import qmm4_pallas
+from ollama_operator_tpu_torch.ops import attention as tattn
+from ollama_operator_tpu_torch.ops import paged as tpaged
+from ollama_operator_tpu_torch.ops import quant as tquant
+
+torch.set_num_threads(1)
+
+
+def _t(a):
+    return torch.tensor(np.array(a))
+
+
+@pytest.mark.parametrize("H,KvH,window,softcap", [
+    (8, 8, 0, 0.0), (8, 2, 0, 0.0), (4, 1, 0, 0.0), (8, 2, 32, 30.0)])
+def test_flash_prefill_matches_pallas(H, KvH, window, softcap):
+    rng = np.random.default_rng(10 + H + KvH + window)
+    B, T, hd = 2, 128, 64
+    q = rng.standard_normal((B, T, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, KvH, T, hd)).astype(np.float32)
+    v = rng.standard_normal((B, KvH, T, hd)).astype(np.float32)
+    scale = hd ** -0.5
+    j = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,
+               softcap, window, interpret=True)
+    t = tattn.flash_prefill(_t(q), _t(k), _t(v), scale, softcap, window)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-4,
+                               atol=1e-4)
+
+
+def _paged_inputs(rng, quant):
+    B, H, KvH, hd, ps, L, P, NBLK = 4, 8, 2, 64, 16, 2, 24, 5
+    lengths = np.array([1, ps - 1, ps, 3 * ps + 5], np.int32)
+    tables = np.zeros((B, NBLK), np.int32)
+    pages = rng.permutation(np.arange(1, P))
+    for b in range(B):
+        n = lengths[b] // ps + 1
+        tables[b, :n] = pages[:n]
+        pages = pages[n:]
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+    if quant:
+        def pool():
+            return {"q": rng.integers(-127, 128, (L, P, KvH, ps, hd)
+                                      ).astype(np.int8),
+                    "s": rng.uniform(0.001, 0.02, (L, P, KvH, ps)
+                                     ).astype(np.float32)}
+    else:
+        def pool():
+            return rng.standard_normal((L, P, KvH, ps, hd)
+                                       ).astype(np.float32)
+    return q, pool(), pool(), tables, lengths
+
+
+def _conv(pool, f):
+    return {k: f(v) for k, v in pool.items()} if isinstance(pool, dict) \
+        else f(pool)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [0, 24])
+def test_paged_decode_matches_pallas_v3(quant, window):
+    rng = np.random.default_rng(20 + quant + window)
+    q, kp, vp, tables, lengths = _paged_inputs(rng, quant)
+    nblk, scale = tables.shape[1], 64 ** -0.5
+    for layer in (0, 1):
+        j = paged_decode_attention_v3(
+            jnp.asarray(q), _conv(kp, jnp.asarray), _conv(vp, jnp.asarray),
+            jnp.int32(layer), jnp.asarray(tables), jnp.asarray(lengths),
+            scale, 0.0, window, nblk=nblk, interpret=True)
+        t = tpaged.paged_decode_attention(
+            _t(q), _conv(kp, _t), _conv(vp, _t), layer, _t(tables),
+            _t(lengths), scale, 0.0, window, nblk=nblk)
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("N,K,O", [(1, 64, 128), (8, 256, 256),
+                                   (5, 128, 384), (70, 256, 128)])
+def test_qmm4_matches_pallas(N, K, O):
+    rng = np.random.default_rng(30 + N)
+    x = rng.standard_normal((N, K)).astype(np.float32)
+    w = rng.standard_normal((K, O)).astype(np.float32) * 0.05
+    qw = jquant.quantize_groupwise_int4(w)
+    j = qmm4_pallas(jnp.asarray(x), jnp.asarray(qw["q4"]),
+                    jnp.asarray(qw["s"]), interpret=True)
+    t = tquant.qmm4(_t(x), _t(qw["q4"]), _t(qw["s"]))
+    assert t.dtype == torch.float32
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_qmm4_plan_covers_every_group():
+    for N, K, O in [(1, 4096, 1024), (64, 4096, 4096), (64, 14336, 4096),
+                    (512, 4096, 128256), (3, 96, 8)]:
+        nt, ksplit, gps = tquant.qmm4_plan(N, K, O)
+        G = K // 32
+        assert nt in (1, 2, 4, 8, 16) and nt >= min(N, 16)
+        assert gps % 4 == 0 and (ksplit - 1) * gps < G <= ksplit * gps
+
+
+def test_wrappers_refuse_mixed_devices():
+    """A wrapper never hands a kernel a tensor it cannot read: inputs on
+    a device other than the CPU or one CUDA card raise instead of taking
+    the plain path."""
+    x = torch.zeros((2, 64))
+    w = tquant.quantize_groupwise_int4(torch.zeros((64, 128)))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tquant.qmm4(x.to("meta"), w["q4"], w["s"])
+    q = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tattn.flash_prefill(q, torch.zeros((1, 2, 8, 16), device="meta"),
+                            torch.zeros((1, 2, 8, 16)), 0.25)
