@@ -6,40 +6,49 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Print the card (``nvidia-smi`` name and power limit), the torch and
-   CUDA versions, and build the three CUDA kernels from ``csrc/`` (one
+   CUDA versions, and build the four CUDA kernels from ``csrc/`` (one
    ``nvcc`` per source, all started together).
-2. Kernel phases at the main path's shapes, in bf16 on the card: each
+2. Kernel phases at the main paths' shapes, in bf16 on the card: each
    kernel against its plain PyTorch version on the same inputs, with the
    tolerance stated beside it; the kernel's time (CUDA events, L2 flushed
    before every launch, as a decode step finds it), the plain version's
    time, the time of one PyTorch library call computing the same function
    where one exists, and the least time the card could take (bytes at
    3.35 TB/s or bf16 operations at 989 TFLOP/s, whichever is larger).
-3. Serving: llama3.1 at full width (32 layers, dim 4096, 32/8 heads,
-   vocab 128256), random int4 group-32 weights from a seed, the int8 paged
-   KV pool, the serving defaults (64 slots, page size 128, 768 pages,
-   decode chunk 32), behind the port's HTTP server on an ephemeral port.
-   Eight concurrent /api/generate requests (prompts of at most 256
-   tokens, num_predict 32, greedy) must each finish with eval_count 32, a
-   repeat of one prompt must give the same tokens, and every kernel's
-   launch count over this phase must be above 0.
-4. Cross-check at full width and two layers: the kernel path against the
+   Kernels: flash prefill, paged decode over int8 and int4 pools, the
+   int4 (qmm4, llama3.1 shapes) and int8 (qmm, llama3.2:3b shapes)
+   dequant matmuls.
+3. Serving, three paths, each at full width behind the port's HTTP
+   server on an ephemeral port, with random dense bf16 weights from a
+   seed handed to ``ModelManager.preload``, which picks the weight dtype
+   itself, and the serving defaults (64 slots, page size 128, 768 pages,
+   decode chunk 32): llama3.1 (int4 weights) on an int8 KV pool, then
+   llama3.2:3b (int8 weights, tied embeddings, G = 3) on an int8 and on
+   an int4 pool. Each: eight concurrent /api/generate requests (prompts
+   of 91 to 301 tokens, num_predict 32, greedy) must each finish with
+   eval_count 32, a repeat of one prompt must give the same tokens, and
+   the launch count of every kernel on that path, counted from 0 just
+   before the eight requests, must be above 0.
+4. Cross-checks at full width and two layers, llama3.1 int4 on an int8
+   pool and llama3.2:3b int8 on an int4 pool: the kernel path against the
    plain path on the card, a prefill and 16 greedy decode steps, the plain
    path fed the kernel path's tokens. Logits must agree within the stated
    bf16 tolerance at every step, and the greedy tokens must be identical
    at every step where greedy is decidable (top-2 gap above twice the
    step's logit difference; near-ties are listed).
 
-Then it prints one JSON line ``{"kernels": [...]}``, the ``nvidia-smi``
-line, and as the last line ``{"ok": true, "device": {...}}``. With
-``--out DIR`` the details (``chip_smoke.json``) and the compiler's
-register report (``ptxas.txt``) are written to DIR; ``--kernels-only``
-stops after phase 2.
+Then it prints one JSON line ``{"kernels": [...]}`` (``launches`` summed
+over the serving paths, per path in ``launches_by_path``), the
+``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+{...}}``. With ``--out DIR`` the details (``chip_smoke.json``) and the
+compiler's register report (``ptxas.txt``) are written to DIR;
+``--kernels-only`` stops after phase 2.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import os
@@ -109,38 +118,43 @@ def kernel_phases(torch, timer, report):
     from ollama_operator_tpu_torch.ops import attention as A
     from ollama_operator_tpu_torch.ops import paged as PG
     from ollama_operator_tpu_torch.ops import quant as Q
+    from ollama_operator_tpu_torch.ops.quant_cache import pool_bits
     g = torch.Generator(device="cuda").manual_seed(SEED)
     dev, bf = "cuda", torch.bfloat16
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
 
-    # -- flash prefill: B=1, T=512, H=32, KvH=8, hd=128 (llama3.1 chunk)
-    B, T, H, KvH, hd = 1, 512, 32, 8, 128
-    q, k, v = randn(B, T, H, hd), randn(B, KvH, T, hd), randn(B, KvH, T, hd)
-    scale = hd ** -0.5
-    out = A.flash_prefill(q, k, v, scale)
-    ref = A.flash_prefill_plain(q, k, v, scale)
-    err = (out.float() - ref.float()).abs().max().item()
-    # both round an f32 result to bf16; 1 bf16 ulp is at most 2^-7
-    # (0.8%) of the value, so 1% of the largest output covers it
-    tol = 1e-2 * max(1.0, ref.float().abs().max().item())
-    qh = q.transpose(1, 2)
-    kr = k.repeat_interleave(H // KvH, dim=1)
-    vr = v.repeat_interleave(H // KvH, dim=1)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * H * hd * T * (T + 1) / 2
-    report("flash_prefill", "csrc/flash_prefill.cu",
-           "ollama_operator_tpu/ops/pallas/flash.py:134", err, tol,
-           timer(lambda: A.flash_prefill(q, k, v, scale)),
-           timer(lambda: A.flash_prefill_plain(q, k, v, scale)),
-           timer(lambda: F.scaled_dot_product_attention(
-               qh, kr, vr, is_causal=True, scale=scale)),
-           *bound(nbytes, flops), shape=f"B={B} T={T} H={H} KvH={KvH} "
-                                         f"hd={hd}")
+    # -- flash prefill: B=1, T=512, KvH=8, hd=128; H=32 (llama3.1 chunk,
+    # G = 4) and H=24 (llama3.2:3b, G = 3)
+    for H in (32, 24):
+        B, T, KvH, hd = 1, 512, 8, 128
+        q, k, v = (randn(B, T, H, hd), randn(B, KvH, T, hd),
+                   randn(B, KvH, T, hd))
+        scale = hd ** -0.5
+        out = A.flash_prefill(q, k, v, scale)
+        ref = A.flash_prefill_plain(q, k, v, scale)
+        err = (out.float() - ref.float()).abs().max().item()
+        # both round an f32 result to bf16; 1 bf16 ulp is at most 2^-7
+        # (0.8%) of the value, so 1% of the largest output covers it
+        tol = 1e-2 * max(1.0, ref.float().abs().max().item())
+        qh = q.transpose(1, 2)
+        kr = k.repeat_interleave(H // KvH, dim=1)
+        vr = v.repeat_interleave(H // KvH, dim=1)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * H * hd * T * (T + 1) / 2
+        report("flash_prefill", "csrc/flash_prefill.cu",
+               "ollama_operator_tpu/ops/pallas/flash.py:134", err, tol,
+               timer(lambda: A.flash_prefill(q, k, v, scale)),
+               timer(lambda: A.flash_prefill_plain(q, k, v, scale)),
+               timer(lambda: F.scaled_dot_product_attention(
+                   qh, kr, vr, is_causal=True, scale=scale)),
+               *bound(nbytes, flops), shape=f"B={B} T={T} H={H} KvH={KvH} "
+                                             f"hd={hd}", main=(H == 32))
 
-    # -- paged decode: B=64, ps=128, int8 pool, lengths over 1..2048
-    B, ps, L, NBLK = 64, 128, 2, 32
+    # -- paged decode: B=64, ps=128, lengths over 1..2048; int8 pool at
+    # H=32 (llama3.1) and H=24 (llama3.2:3b), int4 pool at H=24
+    B, ps, L, NBLK, KvH, hd = 64, 128, 2, 32, 8, 128
     lengths = torch.randint(1, 2049, (B,), generator=g, device=dev,
                             dtype=torch.int32)
     live = (lengths.long() // ps + 1)
@@ -152,58 +166,83 @@ def kernel_phases(torch, timer, report):
         n = int(live[b])
         tables[b, :n] = perm[off:off + n]
         off += n
-
-    def pool():
-        return {"q": torch.randint(-127, 128, (L, P, KvH, ps, hd),
-                                   generator=g, device=dev,
-                                   dtype=torch.int8),
-                "s": torch.rand((L, P, KvH, ps), generator=g,
-                                device=dev) * 0.02 + 1e-3}
-    kp, vp = pool(), pool()
-    qd = randn(B, 1, H, hd)
     nblk = int(live.max().item())
-    args = (qd, kp, vp, 1, tables, lengths, scale)
-    out = PG.paged_decode_attention(*args, nblk=NBLK)
-    ref = PG.paged_decode_attention_plain(*args, nblk=nblk)
-    err = (out.float() - ref.float()).abs().max().item()
-    tol = 1e-2 * max(1.0, ref.float().abs().max().item())
     n_pos = int((lengths.long() + 1).sum().item())
-    nbytes = (2 * 2 * qd.numel() + 2 * KvH * n_pos * (hd + 4)
-              + 4 * B * NBLK + 4 * B)
-    flops = 4 * H * hd * n_pos
-    report("paged_decode_attention", "csrc/paged_decode.cu",
-           "ollama_operator_tpu/ops/pallas/paged.py:609", err, tol,
-           timer(lambda: PG.paged_decode_attention(*args, nblk=NBLK)),
-           timer(lambda: PG.paged_decode_attention_plain(*args, nblk=nblk)),
-           None, *bound(nbytes, flops),
-           shape=f"B={B} H={H} KvH={KvH} hd={hd} ps={ps} int8, lengths "
-                 f"1..2048 ({n_pos} positions)")
-    del kp, vp
 
-    # -- qmm4 on every llama3.1 projection shape, N in {1, 64, 512}
-    shapes = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
+    def pool(bits):
+        scales = torch.rand((L, P, KvH, ps), generator=g, device=dev)
+        if bits == 8:
+            return {"q": torch.randint(-127, 128, (L, P, KvH, ps, hd),
+                                       generator=g, device=dev,
+                                       dtype=torch.int8),
+                    "s": scales * 0.02 + 1e-3}
+        return {"q4": torch.randint(0, 256, (L, P, KvH, ps // 2, hd),
+                                    generator=g, device=dev,
+                                    dtype=torch.uint8),
+                "s": scales * 0.3 + 1e-2}
+
+    for H, bits in ((32, 8), (24, 8), (24, 4)):
+        kp, vp = pool(bits), pool(bits)
+        qd = randn(B, 1, H, hd)
+        scale = hd ** -0.5
+        args = (qd, kp, vp, 1, tables, lengths, scale)
+        out = PG.paged_decode_attention(*args, nblk=NBLK)
+        ref = PG.paged_decode_attention_plain(*args, nblk=nblk)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 1e-2 * max(1.0, ref.float().abs().max().item())
+        # every live position's codes (hd bytes, or hd / 2 for int4) and
+        # f32 scale, for K and V, per kv head; q in, out back, the tables
+        nbytes = (2 * 2 * qd.numel()
+                  + 2 * KvH * n_pos * (hd * pool_bits(kp) // 8 + 4)
+                  + 4 * B * NBLK + 4 * B)
+        flops = 4 * H * hd * n_pos
+        name = "paged_decode_int4" if bits == 4 else "paged_decode"
+        report(name, "csrc/paged_decode.cu",
+               "ollama_operator_tpu/ops/pallas/paged.py:609", err, tol,
+               timer(lambda: PG.paged_decode_attention(*args, nblk=NBLK)),
+               timer(lambda: PG.paged_decode_attention_plain(*args,
+                                                             nblk=nblk)),
+               None, *bound(nbytes, flops),
+               shape=f"B={B} H={H} KvH={KvH} hd={hd} ps={ps} int{bits}, "
+                     f"lengths 1..2048 ({n_pos} positions)",
+               main=(H == 32 or bits == 4))
+        del kp, vp
+
+    # -- dequant matmuls on every projection shape, N in {1, 64, 512}:
+    # qmm4 (int4) at llama3.1's, qmm (int8) at llama3.2:3b's. Both take
+    # the weight rounded to bf16 and sum f32 products of the same values,
+    # in another order than the plain version
+    for name, fn, plain, quant, replaces, shapes, main in (
+            ("qmm4", Q.qmm4, Q.qmm4_plain, Q.quantize_groupwise_int4,
+             "ollama_operator_tpu/ops/pallas/quant.py:142",
+             {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
               "w_gate/w_up": (4096, 14336), "w_down": (14336, 4096),
-              "lm_head": (4096, 128256)}
-    for wname, (K, O) in shapes.items():
-        qw = Q.quantize_groupwise_int4(
-            torch.randn((K, O), generator=g, device=dev) * 0.02)
-        wbf = Q.dequantize_groupwise(qw).to(bf)
-        for N in (1, 64, 512):
-            x = randn(N, K)
-            out = Q.qmm4(x, qw["q4"], qw["s"])
-            ref = Q.qmm4_plain(x, qw["q4"], qw["s"])
-            err = (out - ref).abs().max().item()
-            qtol = 1e-3   # f32 sums of the same products, other order
-            nbytes = 2 * N * K + K * O // 2 + 4 * (K // 32) * O + 4 * N * O
-            report("qmm4", "csrc/qmm4.cu",
-                   "ollama_operator_tpu/ops/pallas/quant.py:142", err, qtol,
-                   timer(lambda: Q.qmm4(x, qw["q4"], qw["s"])),
-                   timer(lambda: Q.qmm4_plain(x, qw["q4"], qw["s"])),
-                   timer(lambda: torch.matmul(x, wbf)),
-                   *bound(nbytes, 2.0 * N * K * O),
-                   shape=f"{wname} N={N} K={K} O={O}",
-                   main=(wname == "w_gate/w_up" and N == 64))
-        del qw, wbf
+              "lm_head": (4096, 128256)}, "w_gate/w_up"),
+            ("qmm", Q.qmm, Q.qmm_plain, Q.quantize_groupwise,
+             "ollama_operator_tpu/ops/pallas/quant.py:73",
+             {"wq/wo": (3072, 3072), "wk/wv": (3072, 1024),
+              "w_gate/w_up": (3072, 8192), "w_down": (8192, 3072)},
+             "w_gate/w_up")):
+        for wname, (K, O) in shapes.items():
+            qw = quant(torch.randn((K, O), generator=g, device=dev) * 0.02)
+            codes = qw["q4"] if "q4" in qw else qw["q"]
+            wbf = Q.dequantize_groupwise(qw).to(bf)
+            for N in (1, 64, 512):
+                x = randn(N, K)
+                out = fn(x, codes, qw["s"])
+                ref = plain(x, codes, qw["s"])
+                err = (out - ref).abs().max().item()
+                qtol = 1e-3   # f32 sums of the same products, other order
+                nbytes = (2 * N * K + codes.numel() + 4 * (K // 32) * O
+                          + 4 * N * O)
+                report(name, f"csrc/{name}.cu", replaces, err, qtol,
+                       timer(lambda: fn(x, codes, qw["s"])),
+                       timer(lambda: plain(x, codes, qw["s"])),
+                       timer(lambda: torch.matmul(x, wbf)),
+                       *bound(nbytes, 2.0 * N * K * O),
+                       shape=f"{wname} N={N} K={K} O={O}",
+                       main=(wname == main and N == 64))
+            del qw, codes, wbf
     torch.cuda.empty_cache()
 
 
@@ -219,14 +258,12 @@ def byte_tokenizer(vocab: int):
                      add_bos=False)
 
 
-def build_model(torch, cfg):
+def dense_params(torch, cfg):
+    """Random dense bf16 weights on the card, from the seed."""
     from ollama_operator_tpu_torch.models import decoder
-    from ollama_operator_tpu_torch.ops import quant as Q
     g = torch.Generator(device="cuda").manual_seed(SEED)
     params = decoder.init_params(cfg, g, torch.bfloat16, "cuda")
-    params = Q.quantize_params(params, bits=4)
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     return params
 
 
@@ -243,20 +280,41 @@ def post(port: int, body: dict) -> dict:
     return frames[-1]
 
 
-def serving_phase(torch, details) -> dict:
+# (model preset, KV pool, the counters its path must raise above 0)
+SERVING = (("llama3.1", "int8", ("flash_prefill", "paged_decode", "qmm4")),
+           ("llama3.2:3b", "int8", ("flash_prefill", "paged_decode", "qmm")),
+           ("llama3.2:3b", "int4", ("flash_prefill", "paged_decode_int4",
+                                    "qmm")))
+
+
+def serving_phase(torch, details, model: str, kv_dtype: str, expect) -> dict:
+    """Serve ``model`` at full width behind the HTTP server: dense bf16
+    weights from the seed go through ``ModelManager.preload``, which
+    resolves the weight dtype itself (int4 at 4e9 parameters or more, int8
+    below), on a ``kv_dtype`` pool at the serving defaults. Eight
+    concurrent greedy requests, then a repeat of one. Returns the launch
+    counts of the eight requests."""
+    import gc
+
     from ollama_operator_tpu_torch.models.config import get_config
     from ollama_operator_tpu_torch.ops import cuda_build
+    from ollama_operator_tpu_torch.runtime.engine import resolve_engine_dtype
     from ollama_operator_tpu_torch.server.app import ModelManager, serve
-    cfg = get_config("llama3.1")
+    cfg = get_config(model)
     t0 = time.perf_counter()
-    params = build_model(torch, cfg)
-    t_build = time.perf_counter() - t0
+    params = dense_params(torch, cfg)
     mm = ModelManager()            # the card: no device argument
-    lm = mm.preload("llama3.1", cfg, params, byte_tokenizer(cfg.vocab_size),
-                    template="{{ .Prompt }}")
+    lm = mm.preload(model, cfg, params, byte_tokenizer(cfg.vocab_size),
+                    template="{{ .Prompt }}", kv_dtype=kv_dtype)
     del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_build = time.perf_counter() - t0
+    if lm.serving_dtype != resolve_engine_dtype(cfg, "cuda"):
+        raise RuntimeError(f"{model} serves {lm.serving_dtype}")
     e = lm.ecfg
-    print(f"serving config: slots={e.max_slots} page_size={e.page_size} "
+    tag = f"{model} {lm.serving_dtype} weights, {kv_dtype} KV"
+    print(f"serving {tag}: slots={e.max_slots} page_size={e.page_size} "
           f"pages={e.n_pages} max_seq={e.max_seq_len} "
           f"chunk={e.decode_chunk} kv={e.cache_dtype} "
           f"kv_bytes={lm.engine.kv_bytes / 1e9:.2f}GB "
@@ -265,13 +323,13 @@ def serving_phase(torch, details) -> dict:
     httpd = serve(mm, "127.0.0.1", 0)
     port = httpd.server_address[1]
     try:
-        words = ("paged attention over int4 weights on one card "
+        words = ("paged attention over quantized weights on one card "
                  "serves many slots at once").split()
         prompts = [" ".join(words[(i + j) % len(words)]
                             for j in range(12 + 4 * i))[:240]
                    for i in range(8)]
         opts = {"temperature": 0, "num_predict": 32}
-        post(port, {"model": "llama3.1", "prompt": "warm up",
+        post(port, {"model": model, "prompt": "warm up",
                     "stream": False, "options": opts})
         for name in cuda_build.launches:
             cuda_build.launches[name] = 0
@@ -280,7 +338,7 @@ def serving_phase(torch, details) -> dict:
 
         def run(i):
             try:
-                results[i] = post(port, {"model": "llama3.1",
+                results[i] = post(port, {"model": model,
                                          "prompt": prompts[i],
                                          "options": opts})
             except Exception as ex:  # noqa: BLE001 — reported below
@@ -300,57 +358,120 @@ def serving_phase(torch, details) -> dict:
         for i, r in enumerate(results):
             if not r.get("done") or r.get("eval_count") != 32:
                 raise RuntimeError(f"request {i} ended {r}")
-        rep = post(port, {"model": "llama3.1", "prompt": prompts[3],
+        rep = post(port, {"model": model, "prompt": prompts[3],
                           "stream": False, "options": opts})
         if rep["context"] != results[3]["context"]:
             raise RuntimeError("a repeated greedy prompt gave other tokens")
-        missing = [k for k, n in launches.items() if n <= 0]
+        missing = [k for k in expect if launches[k] <= 0]
         if missing:
-            raise RuntimeError(f"kernels not launched while serving: "
+            raise RuntimeError(f"kernels not launched while serving {tag}: "
                                f"{missing} ({launches})")
         n_tok = sum(r["eval_count"] for r in results)
         ttft = sorted(r["prompt_eval_duration"] / 1e6 for r in results)
-        out = {"requests": len(results), "wall_s": wall,
+        out = {"model": model, "weights": lm.serving_dtype, "kv": kv_dtype,
+               "requests": len(results), "wall_s": wall,
                "generated_tokens": n_tok, "aggregate_tok_s": n_tok / wall,
-               "ttft_ms": ttft,
+               "ttft_ms": ttft, "kv_bytes": lm.engine.kv_bytes,
                "prompt_tokens": [r["prompt_eval_count"] for r in results],
                "launches": launches}
-        print(f"serving: {len(results)} requests x 32 tokens in "
+        print(f"serving {tag}: {len(results)} requests x 32 tokens in "
               f"{wall:.3f} s: {n_tok / wall:.1f} tok/s aggregate; TTFT ms "
               f"min {ttft[0]:.1f} median {ttft[len(ttft) // 2]:.1f} max "
               f"{ttft[-1]:.1f}; launches {launches}", flush=True)
-        details["serving"] = out
-        return launches
     finally:
         httpd.shutdown()
         httpd.server_close()
         mm.shutdown()
-        torch.cuda.empty_cache()
+    # the scheduler has stopped: drive its engine directly
+    out["step"] = step_breakdown(torch, lm.engine)
+    details.setdefault("serving", []).append(out)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
-def cross_check(torch, details):
-    """Two layers at full width: kernel path vs plain path on the card."""
+def step_breakdown(torch, engine, n_slots: int = 8, n: int = 16) -> dict:
+    """One decode dispatch of ``n`` steps for ``n_slots`` greedy slots
+    (200-token prompts), straight on the engine after its scheduler has
+    stopped: the host clock for enqueueing it and for finishing it, and
+    the device's busy time from ``torch.profiler`` (the kernels' own
+    times; "not measured" when the profiler records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ollama_operator_tpu_torch.runtime.engine import SlotOptions
+    g = torch.Generator().manual_seed(SEED)
+    greedy = SlotOptions(temperature=0)
+    for slot in range(n_slots):
+        engine.admit(slot, torch.randint(0, engine.cfg.vocab_size, (200,),
+                                         generator=g).numpy(), greedy)
+    engine.decode_n_launch(4).wait()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handle = engine.decode_n_launch(n)
+    t_enqueue = time.perf_counter() - t0
+    handle.wait()
+    t_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.decode_n_launch(n).wait()
+    cuda = getattr(torch.autograd.DeviceType, "CUDA", None)
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == cuda]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
+    by_name = collections.Counter()
+    for e in kernels:    # names cut to 100 characters, their times summed
+        by_name[e.key[:100]] += dev_us(e) / 1e3 / n
+    for slot in range(n_slots):
+        engine.release(slot)
+    out = {"slots": n_slots, "steps": n,
+           "host_enqueue_ms_per_step": t_enqueue * 1e3 / n,
+           "wall_ms_per_step": t_wall * 1e3 / n,
+           "device_busy_ms_per_step": busy_ms if kernels else "not measured",
+           "device_busy_share": (busy_ms / (t_wall * 1e3 / n)
+                                 if kernels else "not measured"),
+           "kernel_launches_per_step": (sum(e.count for e in kernels) / n
+                                        if kernels else "not measured"),
+           "top_kernels_ms_per_step": dict(by_name.most_common(8))}
+    print(f"decode step ({n_slots} slots, {n} steps): host enqueue "
+          f"{out['host_enqueue_ms_per_step']:.2f} ms/step, wall "
+          f"{out['wall_ms_per_step']:.2f} ms/step, device busy "
+          f"{out['device_busy_ms_per_step']} ms/step, launches/step "
+          f"{out['kernel_launches_per_step']}", flush=True)
+    return out
+
+
+def cross_check(torch, details, model: str, bits: int, kv_dtype: str):
+    """Two layers at full width: kernel path vs plain path on the card,
+    ``bits``-bit weights on a ``kv_dtype`` pool."""
     from ollama_operator_tpu_torch.models import decoder
     from ollama_operator_tpu_torch.models.config import get_config
     from ollama_operator_tpu_torch.ops import attention as A
     from ollama_operator_tpu_torch.ops import paged as PG
     from ollama_operator_tpu_torch.ops import quant as Q
-    cfg = dataclasses.replace(get_config("llama3.1"), n_layers=2)
-    params = build_model(torch, cfg)
+    cfg = dataclasses.replace(get_config(model), n_layers=2)
+    params = Q.quantize_params(dense_params(torch, cfg), bits=bits)
     dev = "cuda"
+    mm_name = "qmm4" if bits == 4 else "qmm"
 
     def plain_matmul(x, w, out_dtype=None):
         if not Q.is_quantized(w):
             y = x @ w
             return y.to(out_dtype) if out_dtype is not None else y
-        y = Q.qmm4_plain(x.reshape(-1, x.shape[-1]), w["q4"], w["s"])
+        x2 = x.reshape(-1, x.shape[-1])
+        y = (Q.qmm4_plain(x2, w["q4"], w["s"]) if Q.is_int4(w)
+             else Q.qmm_plain(x2, w["q"], w["s"]))
         return y.reshape(*x.shape[:-1], -1).to(out_dtype or x.dtype)
 
     def plain_chunk(cfg, q, k, v, scale):
         return A.flash_prefill_plain(q, k, v, scale, cfg.attn_softcap,
                                      cfg.sliding_window)
 
-    plain_fns = {"qmm4": (Q, "matmul", plain_matmul),
+    plain_fns = {mm_name: (Q, "matmul", plain_matmul),
                  "flash_prefill": (decoder, "chunk_attention", plain_chunk),
                  "paged_decode": (decoder, "paged_decode_attention",
                                   PG.paged_decode_attention_plain)}
@@ -367,10 +488,15 @@ def cross_check(torch, details):
         try:
             L, KvH, hd, ps, NBLK = 2, cfg.n_kv_heads, cfg.head_dim, 128, 32
             shp = (L, 8, KvH, ps, hd)
-            kp = {"q": torch.zeros(shp, dtype=torch.int8, device=dev),
-                  "s": torch.zeros(shp[:-1], device=dev)}
-            vp = {"q": torch.zeros(shp, dtype=torch.int8, device=dev),
-                  "s": torch.zeros(shp[:-1], device=dev)}
+
+            def pool():
+                if kv_dtype == "int4":
+                    return {"q4": torch.zeros(shp[:3] + (ps // 2, hd),
+                                              dtype=torch.uint8, device=dev),
+                            "s": torch.zeros(shp[:-1], device=dev)}
+                return {"q": torch.zeros(shp, dtype=torch.int8, device=dev),
+                        "s": torch.zeros(shp[:-1], device=dev)}
+            kp, vp = pool(), pool()
             n, bucket = 200, 256
             toks = torch.zeros((1, bucket), dtype=torch.long, device=dev)
             gen = torch.Generator(device="cpu").manual_seed(SEED)
@@ -412,13 +538,15 @@ def cross_check(torch, details):
     # distribution that bf16 rounding may break either way, and is listed.
     ties = [i for i in range(len(sk)) if gaps[i] <= 2 * step_err[i]]
     bad = [i for i in range(len(sk)) if sk[i] != sp[i] and i not in ties]
-    details["cross_check"] = {"logit_max_abs_err": err, "logit_scale": scale,
-                              "tol": tol, "step_err": step_err,
-                              "plain_top2_gap": gaps, "near_tie_steps": ties,
-                              "kernel_tokens": sk, "plain_tokens": sp}
-    print(f"cross-check (2 layers, full width, 17 steps): logits max |err| "
-          f"{err:.4g} (tol {tol:.4g}, max |logit| {scale:.4g}); per step "
-          f"{[round(e, 4) for e in step_err]}; tokens equal at "
+    tag = f"{model} int{bits} weights, {kv_dtype} KV"
+    details.setdefault("cross_check", []).append({
+        "model": model, "weights": f"int{bits}", "kv": kv_dtype,
+        "logit_max_abs_err": err, "logit_scale": scale, "tol": tol,
+        "step_err": step_err, "plain_top2_gap": gaps,
+        "near_tie_steps": ties, "kernel_tokens": sk, "plain_tokens": sp})
+    print(f"cross-check {tag} (2 layers, full width, 17 steps): logits max "
+          f"|err| {err:.4g} (tol {tol:.4g}, max |logit| {scale:.4g}); per "
+          f"step {[round(e, 4) for e in step_err]}; tokens equal at "
           f"{sum(a == b for a, b in zip(sk, sp))}/{len(sk)} steps; "
           f"near-tie steps {ties} (gaps {[round(gaps[i], 4) for i in ties]})",
           flush=True)
@@ -429,9 +557,11 @@ def cross_check(torch, details):
             e = (lk - lx).abs().amax(dim=-1).tolist()
             print(f"  with plain {name} only: per step "
                   f"{[round(x, 4) for x in e]}", flush=True)
-        raise RuntimeError(f"kernel and plain paths disagree: decidable "
-                           f"tokens differ at steps {bad}, logits {err} vs "
-                           f"tol {tol}")
+        raise RuntimeError(f"kernel and plain paths disagree ({tag}): "
+                           f"decidable tokens differ at steps {bad}, "
+                           f"logits {err} vs tol {tol}")
+    del params
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -515,24 +645,29 @@ def main() -> int:
         print("kernels-only run: no serving phase; no result", flush=True)
         return 4
 
+    launches_by_path = {}
     try:
-        launches = serving_phase(torch, details)
-        cross_check(torch, details)
+        for model, kv, expect in SERVING:
+            launches_by_path[f"{model} {kv} KV"] = serving_phase(
+                torch, details, model, kv, expect)
+        cross_check(torch, details, "llama3.1", 4, "int8")
+        cross_check(torch, details, "llama3.2:3b", 8, "int4")
     except Exception as e:  # noqa: BLE001 — every phase failure is fatal
         import traceback
         traceback.print_exc()
         return fail(repr(e))
-    names = {"flash_prefill": "flash_prefill",
-             "paged_decode_attention": "paged_decode",
-             "qmm4": "qmm4"}
     kernels = []
     for name, e in entries.items():
         e.pop("ok", None)
-        e["launches"] = launches[names[name]]
+        # launches over the serving paths, each counted from 0 (per path
+        # in launches_by_path)
+        e["launches"] = sum(n[name] for n in launches_by_path.values())
+        e["launches_by_path"] = {p: n[name]
+                                 for p, n in launches_by_path.items()}
         kernels.append({k: e[k] for k in (
             "name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")})
+            "library_ms", "shape", "launches_by_path")})
     details["kernels"] = kernels
     write_details(out_dir, details)
     print(json.dumps({"kernels": kernels}), flush=True)

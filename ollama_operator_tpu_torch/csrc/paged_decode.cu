@@ -6,14 +6,15 @@
 // query at absolute position lengths[b] attends keys 0 .. lengths[b]
 // (inclusive) through the slot's block table, optionally only inside a
 // sliding window; scores are scaled, softcapped, then masked; f32 online
-// softmax. For an int8 pool the per-position key scale multiplies the
-// scores and the value scale folds into the probabilities, so no
+// softmax. For an int8 or int4 pool the per-position key scale multiplies
+// the scores and the value scale folds into the probabilities, so no
 // dequantized K/V tile is ever written anywhere.
 //
 // What bounds it on the card: bytes. Each live page is read once per
-// (slot, kv head): ps * hd code bytes for K and for V, plus 2 * ps f32
-// scales, against G * ps * hd * 2 multiply-adds, i.e. about 2 operations per
-// byte for G = 4, far below the card's ~295 operations per byte.
+// (slot, kv head): ps * hd code bytes for K and for V (half that for int4),
+// plus 2 * ps f32 scales, against G * ps * hd * 2 multiply-adds, i.e. a few
+// operations per byte for G = 3 or 4, far below the card's ~295 operations
+// per byte.
 //
 // Design: one CTA of 128 threads per (kv head, slot) computes the G query
 // rows of that group. The CTA reads its own block-table row and length in
@@ -25,8 +26,15 @@
 // output column d (and d + 128) for the G rows. The layer index is a plain
 // argument, so the full [L, P, ...] pool is addressed in place.
 //
-// Pool layout of the port: codes [L, P, KvH, ps, hd] (int8 or bf16) with the
-// true head dim (no padding), scales [L, P, KvH, ps] f32 unpadded.
+// int4 pool: byte row j of a page holds positions 2j (low nibble) and
+// 2j + 1 (high nibble), each as nibble - 8 (the TPU kernel's _unpack4).
+// The staging loop reads the packed page (half the int8 bytes) and writes
+// both positions' codes into shared memory as int8 rows, so everything
+// after staging is the int8 variant's code.
+//
+// Pool layout of the port: codes [L, P, KvH, ps, hd] (int8 or bf16) or
+// [L, P, KvH, ps/2, hd] (int4, uint8) with the true head dim (no padding),
+// scales [L, P, KvH, ps] f32 unpadded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,7 +118,15 @@ __device__ __forceinline__ float load_elem<__nv_bfloat16>(
   return __bfloat162float(*p);
 }
 
-template <typename T, bool QUANT>
+// Four packed int4 bytes → the four low-nibble codes and the four
+// high-nibble codes, each as four int8 in a word (nibble - 8, byte-wise).
+__device__ __forceinline__ void unpack_int4_word(uint32_t w, uint32_t& lo,
+                                                 uint32_t& hi) {
+  lo = __vsub4(w & 0x0f0f0f0fu, 0x08080808u);
+  hi = __vsub4((w >> 4) & 0x0f0f0f0fu, 0x08080808u);
+}
+
+template <typename T, bool QUANT, bool PACK4>
 __global__ void __launch_bounds__(NTHREADS)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const T* __restrict__ kpool,
@@ -165,13 +181,28 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = start; i < nlive; ++i) {
     const int page = tables[(int64_t)b * nblk + i];
     const int64_t row0 = (((int64_t)layer * P + page) * KvH + kvh) * ps;
-    const uint32_t* kg = (const uint32_t*)(kpool + row0 * hd);
-    const uint32_t* vg = (const uint32_t*)(vpool + row0 * hd);
+    // code rows of this page: ps, or ps / 2 packed rows for int4
+    const int64_t crow0 = PACK4 ? row0 / 2 : row0;
+    const uint32_t* kg = (const uint32_t*)(kpool + crow0 * hd);
+    const uint32_t* vg = (const uint32_t*)(vpool + crow0 * hd);
     __syncthreads();  // q staged (first page) / previous page consumed
-    for (int idx = tid; idx < ps * nw; idx += NTHREADS) {
-      const int r = idx / nw, w = idx - r * nw;
-      Kw[r * ldk + w] = kg[idx];
-      Vw[idx] = vg[idx];
+    if (PACK4) {
+      for (int idx = tid; idx < (ps / 2) * nw; idx += NTHREADS) {
+        const int r = idx / nw, w = idx - r * nw;
+        uint32_t lo, hi;
+        unpack_int4_word(kg[idx], lo, hi);
+        Kw[(2 * r) * ldk + w] = lo;
+        Kw[(2 * r + 1) * ldk + w] = hi;
+        unpack_int4_word(vg[idx], lo, hi);
+        Vw[(2 * r) * nw + w] = lo;
+        Vw[(2 * r + 1) * nw + w] = hi;
+      }
+    } else {
+      for (int idx = tid; idx < ps * nw; idx += NTHREADS) {
+        const int r = idx / nw, w = idx - r * nw;
+        Kw[r * ldk + w] = kg[idx];
+        Vw[idx] = vg[idx];
+      }
     }
     if (QUANT && tid < ps) {
       kss[tid] = kscale[row0 + tid];
@@ -262,7 +293,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename T, bool QUANT>
+template <typename T, bool QUANT, bool PACK4>
 int launch(const void* q, const void* kpool, const void* kscale,
            const void* vpool, const void* vscale, const int* tables,
            const int* lengths, void* out, int B, int H, int KvH, int hd,
@@ -273,10 +304,11 @@ int launch(const void* q, const void* kpool, const void* kscale,
   const size_t smem = sizeof(float) * ((size_t)G * hd + (size_t)ps * (nw + 1) +
                                        (size_t)ps * nw + 2 * (size_t)ps +
                                        (size_t)G * ps + MAX_G * NWARPS);
-  cudaFuncSetAttribute(paged_decode_kernel<T, QUANT>,
+  cudaFuncSetAttribute(paged_decode_kernel<T, QUANT, PACK4>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   dim3 grid(KvH, B);
-  paged_decode_kernel<T, QUANT><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+  paged_decode_kernel<T, QUANT, PACK4>
+      <<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const T*)kpool, (const float*)kscale,
       (const T*)vpool, (const float*)vscale, tables, lengths,
       (__nv_bfloat16*)out, H, KvH, hd, P, ps, nblk, layer, scale, softcap,
@@ -298,9 +330,25 @@ extern "C" int paged_decode_int8(const void* q, const void* kq,
                                  int KvH, int hd, int P, int ps, int nblk,
                                  int layer, float scale, float softcap,
                                  int window, void* stream) {
-  return launch<int8_t, true>(q, kq, ks, vq, vs, tables, lengths, out, B, H,
-                              KvH, hd, P, ps, nblk, layer, scale, softcap,
-                              window, stream);
+  return launch<int8_t, true, false>(q, kq, ks, vq, vs, tables, lengths, out,
+                                     B, H, KvH, hd, P, ps, nblk, layer, scale,
+                                     softcap, window, stream);
+}
+
+// The same for an int4 pool: codes [L, P, KvH, ps/2, hd] uint8 (positions
+// 2j and 2j + 1 in the low and high nibbles of row j, +8 bias), scales
+// [L, P, KvH, ps] f32. ps is the logical page size and must be even.
+extern "C" int paged_decode_int4(const void* q, const void* kq4,
+                                 const void* ks, const void* vq4,
+                                 const void* vs, const int* tables,
+                                 const int* lengths, void* out, int B, int H,
+                                 int KvH, int hd, int P, int ps, int nblk,
+                                 int layer, float scale, float softcap,
+                                 int window, void* stream) {
+  if (ps % 2) return (int)cudaErrorInvalidValue;
+  return launch<int8_t, true, true>(q, kq4, ks, vq4, vs, tables, lengths, out,
+                                    B, H, KvH, hd, P, ps, nblk, layer, scale,
+                                    softcap, window, stream);
 }
 
 // The same for a bf16 pool (no scales).
@@ -310,8 +358,8 @@ extern "C" int paged_decode_bf16(const void* q, const void* kp,
                                  int KvH, int hd, int P, int ps, int nblk,
                                  int layer, float scale, float softcap,
                                  int window, void* stream) {
-  return launch<__nv_bfloat16, false>(q, kp, nullptr, vp, nullptr, tables,
-                                      lengths, out, B, H, KvH, hd, P, ps,
-                                      nblk, layer, scale, softcap, window,
-                                      stream);
+  return launch<__nv_bfloat16, false, false>(q, kp, nullptr, vp, nullptr,
+                                             tables, lengths, out, B, H, KvH,
+                                             hd, P, ps, nblk, layer, scale,
+                                             softcap, window, stream);
 }

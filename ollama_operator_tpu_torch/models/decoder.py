@@ -15,9 +15,12 @@ leading ``n_layers`` axis, weights ``[K, O]``, quantized leaves as
 Layers run as a Python loop (PyTorch is eager; the JAX package scans).
 The KV pools are updated in place (the JAX functions are pure and return
 new pools; here the same pools come back), which saves a pool-sized copy
-per step. On the card every int4 projection runs the qmm4 kernel, prefill
-attention the flash-prefill kernel and decode attention the paged-decode
-kernel (``ops/``); on the CPU the same calls run their plain versions.
+per step. On the card every int4 projection runs the qmm4 kernel, every
+int8 projection the qmm kernel, prefill attention the flash-prefill kernel
+and decode attention the paged-decode kernel (int8, int4 or bf16 pool;
+``ops/``); on the CPU the same calls run their plain versions. A tied LM
+head (``tok_emb.T``) stays a bf16 ``torch.matmul``, as the JAX package
+leaves it outside any Pallas kernel.
 
 Architecture features outside this slice (layernorm, parallel blocks,
 MoE, alternating sliding attention, qk-norm, sandwich norms, plain MLPs,
@@ -36,7 +39,8 @@ from ..ops import quant as Q
 from ..ops.attention import chunk_attention
 from ..ops.norms import rms_norm
 from ..ops.paged import paged_decode_attention
-from ..ops.quant_cache import quantize_kv
+from ..ops.quant_cache import (INT4_BIAS, pack_kv4, pool_codes, quantize_kv,
+                               quantize_kv4)
 from ..ops.rope import apply_rope, rope_angles_cfg
 from .config import ModelConfig
 
@@ -218,7 +222,12 @@ def prefill_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor
 
 
 def _pool_dims(k_pool) -> Tuple[int, ...]:
-    return tuple((k_pool["q"] if isinstance(k_pool, dict) else k_pool).shape)
+    """(L, P, KvH, ps, hd) of a pool, ps the logical page size (an int4
+    pool stores ps/2 byte rows a page)."""
+    if not isinstance(k_pool, dict):
+        return tuple(k_pool.shape)
+    L, P, KvH, ps = k_pool["s"].shape
+    return L, P, KvH, ps, pool_codes(k_pool).shape[-1]
 
 
 def paged_insert(cfg: ModelConfig, k_pool, v_pool, ks, vs,
@@ -227,17 +236,31 @@ def paged_insert(cfg: ModelConfig, k_pool, v_pool, ks, vs,
     :func:`prefill_chunk`) into the pool pages listed by ``table_row``
     [NBLK]. Positions >= n_valid go to the trash page, so an admission
     allocates pages only for real tokens. Updates the pools in place and
-    returns them."""
+    returns them.
+
+    int4 pools: admissions start at offset 0, so the nibble pairs
+    (2j, 2j + 1) are byte-aligned and pack directly. As in the JAX
+    package, a pair goes to its even member's page, so a pair straddling
+    ``n_valid`` writes its padding half one position past the slot's
+    length (never attended; the next decode write replaces it) while
+    that position's scale goes to the trash page."""
     L, P, KvH, ps, hd = _pool_dims(k_pool)
     Tb = ks.shape[3]
     dev = ks.device
     t = torch.arange(Tb, device=dev)
     pg = torch.where(t < n_valid, table_row.long()[t // ps],
                      torch.full_like(t, TRASH_PAGE))
-    idx = (torch.arange(L, device=dev)[:, None, None], pg[None, None, :],
-           torch.arange(KvH, device=dev)[None, :, None],
-           (t % ps)[None, None, :])
-    if isinstance(k_pool, dict):
+    lx = torch.arange(L, device=dev)[:, None, None]
+    hx = torch.arange(KvH, device=dev)[None, :, None]
+    idx = (lx, pg[None, None, :], hx, (t % ps)[None, None, :])
+    if isinstance(k_pool, dict) and "q4" in k_pool:
+        idx4 = (lx, pg[0::2][None, None, :], hx,
+                ((t % ps)[0::2] // 2)[None, None, :])
+        for pool, x in ((k_pool, ks), (v_pool, vs)):
+            codes, scales = quantize_kv4(x[:, 0])
+            pool["q4"][idx4] = pack_kv4(codes)
+            pool["s"][idx] = scales
+    elif isinstance(k_pool, dict):
         for pool, x in ((k_pool, ks), (v_pool, vs)):
             codes, scales = quantize_kv(x[:, 0])
             pool["q"][idx] = codes
@@ -248,15 +271,37 @@ def paged_insert(cfg: ModelConfig, k_pool, v_pool, ks, vs,
     return k_pool, v_pool
 
 
+def _scatter4(pool4: torch.Tensor, codes: torch.Tensor, pg, off):
+    """Merge int4 codes [B, KvH, T, hd] into one layer's nibble-packed
+    pool [P, KvH, ps/2, hd] at byte row off // 2: a read-modify-write, one
+    offset parity at a time (two even offsets never share a byte, so a
+    pass has no conflicting writes, and the odd pass reads the even
+    pass's bytes). Entries of the other parity are sent to the trash
+    page, whose contents are never attended (the JAX package drops them
+    with an out-of-bounds write). In place."""
+    hx = torch.arange(codes.shape[1], device=codes.device)[None, :, None]
+    nib = (codes.to(torch.int16) + INT4_BIAS).to(torch.uint8) & 0xF
+    for parity, keep, put in ((0, 0xF0, nib), (1, 0x0F, nib << 4)):
+        sel = (off % 2) == parity
+        idx = (torch.where(sel, pg, TRASH_PAGE)[:, None, :], hx,
+               torch.where(sel, off // 2, 0)[:, None, :])
+        pool4[idx] = (pool4[idx] & keep) | put
+
+
 def _scatter_kv_pools(kp, vp, i: int, k, v, pg_w, off_w):
-    """Quantize (int8 pools) and write one layer's fresh K/V
+    """Quantize (int8/int4 pools) and write one layer's fresh K/V
     [B, KvH, T, hd] into the pools at (page, offset) per (row, position);
     pg_w/off_w [B, T]. In place."""
     KvH = k.shape[1]
     idx = (pg_w[:, None, :],
            torch.arange(KvH, device=k.device)[None, :, None],
            off_w[:, None, :])
-    if isinstance(kp, dict):
+    if isinstance(kp, dict) and "q4" in kp:
+        for pool, x in ((kp, k), (vp, v)):
+            codes, scales = quantize_kv4(x)
+            _scatter4(pool["q4"][i], codes, pg_w, off_w)
+            pool["s"][i][idx] = scales
+    elif isinstance(kp, dict):
         for pool, x in ((kp, k), (vp, v)):
             codes, scales = quantize_kv(x)
             pool["q"][i][idx] = codes

@@ -24,16 +24,19 @@ from typing import Dict, Sequence
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-KERNELS = ("flash_prefill", "paged_decode", "qmm4")
+KERNELS = ("flash_prefill", "paged_decode", "qmm4", "qmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# name -> kernel launches so far; each wrapper adds one where it launches
-# its kernel and nowhere else, so a caller can show which kernels a path
-# went through (reset by assigning 0)
-launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# kernel -> launches so far; each wrapper adds one where it launches its
+# kernel and nowhere else, so a caller can show which kernels a path went
+# through (reset by assigning 0). The paged-decode library counts its int4
+# pool variant apart from its int8/bf16 one.
+COUNTERS = ("flash_prefill", "paged_decode", "paged_decode_int4", "qmm4",
+            "qmm")
+launches: Dict[str, int] = {name: 0 for name in COUNTERS}
 
 
 def _nvcc() -> str:

@@ -1,9 +1,9 @@
-"""Weight-only int8/int4 quantization (W8A16 / W4A16) and the int4
-dequant-matmul kernel's wrapper.
+"""Weight-only int8/int4 quantization (W8A16 / W4A16) and the wrappers of
+the two dequant-matmul kernels.
 
 Counterpart of ``ollama_operator_tpu/ops/quant.py`` and of the Pallas
-``qmm4_pallas`` in ``ops/pallas/quant.py``. A quantized linear is a dict
-leaf of the params tree, in the JAX package's layouts:
+``qmm_pallas`` / ``qmm4_pallas`` in ``ops/pallas/quant.py``. A quantized
+linear is a dict leaf of the params tree, in the JAX package's layouts:
 
     int8: {"q":  int8  [..., K,   O], "s": f32 [..., K/32, O]}
     int4: {"q4": uint8 [..., K/2, O], "s": f32 [..., K/32, O]}
@@ -13,9 +13,13 @@ int4 packing is group-local: within each group of 32 rows, byte j holds
 row j in its low nibble and row j + 16 in its high nibble, both biased by
 +8.
 
-:func:`qmm4` launches ``csrc/qmm4.cu`` for tensors on the card and runs
-:func:`qmm4_plain` for tensors on the CPU; :func:`matmul` sends every int4
-matmul through it, prefill included.
+:func:`qmm` / :func:`qmm4` launch ``csrc/qmm.cu`` / ``csrc/qmm4.cu`` for
+tensors on the card and run :func:`qmm_plain` / :func:`qmm4_plain` for
+tensors on the CPU; :func:`matmul` sends every int8 and int4 matmul
+through them, prefill included. With bf16 activations (the card's path)
+both compute ``y = sum_k x[k] * bf16(code[k] * s[k/32])`` in f32, as the
+TPU kernels do; with f32 activations (the CPU tests) the weight stays
+f32.
 """
 
 from __future__ import annotations
@@ -127,30 +131,41 @@ def dequantize_groupwise(qw: Dict[str, torch.Tensor]) -> torch.Tensor:
     return (qr * s[..., :, None, :].float()).reshape(*lead, K, O)
 
 
+def _weight_for(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The dequantized f32 weight as the kernels use it: rounded to bf16
+    for bf16 activations (the TPU kernels drop the dequantized tile to the
+    compute dtype before the dot), kept in f32 for f32 activations."""
+    return w.to(torch.bfloat16).float() if x.dtype == torch.bfloat16 else w
+
+
 def qmm_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
               ) -> torch.Tensor:
-    """x [N, K] @ dequant(int8 q [K, O], s [K/32, O]) → [N, O] f32."""
-    return x.float() @ dequantize_groupwise({"q": q, "s": s})
+    """Plain version of the qmm kernel: x [N, K] @ dequant(int8 q [K, O],
+    s [K/32, O]) → [N, O] f32. The weight is code times f32 group scale,
+    rounded to bf16 when x is bf16; the product accumulates in f32."""
+    return x.float() @ _weight_for(x, dequantize_groupwise({"q": q, "s": s}))
 
 
 def qmm4_plain(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor
                ) -> torch.Tensor:
     """Plain version of the qmm4 kernel: x [N, K] @ dequant(q4 [K/2, O],
-    s [K/32, O]) → [N, O] f32, the weight dequantized to f32 (code times
-    f32 group scale) before an f32 product."""
-    return x.float() @ dequantize_groupwise({"q4": q4, "s": s})
+    s [K/32, O]) → [N, O] f32, with the weight formed as in
+    :func:`qmm_plain`."""
+    return x.float() @ _weight_for(x, dequantize_groupwise({"q4": q4,
+                                                           "s": s}))
 
 
 _ROW_TILES = (1, 2, 4, 8, 16)
-_TILE_O = 256        # columns per CTA in csrc/qmm4.cu
+_TILE_O = 256        # columns per CTA in csrc/qmm.cu and csrc/qmm4.cu
 _STAGE_GROUPS = 4    # groups staged per shared-memory pass
 _TARGET_CTAS = 264   # two per SM on the H100's 132
 
 
 def qmm4_plan(N: int, K: int, O: int) -> Tuple[int, int, int]:
-    """(row tile, K splits, groups per split) for the qmm4 kernel: the
-    smallest row tile that covers N (up to 16), and K split across CTAs
-    only when column and row tiles alone leave the card underfilled."""
+    """(row tile, K splits, groups per split) for the qmm and qmm4
+    kernels: the smallest row tile that covers N (up to 16), and K split
+    across CTAs only when column and row tiles alone leave the card
+    underfilled."""
     nt = next(t for t in _ROW_TILES if t >= min(N, 16))
     ctas = -(-O // _TILE_O) * -(-N // nt)
     G = K // GROUP
@@ -162,6 +177,53 @@ def qmm4_plan(N: int, K: int, O: int) -> Tuple[int, int, int]:
     return nt, -(-G // gps), gps
 
 
+def _launch(name: str, x: torch.Tensor, codes: torch.Tensor,
+            s: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/<name>.cu`` for x [N, K] bf16 against one quantized
+    [K, O] weight (int8 codes [K, O] or packed uint8 codes [K/2, O]) and
+    f32 scales [K/32, O] → [N, O] f32. Raises on anything the kernel does
+    not take."""
+    N, K = x.shape
+    O = codes.shape[1]
+    code_dtype, code_rows = ((torch.int8, K) if name == "qmm"
+                             else (torch.uint8, K // 2))
+    if x.dtype != torch.bfloat16 or codes.dtype != code_dtype or \
+            s.dtype != torch.float32:
+        raise TypeError(f"{name} kernel takes bf16 x, {code_dtype} codes, "
+                        f"f32 scales; got {x.dtype}, {codes.dtype}, "
+                        f"{s.dtype}")
+    if (codes.shape[0] != code_rows or K % GROUP or O % 4
+            or s.shape != (K // GROUP, O)):
+        raise ValueError(f"{name} kernel: x {tuple(x.shape)}, codes "
+                         f"{tuple(codes.shape)}, s {tuple(s.shape)} "
+                         f"unsupported")
+    x, codes, s = x.contiguous(), codes.contiguous(), s.contiguous()
+    nt, ksplit, gps = qmm4_plan(N, K, O)
+    out = torch.empty((N, O), dtype=torch.float32, device=x.device)
+    work = (torch.empty((ksplit, N, O), dtype=torch.float32,
+                        device=x.device) if ksplit > 1 else out)
+    fn = cuda_build.function(
+        name, f"{name}_bf16",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    rc = fn(x.data_ptr(), codes.data_ptr(), s.data_ptr(), out.data_ptr(),
+            work.data_ptr(), N, K, O, nt, ksplit, gps,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(rc, name)
+    cuda_build.launches[name] += 1
+    return out
+
+
+def qmm(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """x [N, K] @ dequant(int8 q [K, O], s [K/32, O]) → [N, O] f32.
+
+    On the card this launches ``csrc/qmm.cu`` (x bf16, K % 32 == 0,
+    O % 4 == 0) for every N and raises on anything it does not take; on
+    the CPU it runs :func:`qmm_plain`."""
+    if not cuda_build.on_card(x, q, s):
+        return qmm_plain(x, q, s)
+    return _launch("qmm", x, q, s)
+
+
 def qmm4(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor
          ) -> torch.Tensor:
     """x [N, K] @ dequant(q4 [K/2, O], s [K/32, O]) → [N, O] f32.
@@ -171,51 +233,21 @@ def qmm4(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor
     the CPU it runs :func:`qmm4_plain`."""
     if not cuda_build.on_card(x, q4, s):
         return qmm4_plain(x, q4, s)
-    N, K = x.shape
-    Kp, O = q4.shape
-    if x.dtype != torch.bfloat16 or q4.dtype != torch.uint8 or \
-            s.dtype != torch.float32:
-        raise TypeError(f"qmm4 kernel takes bf16 x, uint8 codes, f32 "
-                        f"scales; got {x.dtype}, {q4.dtype}, {s.dtype}")
-    if 2 * Kp != K or K % GROUP or O % 4 or s.shape != (K // GROUP, O):
-        raise ValueError(f"qmm4 kernel: x {tuple(x.shape)}, q4 "
-                         f"{tuple(q4.shape)}, s {tuple(s.shape)} unsupported")
-    x, q4, s = x.contiguous(), q4.contiguous(), s.contiguous()
-    nt, ksplit, gps = qmm4_plan(N, K, O)
-    out = torch.empty((N, O), dtype=torch.float32, device=x.device)
-    work = (torch.empty((ksplit, N, O), dtype=torch.float32,
-                        device=x.device) if ksplit > 1 else out)
-    fn = cuda_build.function(
-        "qmm4", "qmm4_bf16",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(),
-            work.data_ptr(), N, K, O, nt, ksplit, gps,
-            torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(rc, "qmm4")
-    cuda_build.launches["qmm4"] += 1
-    return out
+    return _launch("qmm4", x, q4, s)
 
 
 def matmul(x: torch.Tensor, w: Any,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Linear against a dense tensor or a quantized dict leaf. Every int4
-    matmul goes through :func:`qmm4` (the kernel on the card), whatever
-    the token count. int8 weights run their plain version on the CPU;
-    their kernel (``qmm_pallas``) is not ported yet, so on the card they
-    raise."""
+    matmul goes through :func:`qmm4` and every int8 matmul through
+    :func:`qmm` (the kernels on the card), whatever the token count."""
     if not is_quantized(w):
         y = x @ w
         return y.to(out_dtype) if out_dtype is not None else y
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if is_int4(w):
-        y = qmm4(x2, w["q4"], w["s"])
-    elif x.device.type == "cpu":
-        y = qmm_plain(x2, w["q"], w["s"])
-    else:
-        raise NotImplementedError(
-            "int8 weights on the card need the qmm (W8A16) kernel, which "
-            "is not ported yet; serve int4")
+    y = (qmm4(x2, w["q4"], w["s"]) if is_int4(w)
+         else qmm(x2, w["q"], w["s"]))
     return y.reshape(*lead, -1).to(out_dtype or x.dtype)
 
 

@@ -2,12 +2,12 @@
 
 Counterpart of ``ollama_operator_tpu/runtime/engine.py`` for its default
 serving path on one device: slots share a physical page pool (int8 on the
-card), admissions prefill one prompt in a power-of-two bucket and insert
-its K/V into the slot's pages, and every decode dispatch advances all
-slots ``decode_chunk`` steps. The surface the scheduler drives is the JAX
-engine's: ``admit``, ``decode_n_launch`` → ``DecodeHandle.wait``,
-``prepare_decode``, ``release``, ``can_admit``, ``admissible``,
-``free_slots``, ``bucket_for``.
+card by default, int4 on request), admissions prefill one prompt in a
+power-of-two bucket and insert its K/V into the slot's pages, and every
+decode dispatch advances all slots ``decode_chunk`` steps. The surface the
+scheduler drives is the JAX engine's: ``admit``, ``decode_n_launch`` →
+``DecodeHandle.wait``, ``prepare_decode``, ``release``, ``can_admit``,
+``admissible``, ``free_slots``, ``bucket_for``.
 
 PyTorch runs eagerly, so there is nothing to compile: a decode dispatch is
 the host loop that enqueues ``n`` steps on the device, and its handle
@@ -20,7 +20,7 @@ meshes are not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -40,9 +40,10 @@ class EngineConfig:
     (:func:`resolve_serving_defaults`), as in the JAX package."""
     max_slots: int = 8
     max_seq_len: int = 2048
-    # torch.bfloat16 / torch.float32 pools, or torch.int8 for the
-    # quantized pool (int8 codes + per-(position, head) f32 scales)
-    cache_dtype: torch.dtype = torch.bfloat16
+    # torch.bfloat16 / torch.float32 pools, torch.int8 for the quantized
+    # pool (int8 codes + per-(position, head) f32 scales), or the string
+    # "int4" for the nibble-packed pool (resolve_cache_dtype)
+    cache_dtype: Union[torch.dtype, str] = torch.bfloat16
     min_prefill_bucket: int = 64
     # penalty window capacity (Ollama repeat_last_n default)
     repeat_last_n: int = 64
@@ -76,11 +77,44 @@ def resolve_serving_defaults(ecfg: EngineConfig, cfg: ModelConfig,
                                decode_chunk=chunk, page_size=ps)
 
 
+def resolve_engine_dtype(cfg: ModelConfig, device) -> str:
+    """Weight serving dtype when the caller named none: the JAX package's
+    ``resolve_engine_dtype`` with the card in the place of the TPU. On the
+    card int8 weights below 4e9 parameters, int4 at 4e9 or more (room for
+    the KV pool), bf16 for MoE expert stacks; f32 on the CPU."""
+    if torch.device(device).type != "cuda":
+        return "float32"
+    if cfg.n_experts:
+        return "bfloat16"
+    return "int4" if cfg.n_params >= 4e9 else "int8"
+
+
 def resolve_kv_dtype_default(device) -> torch.dtype:
     """int8 KV pool on the card (half the decode cache traffic), f32 on
     the CPU."""
     return (torch.int8 if torch.device(device).type == "cuda"
             else torch.float32)
+
+
+CACHE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                "int8": torch.int8,
+                # a string sentinel: the int4 pool has no storage dtype of
+                # its own (nibble-packed uint8 codes + f32 scales)
+                "int4": "int4"}
+
+
+def resolve_cache_dtype(name_or_dtype) -> Union[torch.dtype, str]:
+    """A KV cache dtype given by name or as a torch dtype → the engine's
+    ``cache_dtype`` (a torch dtype, or "int4"); raises for anything
+    outside the supported set."""
+    if isinstance(name_or_dtype, str):
+        if name_or_dtype not in CACHE_DTYPES:
+            raise ValueError(f"cache dtype {name_or_dtype!r}; expected one "
+                             f"of {sorted(CACHE_DTYPES)}")
+        return CACHE_DTYPES[name_or_dtype]
+    if name_or_dtype not in CACHE_DTYPES.values():
+        raise ValueError(f"unsupported cache dtype {name_or_dtype}")
+    return name_or_dtype
 
 
 def prefill_buckets(max_seq_len: int, min_bucket: int) -> List[int]:
@@ -152,7 +186,7 @@ class Engine:
                              f"{self.device}")
         if self.device.type == "cuda" and emb.dtype != torch.bfloat16:
             raise TypeError("on the card the engine serves bf16 "
-                            "activations (int4 weights, bf16 tok_emb)")
+                            "activations (int8/int4 weights, bf16 tok_emb)")
         B, S = ecfg.max_slots, min(ecfg.max_seq_len, cfg.max_seq_len)
         self.n_slots, self.max_seq = B, S
         ps = ecfg.page_size
@@ -166,19 +200,26 @@ class Engine:
         self._pt = PageTable(B, n_pages + 1, ps, self._nblk)
         dev = self.device
         shape = (L, n_pages + 1, KvH, ps, hd)
-        if ecfg.cache_dtype == torch.int8:
+        cache_dtype = resolve_cache_dtype(ecfg.cache_dtype)
+        if cache_dtype in (torch.int8, "int4"):
+            # int4 packs two positions a byte along the page axis
+            # (ops/quant_cache.py); scales stay per position, and zero
+            # scales make an empty pool read as 0
+            if cache_dtype == "int4" and ps < 2:
+                raise ValueError("an int4 KV pool needs page_size >= 2")
+            key, code_shape, code_dtype = (
+                ("q4", shape[:3] + (ps // 2, hd), torch.uint8)
+                if cache_dtype == "int4" else ("q", shape, torch.int8))
+
             def pool():
-                return {"q": torch.zeros(shape, dtype=torch.int8, device=dev),
+                return {key: torch.zeros(code_shape, dtype=code_dtype,
+                                         device=dev),
                         "s": torch.zeros(shape[:-1], dtype=torch.float32,
                                          device=dev)}
             self.k_cache, self.v_cache = pool(), pool()
-        elif ecfg.cache_dtype in (torch.bfloat16, torch.float32):
-            self.k_cache = torch.zeros(shape, dtype=ecfg.cache_dtype,
-                                       device=dev)
-            self.v_cache = torch.zeros_like(self.k_cache)
         else:
-            raise ValueError(f"cache dtype {ecfg.cache_dtype}; expected "
-                             f"int8, bfloat16 or float32")
+            self.k_cache = torch.zeros(shape, dtype=cache_dtype, device=dev)
+            self.v_cache = torch.zeros_like(self.k_cache)
         W = max(1, ecfg.repeat_last_n)
         self._W = W
         # device slot state. counts carries one sentinel column (index V)

@@ -17,7 +17,7 @@ from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..server.template import DEFAULT_TEMPLATE, Template
 from ..tokenizer import StreamDecoder, Tokenizer
-from .engine import (Engine, EngineConfig, SlotOptions,
+from .engine import (Engine, EngineConfig, SlotOptions, resolve_cache_dtype,
                      resolve_kv_dtype_default, resolve_serving_defaults)
 from .scheduler import Scheduler
 
@@ -119,13 +119,16 @@ class LoadedModel:
     package's model manager resolves: ``max_seq_len`` =
     min(model context, ``num_ctx`` or 4096), the device's KV dtype (int8
     on the card) and :func:`resolve_serving_defaults` for slots, page
-    size, pool size and decode chunk."""
+    size, pool size and decode chunk. ``kv_dtype`` names the KV pool's
+    storage as the JAX server's ``--kv-dtype`` does ("int8", "int4",
+    "bfloat16", "float32") and replaces the one in ``ecfg``."""
 
     def __init__(self, name: str, cfg: ModelConfig, params,
                  tokenizer: Tokenizer, template: Optional[str] = None,
                  system: Optional[str] = None,
                  default_params: Optional[Dict] = None,
-                 ecfg: Optional[EngineConfig] = None, device="cuda"):
+                 ecfg: Optional[EngineConfig] = None, device="cuda",
+                 kv_dtype: Optional[str] = None):
         self.device = resolve_device(device)
         self.name = name
         self.cfg = cfg
@@ -134,6 +137,9 @@ class LoadedModel:
         self.system = system
         self.default_params = default_params or {}
         self.loaded_at = time.time()
+        # the weight dtype the model manager resolved (None when built
+        # directly from an already-converted tree)
+        self.serving_dtype: Optional[str] = None
         if ecfg is None:
             ecfg = resolve_serving_defaults(EngineConfig(
                 max_slots=0, decode_chunk=0, page_size=0,
@@ -141,6 +147,9 @@ class LoadedModel:
                     self.default_params.get("num_ctx", 4096))),
                 cache_dtype=resolve_kv_dtype_default(self.device)),
                 cfg, self.device)
+        if kv_dtype is not None:
+            ecfg = dataclasses.replace(
+                ecfg, cache_dtype=resolve_cache_dtype(kv_dtype))
         self.ecfg = ecfg
         self.engine = Engine(cfg, params, ecfg=ecfg, device=self.device)
         self.scheduler = Scheduler(self.engine)

@@ -8,8 +8,10 @@ slice serves:
   GET  /api/tags          the resident models
   POST /api/generate      generation, streamed (NDJSON) or not
 
-The manager holds models built in-process (``ModelManager.add``);
-loading from GGUF files and the registry waits for a later slice.
+The manager holds models built in-process (``ModelManager.preload`` from
+dense params, with the weight dtype resolved per model as the JAX loader
+does, or ``ModelManager.add``); loading from GGUF files and the registry
+waits for a later slice.
 """
 
 from __future__ import annotations
@@ -18,12 +20,18 @@ import json
 import threading
 from datetime import datetime, timezone
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, List
+from typing import Any, Dict, List, Optional
+
+import torch
 
 from .. import __version__
 from ..device import resolve_device
+from ..ops import quant as Q
+from ..runtime.engine import resolve_engine_dtype
 from ..runtime.scheduler import SchedulerBroken, SchedulerBusy
 from ..runtime.service import BadRequest, LoadedModel
+
+ENGINE_DTYPES = ("bfloat16", "float32", "int8", "int4")
 
 
 def _now_iso() -> str:
@@ -34,6 +42,38 @@ class ApiError(Exception):
     def __init__(self, status: int, message: str):
         super().__init__(message)
         self.status = status
+
+
+def apply_engine_dtype(params: Dict[str, Any], engine_dtype: str,
+                       device) -> Dict[str, Any]:
+    """Dense params → the serving tree for ``engine_dtype``, as the JAX
+    loader builds it: every leaf is moved to ``device`` in the activation
+    dtype (bf16 on the card, f32 on the CPU or for "float32"), then for
+    "int8"/"int4" the matmul leaves are quantized (``quantize_params``,
+    which pops them from the tree one at a time). Raises for a tree whose
+    leaves are already quantized."""
+    if engine_dtype not in ENGINE_DTYPES:
+        raise ValueError(f"weight dtype {engine_dtype!r}; expected one of "
+                         f"{ENGINE_DTYPES}")
+    quantized = [k for k, v in (*params.items(),
+                                *params.get("layers", {}).items())
+                 if Q.is_quantized(v)]
+    if quantized:
+        raise ValueError(f"leaves {quantized} are already quantized; "
+                         f"preload takes dense params")
+    dev = torch.device(device)
+    act = (torch.float32 if dev.type == "cpu" or engine_dtype == "float32"
+           else torch.bfloat16)
+
+    def cast(tree):
+        return {k: (cast(v) if isinstance(v, dict)
+                    else v.to(device=dev, dtype=act))
+                for k, v in ((k, tree.pop(k)) for k in list(tree))}
+
+    out = cast(params)
+    if engine_dtype in ("int8", "int4"):
+        out = Q.quantize_params(out, bits=8 if engine_dtype == "int8" else 4)
+    return out
 
 
 class ModelManager:
@@ -47,10 +87,21 @@ class ModelManager:
         self._lock = threading.Lock()
 
     def preload(self, name: str, cfg, params, tokenizer,
-                **kw) -> LoadedModel:
-        """Build a LoadedModel on the manager's device and add it."""
-        return self.add(LoadedModel(name, cfg, params, tokenizer,
-                                    device=self.device, **kw))
+                dtype: Optional[str] = None, **kw) -> LoadedModel:
+        """Build a LoadedModel on the manager's device from dense
+        ``params`` and add it. The weights are served in ``dtype``
+        ("bfloat16", "float32", "int8", "int4") when the caller names
+        one, else in the dtype resolved for this model and device
+        (``resolve_engine_dtype``: int8 below 4e9 parameters and int4
+        above on the card, f32 on the CPU). ``params`` is consumed: its
+        leaves are popped as they are converted."""
+        engine_dtype = dtype or resolve_engine_dtype(cfg, self.device)
+        lm = LoadedModel(name, cfg,
+                         apply_engine_dtype(params, engine_dtype,
+                                            self.device),
+                         tokenizer, device=self.device, **kw)
+        lm.serving_dtype = engine_dtype
+        return self.add(lm)
 
     def add(self, lm: LoadedModel) -> LoadedModel:
         if lm.device != self.device:
@@ -80,7 +131,7 @@ class ModelManager:
                  "size": 0, "digest": "",
                  "details": {"family": lm.cfg.arch, "format": "torch",
                              "parameter_size": f"{lm.cfg.n_params / 1e9:.1f}B",
-                             "quantization_level": ""}}
+                             "quantization_level": lm.serving_dtype or ""}}
                 for lm in models]
 
     def shutdown(self):

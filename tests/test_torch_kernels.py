@@ -4,10 +4,14 @@ The JAX side runs each Pallas kernel in interpret mode on the CPU, as the
 JAX package's own tests do; the port runs the plain PyTorch version that
 stands beside each CUDA kernel (the wrapper picks it because the tensors
 are on the CPU; the CUDA kernels themselves are checked against the same
-plain versions on the card by ``chip_smoke.py``). Everything is f32.
+plain versions on the card by ``chip_smoke.py``). Everything is f32 unless
+a test says otherwise.
 Tolerances: 1e-4 abs/rel for attention (f32 softmax sums reassociated
-across blocks), 2e-5 for the int4 matmul (f32 dot of the same dequantized
-weights, summed in another order).
+across blocks; 1e-5 for the int4 pool at G = 3), 2e-5 for the int8 and
+int4 matmuls (f32 dot of the same dequantized weights, summed in another
+order). With bf16 activations the matmuls are held to 1e-5 x max|y|: the
+kernels and their plain versions round the dequantized weight to bf16 as
+the Pallas kernels do, so only the f32 summation order differs.
 """
 
 import jax.numpy as jnp
@@ -18,7 +22,7 @@ import torch
 from ollama_operator_tpu.ops import quant as jquant
 from ollama_operator_tpu.ops.pallas.flash import flash_prefill as jflash
 from ollama_operator_tpu.ops.pallas.paged import paged_decode_attention_v3
-from ollama_operator_tpu.ops.pallas.quant import qmm4_pallas
+from ollama_operator_tpu.ops.pallas.quant import qmm4_pallas, qmm_pallas
 from ollama_operator_tpu_torch.ops import attention as tattn
 from ollama_operator_tpu_torch.ops import paged as tpaged
 from ollama_operator_tpu_torch.ops import quant as tquant
@@ -105,6 +109,94 @@ def test_qmm4_matches_pallas(N, K, O):
     assert t.dtype == torch.float32
     np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=2e-5,
                                atol=2e-5)
+
+
+def _bf16_pair(a):
+    """A float array → the same bf16 values as a JAX and a torch array."""
+    t = torch.tensor(a).to(torch.bfloat16)
+    return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16), t
+
+
+@pytest.mark.parametrize("N,K,O", [(1, 256, 128), (8, 256, 384),
+                                   (64, 512, 256)])
+def test_qmm_matches_pallas(N, K, O):
+    """int8 weights: f32 x within 2e-5 relative, bf16 x within
+    1e-5 x max|y| (the plain version rounds the dequantized weight to
+    bf16 as ``qmm_pallas`` does)."""
+    rng = np.random.default_rng(40 + N)
+    x = rng.standard_normal((N, K)).astype(np.float32)
+    w = rng.standard_normal((K, O)).astype(np.float32) * 0.02
+    qw = jquant.quantize_groupwise(w)
+    jq, js = jnp.asarray(qw["q"]), jnp.asarray(qw["s"])
+    j = np.asarray(qmm_pallas(jnp.asarray(x), jq, js, interpret=True))
+    t = tquant.qmm(_t(x), _t(qw["q"]), _t(qw["s"]))
+    assert t.dtype == torch.float32
+    np.testing.assert_allclose(t.numpy(), j, rtol=2e-5,
+                               atol=2e-5 * np.abs(j).max())
+    jx, tx = _bf16_pair(x)
+    j = np.asarray(qmm_pallas(jx, jq, js, interpret=True))
+    t = tquant.qmm(tx, _t(qw["q"]), _t(qw["s"]))
+    np.testing.assert_allclose(t.numpy(), j, rtol=0,
+                               atol=1e-5 * np.abs(j).max())
+
+
+def test_qmm4_bf16_rounds_weight_like_pallas():
+    """With bf16 x, ``qmm4_pallas`` rounds code x scale to bf16 before
+    its f32-accumulated dot; ``qmm4_plain`` (and the CUDA kernel) must
+    compute the same function (an f32 weight differs by ~2e-3 here)."""
+    rng = np.random.default_rng(50)
+    x = rng.standard_normal((8, 256)).astype(np.float32)
+    w = rng.standard_normal((256, 256)).astype(np.float32) * 0.02
+    qw = jquant.quantize_groupwise_int4(w)
+    jx, tx = _bf16_pair(x)
+    j = np.asarray(qmm4_pallas(jx, jnp.asarray(qw["q4"]),
+                               jnp.asarray(qw["s"]), interpret=True))
+    t = tquant.qmm4_plain(tx, _t(qw["q4"]), _t(qw["s"]))
+    np.testing.assert_allclose(t.numpy(), j, rtol=0,
+                               atol=1e-5 * np.abs(j).max())
+
+
+def _paged_int4_inputs(rng):
+    B, H, KvH, hd, ps, L, P, NBLK = 4, 6, 2, 64, 16, 2, 24, 5
+    lengths = np.array([1, ps - 1, ps, 3 * ps + 5], np.int32)
+    tables = np.zeros((B, NBLK), np.int32)
+    pages = rng.permutation(np.arange(1, P))
+    for b in range(B):
+        n = lengths[b] // ps + 1
+        tables[b, :n] = pages[:n]
+        pages = pages[n:]
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+
+    def pool():
+        return {"q4": rng.integers(0, 256, (L, P, KvH, ps // 2, hd)
+                                   ).astype(np.uint8),
+                "s": rng.uniform(0.01, 0.2, (L, P, KvH, ps)
+                                 ).astype(np.float32)}
+    return q, pool(), pool(), tables, lengths
+
+
+@pytest.mark.parametrize("window", [0, 32])
+def test_paged_decode_int4_pool_matches_pallas_v3(window):
+    """An int4 {"q4", "s"} pool at G = 3: the plain path (gather +
+    unpack) against ``paged_decode_attention_v3`` in interpret mode,
+    within 1e-5. The JAX pool holds the same bytes as int8."""
+    rng = np.random.default_rng(60 + window)
+    q, kp, vp, tables, lengths = _paged_int4_inputs(rng)
+    nblk, scale = tables.shape[1], 64 ** -0.5
+
+    def jpool(p):
+        return {"q4": jnp.asarray(p["q4"].view(np.int8)),
+                "s": jnp.asarray(p["s"])}
+    for layer in (0, 1):
+        j = paged_decode_attention_v3(
+            jnp.asarray(q), jpool(kp), jpool(vp), jnp.int32(layer),
+            jnp.asarray(tables), jnp.asarray(lengths), scale, 0.0, window,
+            nblk=nblk, interpret=True)
+        t = tpaged.paged_decode_attention(
+            _t(q), _conv(kp, _t), _conv(vp, _t), layer, _t(tables),
+            _t(lengths), scale, 0.0, window, nblk=nblk)
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_qmm4_plan_covers_every_group():

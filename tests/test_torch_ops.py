@@ -129,3 +129,28 @@ def test_quantize_kv_codes_bit_identical():
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0,
                                atol=1e-7)
+
+
+def test_tied_int8_tree_converts_bit_for_bit():
+    """A tied-embedding tree (no ``lm_head``) with int8 {"q", "s"} leaves
+    and a bf16 ``tok_emb`` crosses ``params_from_numpy`` bit for bit."""
+    import jax
+
+    from ollama_operator_tpu.models import decoder as jdec
+    from ollama_operator_tpu_torch.convert import params_from_numpy
+    cfg = dataclasses.replace(JPRESETS["tiny"], tie_embeddings=True)
+    pn = jquant.quantize_params(jax.tree_util.tree_map(
+        np.asarray, jdec.init_params(cfg, jax.random.key(2), jnp.float32)),
+        bits=8)
+    pn["tok_emb"] = np.asarray(jnp.asarray(pn["tok_emb"], jnp.bfloat16))
+    tp = params_from_numpy(pn)
+    assert "lm_head" not in tp and set(tp["layers"]["w_down"]) == {"q", "s"}
+    assert tp["tok_emb"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        tp["tok_emb"].view(torch.int16).numpy(),
+        pn["tok_emb"].view(np.int16))
+    for k, v in pn["layers"].items():
+        for kk, a in (v.items() if isinstance(v, dict) else [("", v)]):
+            t = tp["layers"][k][kk] if kk else tp["layers"][k]
+            assert t.dtype == getattr(torch, a.dtype.name), (k, kk)
+            np.testing.assert_array_equal(t.numpy(), a)

@@ -3,6 +3,8 @@
 - greedy token streams of the port's ``LoadedModel`` (int8 paged pool)
   equal the JAX package's ``LoadedModel`` with its paged engine, for three
   concurrent requests on identical weights;
+- the weight dtype resolved per model and device agrees with the JAX
+  package's for every preset (the card in the place of the TPU);
 - the HTTP surface: ``/api/generate`` streamed and not, ``/api/tags``,
   ``/api/version``;
 - seeded sampling replays exactly (seeded non-greedy streams cannot match
@@ -28,11 +30,15 @@ import torch
 from ollama_operator_tpu.models import decoder as jdec
 from ollama_operator_tpu.models.config import PRESETS as JPRESETS
 from ollama_operator_tpu.runtime.engine import EngineConfig as JEngineConfig
+from ollama_operator_tpu.runtime.engine import \
+    resolve_engine_dtype as jresolve_engine_dtype
 from ollama_operator_tpu.runtime.service import LoadedModel as JLoadedModel
 from ollama_operator_tpu.tokenizer import Tokenizer as JTokenizer
 from ollama_operator_tpu_torch.convert import params_from_numpy
 from ollama_operator_tpu_torch.models.config import PRESETS as TPRESETS
 from ollama_operator_tpu_torch.runtime.engine import (Engine, EngineConfig,
+                                                      resolve_cache_dtype,
+                                                      resolve_engine_dtype,
                                                       resolve_serving_defaults)
 from ollama_operator_tpu_torch.runtime.service import LoadedModel
 from ollama_operator_tpu_torch.server.app import ModelManager, serve
@@ -224,3 +230,19 @@ def test_serving_defaults_on_the_card():
                      max_seq_len=4096), cfg, "cuda")
     assert (e.max_slots, e.page_size, e.n_pages, e.decode_chunk) == (
         64, 128, 768, 32)
+
+
+def test_engine_dtype_resolution_matches_jax():
+    for name, cfg in TPRESETS.items():
+        jcfg = JPRESETS[name]
+        assert resolve_engine_dtype(cfg, "cuda") == \
+            jresolve_engine_dtype(jcfg, "tpu"), name
+        assert resolve_engine_dtype(cfg, "cpu") == \
+            jresolve_engine_dtype(jcfg, "cpu") == "float32", name
+    assert resolve_engine_dtype(TPRESETS["llama3.2:3b"], "cuda") == "int8"
+    assert resolve_engine_dtype(TPRESETS["llama3.1"], "cuda") == "int4"
+    assert resolve_cache_dtype("int4") == "int4"
+    assert resolve_cache_dtype("int8") is torch.int8
+    with pytest.raises(ValueError):
+        resolve_cache_dtype("int2")
+
