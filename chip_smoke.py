@@ -6,36 +6,46 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Print the card (``nvidia-smi`` name and power limit), the torch and
-   CUDA versions, and build the four CUDA kernels from ``csrc/`` (one
-   ``nvcc`` per source, all started together).
+   CUDA versions, and build the five CUDA kernel libraries from ``csrc/``
+   (one ``nvcc`` per source, all started together).
 2. Kernel phases at the main paths' shapes, in bf16 on the card: each
    kernel against its plain PyTorch version on the same inputs, with the
-   tolerance stated beside it; the kernel's time (CUDA events, L2 flushed
-   before every launch, as a decode step finds it), the plain version's
-   time, the time of one PyTorch library call computing the same function
-   where one exists, and the least time the card could take (bytes at
-   3.35 TB/s or bf16 operations at 989 TFLOP/s, whichever is larger).
-   Kernels: flash prefill, paged decode over int8 and int4 pools, the
-   int4 (qmm4, llama3.1 shapes) and int8 (qmm, llama3.2:3b shapes)
-   dequant matmuls.
-3. Serving, three paths, each at full width behind the port's HTTP
-   server on an ephemeral port, with random dense bf16 weights from a
-   seed handed to ``ModelManager.preload``, which picks the weight dtype
-   itself, and the serving defaults (64 slots, page size 128, 768 pages,
-   decode chunk 32): llama3.1 (int4 weights) on an int8 KV pool, then
-   llama3.2:3b (int8 weights, tied embeddings, G = 3) on an int8 and on
-   an int4 pool. Each: eight concurrent /api/generate requests (prompts
-   of 91 to 301 tokens, num_predict 32, greedy) must each finish with
-   eval_count 32, a repeat of one prompt must give the same tokens, and
-   the launch count of every kernel on that path, counted from 0 just
-   before the eight requests, must be above 0.
-4. Cross-checks at full width and two layers, llama3.1 int4 on an int8
-   pool and llama3.2:3b int8 on an int4 pool: the kernel path against the
-   plain path on the card, a prefill and 16 greedy decode steps, the plain
-   path fed the kernel path's tokens. Logits must agree within the stated
-   bf16 tolerance at every step, and the greedy tokens must be identical
-   at every step where greedy is decidable (top-2 gap above twice the
-   step's logit difference; near-ties are listed).
+   tolerance stated beside it (attention kernels: every query row or slot
+   within 1% of its own largest output, the worst one printed); the
+   kernel's time (CUDA events, L2 flushed before every launch, as a
+   decode step finds it), the plain version's time, the time of one
+   PyTorch library call computing the same function where one exists,
+   and the least time the card could take (bytes at 3.35 TB/s or bf16
+   operations at 989 TFLOP/s, whichever is larger).
+   Kernels: flash prefill (also at phi3's MHA shape, hd 96, window 2047),
+   paged decode over int8 and int4 pools (also at phi3's G = 1, hd 96),
+   the GQA (K2) and MHA (K3) decode kernels over the dense slot cache, the
+   int4 (qmm4, llama3.1 shapes) and int8 (qmm, llama3.2:3b shapes and
+   phi3's LM head, O = 32064) dequant matmuls.
+3. Serving, six paths, each at full width and full depth behind the
+   port's HTTP server on an ephemeral port, with random dense bf16 weights
+   from a seed handed to ``ModelManager.preload``, which picks the weight
+   dtype itself (int4 for llama3.1, int8 for llama3.2:3b and phi3), and
+   the serving defaults for the cache kind it is told (``SERVING``):
+   paged (GQA: 64 slots, page size 128, 768 pages; phi3: 32 slots, page
+   size 64, 512 pages) — llama3.1 on an int8 pool, llama3.2:3b on an int8
+   and on an int4 pool, phi3 on an int8 pool — then dense (8 slots of
+   4096 rows, bf16) — llama3.2:3b through the GQA decode kernel, phi3 with
+   ``TPU_MHA_KERNEL=1`` through the MHA decode kernel; decode chunk 32.
+   Each: eight concurrent /api/generate requests (prompts of 96 to 316
+   tokens, num_predict 32, greedy) must each finish with eval_count 32, a
+   repeat of one prompt must give the same tokens, and the launch count of
+   every kernel on that path, counted from 0 just before the eight
+   requests, must be above 0 (and the other cache's decode kernels' 0).
+4. Cross-checks at full width and two layers: llama3.1 int4 on an int8
+   pool, llama3.2:3b int8 on an int4 pool, llama3.2:3b int8 on a bf16
+   dense cache (K2) and phi3 int8 on a bf16 dense cache (K3): the kernel
+   path against the plain path on the card, a prefill and 16 greedy
+   decode steps, the plain path fed the kernel path's tokens. Logits must
+   agree within the stated bf16 tolerance at every step, and the greedy
+   tokens must be identical at every step where greedy is decidable
+   (top-2 gap above twice the step's logit difference; near-ties are
+   listed).
 
 Then it prints one JSON line ``{"kernels": [...]}`` (``launches`` summed
 over the serving paths, per path in ``launches_by_path``), the
@@ -57,6 +67,7 @@ import sys
 import threading
 import time
 import urllib.request
+from unittest import mock
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -125,6 +136,19 @@ def kernel_phases(torch, timer, report):
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
 
+    def rowwise(out, ref, rows, label=lambda r: f"row {r}"):
+        """Hold each of ``rows`` output rows (a query row, or a slot's
+        [H, hd]) to 1% of its own largest |ref|: both sides round an f32
+        result to bf16, and 1 bf16 ulp is at most 2^-7 (0.8%) of a value.
+        A row over thousands of keys has outputs ~50x smaller than one
+        over a few, so one tolerance for all would let the long rows off.
+        Returns (worst row's error, its tolerance, largest error of any
+        row, which row was worst)."""
+        d = (out.float() - ref.float()).reshape(rows, -1).abs().amax(1)
+        tol = 1e-2 * ref.float().reshape(rows, -1).abs().amax(1)
+        w = int((d / tol.clamp(min=1e-30)).argmax())
+        return d[w].item(), tol[w].item(), d.max().item(), label(w)
+
     # -- flash prefill: B=1, T=512, KvH=8, hd=128; H=32 (llama3.1 chunk,
     # G = 4) and H=24 (llama3.2:3b, G = 3)
     for H in (32, 24):
@@ -134,17 +158,14 @@ def kernel_phases(torch, timer, report):
         scale = hd ** -0.5
         out = A.flash_prefill(q, k, v, scale)
         ref = A.flash_prefill_plain(q, k, v, scale)
-        err = (out.float() - ref.float()).abs().max().item()
-        # both round an f32 result to bf16; 1 bf16 ulp is at most 2^-7
-        # (0.8%) of the value, so 1% of the largest output covers it
-        tol = 1e-2 * max(1.0, ref.float().abs().max().item())
+        check = rowwise(out, ref, B * T, lambda r: f"query {r}")
         qh = q.transpose(1, 2)
         kr = k.repeat_interleave(H // KvH, dim=1)
         vr = v.repeat_interleave(H // KvH, dim=1)
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         flops = 4 * H * hd * T * (T + 1) / 2
         report("flash_prefill", "csrc/flash_prefill.cu",
-               "ollama_operator_tpu/ops/pallas/flash.py:134", err, tol,
+               "ollama_operator_tpu/ops/pallas/flash.py:134", check,
                timer(lambda: A.flash_prefill(q, k, v, scale)),
                timer(lambda: A.flash_prefill_plain(q, k, v, scale)),
                timer(lambda: F.scaled_dot_product_attention(
@@ -152,44 +173,73 @@ def kernel_phases(torch, timer, report):
                *bound(nbytes, flops), shape=f"B={B} T={T} H={H} KvH={KvH} "
                                              f"hd={hd}", main=(H == 32))
 
-    # -- paged decode: B=64, ps=128, lengths over 1..2048; int8 pool at
-    # H=32 (llama3.1) and H=24 (llama3.2:3b), int4 pool at H=24
-    B, ps, L, NBLK, KvH, hd = 64, 128, 2, 32, 8, 128
-    lengths = torch.randint(1, 2049, (B,), generator=g, device=dev,
-                            dtype=torch.int32)
-    live = (lengths.long() // ps + 1)
-    P = int(live.sum().item()) + 1
-    perm = torch.randperm(P - 1, generator=g, device=dev).int() + 1
-    tables = torch.zeros((B, NBLK), dtype=torch.int32, device=dev)
-    off = 0
-    for b in range(B):
-        n = int(live[b])
-        tables[b, :n] = perm[off:off + n]
-        off += n
-    nblk = int(live.max().item())
-    n_pos = int((lengths.long() + 1).sum().item())
+    # -- flash prefill at phi3's admission shape: MHA (G = 1), hd 96,
+    # T = 4096, window 2047 (the window bites); the library call is SDPA
+    # with the band as a boolean mask
+    B, T, H, hd, window = 1, 4096, 32, 96, 2047
+    q, k, v = randn(B, T, H, hd), randn(B, H, T, hd), randn(B, H, T, hd)
+    scale = hd ** -0.5
+    out = A.flash_prefill(q, k, v, scale, 0.0, window)
+    ref = A.flash_prefill_plain(q, k, v, scale, 0.0, window)
+    check = rowwise(out, ref, B * T, lambda r: f"query {r}")
+    i = torch.arange(T, device=dev)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    qh = q.transpose(1, 2)
+    n_pairs = window * (window + 1) // 2 + (T - window) * window
+    report("flash_prefill", "csrc/flash_prefill.cu",
+           "ollama_operator_tpu/ops/pallas/flash.py:134", check,
+           timer(lambda: A.flash_prefill(q, k, v, scale, 0.0, window)),
+           timer(lambda: A.flash_prefill_plain(q, k, v, scale, 0.0, window),
+                 iters=3, warmup=1),
+           timer(lambda: F.scaled_dot_product_attention(
+               qh, k, v, attn_mask=band, scale=scale)),
+           *bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                  4 * H * hd * n_pairs),
+           shape=f"B={B} T={T} H={H} KvH={H} hd={hd} window={window} "
+                 f"(phi3)", main=False)
+    del q, k, v, out, ref, band, qh
 
-    def pool(bits):
-        scales = torch.rand((L, P, KvH, ps), generator=g, device=dev)
-        if bits == 8:
-            return {"q": torch.randint(-127, 128, (L, P, KvH, ps, hd),
-                                       generator=g, device=dev,
-                                       dtype=torch.int8),
-                    "s": scales * 0.02 + 1e-3}
-        return {"q4": torch.randint(0, 256, (L, P, KvH, ps // 2, hd),
-                                    generator=g, device=dev,
-                                    dtype=torch.uint8),
-                "s": scales * 0.3 + 1e-2}
+    # -- paged decode over one layer of a two-layer pool. B=64, ps=128,
+    # lengths over 1..2048: int8 pool at H=32 (llama3.1) and H=24
+    # (llama3.2:3b), int4 pool at H=24; then phi3's default path: B=32,
+    # ps=64, H=KvH=32 (G = 1), hd 96, lengths over 1..4095, window 2047
+    def paged_case(B, ps, NBLK, H, KvH, hd, bits, max_len, window, main):
+        L = 2
+        lengths = torch.randint(1, max_len + 1, (B,), generator=g,
+                                device=dev, dtype=torch.int32)
+        live = (lengths.long() // ps + 1)
+        P = int(live.sum().item()) + 1
+        perm = torch.randperm(P - 1, generator=g, device=dev).int() + 1
+        tables = torch.zeros((B, NBLK), dtype=torch.int32, device=dev)
+        off = 0
+        for b in range(B):
+            n = int(live[b])
+            tables[b, :n] = perm[off:off + n]
+            off += n
+        nblk = int(live.max().item())
+        lo = (lengths.long() - window + 1).clamp(min=0) if window else 0
+        n_pos = int((lengths.long() + 1 - lo).sum().item())
 
-    for H, bits in ((32, 8), (24, 8), (24, 4)):
-        kp, vp = pool(bits), pool(bits)
+        def pool():
+            scales = torch.rand((L, P, KvH, ps), generator=g, device=dev)
+            if bits == 8:
+                return {"q": torch.randint(-127, 128, (L, P, KvH, ps, hd),
+                                           generator=g, device=dev,
+                                           dtype=torch.int8),
+                        "s": scales * 0.02 + 1e-3}
+            return {"q4": torch.randint(0, 256, (L, P, KvH, ps // 2, hd),
+                                        generator=g, device=dev,
+                                        dtype=torch.uint8),
+                    "s": scales * 0.3 + 1e-2}
+
+        kp, vp = pool(), pool()
         qd = randn(B, 1, H, hd)
         scale = hd ** -0.5
-        args = (qd, kp, vp, 1, tables, lengths, scale)
+        args = (qd, kp, vp, 1, tables, lengths, scale, 0.0, window)
         out = PG.paged_decode_attention(*args, nblk=NBLK)
         ref = PG.paged_decode_attention_plain(*args, nblk=nblk)
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = 1e-2 * max(1.0, ref.float().abs().max().item())
+        check = rowwise(out, ref, B, lambda r: f"slot {r} (length "
+                        f"{int(lengths[r])})")
         # every live position's codes (hd bytes, or hd / 2 for int4) and
         # f32 scale, for K and V, per kv head; q in, out back, the tables
         nbytes = (2 * 2 * qd.numel()
@@ -198,15 +248,65 @@ def kernel_phases(torch, timer, report):
         flops = 4 * H * hd * n_pos
         name = "paged_decode_int4" if bits == 4 else "paged_decode"
         report(name, "csrc/paged_decode.cu",
-               "ollama_operator_tpu/ops/pallas/paged.py:609", err, tol,
+               "ollama_operator_tpu/ops/pallas/paged.py:609", check,
                timer(lambda: PG.paged_decode_attention(*args, nblk=NBLK)),
                timer(lambda: PG.paged_decode_attention_plain(*args,
                                                              nblk=nblk)),
                None, *bound(nbytes, flops),
                shape=f"B={B} H={H} KvH={KvH} hd={hd} ps={ps} int{bits}, "
-                     f"lengths 1..2048 ({n_pos} positions)",
-               main=(H == 32 or bits == 4))
-        del kp, vp
+                     f"lengths 1..{max_len}"
+                     + (f" window {window}" if window else "")
+                     + f" ({n_pos} live positions)", main=main)
+
+    for H, bits in ((32, 8), (24, 8), (24, 4)):
+        paged_case(64, 128, 32, H, 8, 128, bits, 2048, 0,
+                   main=(H == 32 or bits == 4))
+    paged_case(32, 64, 64, 32, 32, 96, 8, 4095, 2047, main=False)
+
+    # -- dense-cache decode, B=8 slots of S=4096 rows, lengths spread over
+    # 1..4095: K2 (GQA) at llama3.2:3b's heads (H=24, KvH=8, hd=128) with
+    # no window and with a window of 2047, K3 (MHA) at phi3's (H=KvH=32,
+    # hd=96, window 2047). The library call is SDPA over the full S with
+    # each slot's visible rows as a boolean mask, K/V pre-repeated for GQA
+    B, S = 8, 4096
+    lengths = torch.linspace(1, S - 1, B, device=dev).round().int()
+    for name, H, KvH, hd, window, fn, plain, replaces, main in (
+            ("decode_attention", 24, 8, 128, 0, A.decode_attention,
+             A.decode_attention_plain,
+             "ollama_operator_tpu/ops/pallas/flash.py:240", True),
+            ("decode_attention", 24, 8, 128, 2047, A.decode_attention,
+             A.decode_attention_plain,
+             "ollama_operator_tpu/ops/pallas/flash.py:240", False),
+            ("mha_decode", 32, 32, 96, 2047, A.mha_decode_attention,
+             A.mha_decode_attention_plain,
+             "ollama_operator_tpu/ops/pallas/flash.py:361", True)):
+        k, v, qd = randn(B, KvH, S, hd), randn(B, KvH, S, hd), randn(
+            B, 1, H, hd)
+        scale = hd ** -0.5
+        args = (qd, k, v, lengths, scale, 0.0, window)
+        out, ref = fn(*args), plain(*args)
+        check = rowwise(out, ref, B, lambda r: f"slot {r} (q_pos "
+                        f"{int(lengths[r])})")
+        kpos = torch.arange(S, device=dev)[None, :]
+        visible = kpos <= lengths.long()[:, None]
+        if window:
+            visible &= kpos > lengths.long()[:, None] - window
+        n_live = int(visible.sum().item())
+        G = H // KvH
+        kr, vr = (x.repeat_interleave(G, dim=1) for x in (k, v))
+        qh = qd.transpose(1, 2)
+        report(name, "csrc/decode_attention.cu", replaces, check,
+               timer(lambda: fn(*args)), timer(lambda: plain(*args)),
+               timer(lambda: F.scaled_dot_product_attention(
+                   qh, kr, vr, attn_mask=visible[:, None, None, :],
+                   scale=scale)),
+               # the live K/V rows once per kv head, q in, out back
+               *bound(2 * 2 * KvH * n_live * hd + 2 * 2 * qd.numel()
+                      + 4 * B, 4 * H * hd * n_live),
+               shape=f"B={B} H={H} KvH={KvH} hd={hd} S={S} lengths "
+                     f"1..{S - 1} window {window} ({n_live} live rows)",
+               main=main)
+        del k, v, kr, vr, out, ref
 
     # -- dequant matmuls on every projection shape, N in {1, 64, 512}:
     # qmm4 (int4) at llama3.1's, qmm (int8) at llama3.2:3b's. Both take
@@ -235,7 +335,7 @@ def kernel_phases(torch, timer, report):
                 qtol = 1e-3   # f32 sums of the same products, other order
                 nbytes = (2 * N * K + codes.numel() + 4 * (K // 32) * O
                           + 4 * N * O)
-                report(name, f"csrc/{name}.cu", replaces, err, qtol,
+                report(name, f"csrc/{name}.cu", replaces, (err, qtol),
                        timer(lambda: fn(x, codes, qw["s"])),
                        timer(lambda: plain(x, codes, qw["s"])),
                        timer(lambda: torch.matmul(x, wbf)),
@@ -243,6 +343,23 @@ def kernel_phases(torch, timer, report):
                        shape=f"{wname} N={N} K={K} O={O}",
                        main=(wname == main and N == 64))
             del qw, codes, wbf
+    # -- qmm at phi3's untied LM head: O = 32064 is no multiple of the
+    # kernel's 256-column tile; N = 32 rows (the paged path's slots)
+    N, K, O = 32, 3072, 32064
+    qw = Q.quantize_groupwise(torch.randn((K, O), generator=g, device=dev)
+                              * 0.02)
+    wbf = Q.dequantize_groupwise(qw).to(bf)
+    x = randn(N, K)
+    out, ref = Q.qmm(x, qw["q"], qw["s"]), Q.qmm_plain(x, qw["q"], qw["s"])
+    report("qmm", "csrc/qmm.cu", "ollama_operator_tpu/ops/pallas/quant.py:73",
+           ((out - ref).abs().max().item(), 1e-3),
+           timer(lambda: Q.qmm(x, qw["q"], qw["s"])),
+           timer(lambda: Q.qmm_plain(x, qw["q"], qw["s"])),
+           timer(lambda: torch.matmul(x, wbf)),
+           *bound(2 * N * K + K * O + 4 * (K // 32) * O + 4 * N * O,
+                  2.0 * N * K * O),
+           shape=f"lm_head phi3 N={N} K={K} O={O}", main=False)
+    del qw, wbf
     torch.cuda.empty_cache()
 
 
@@ -280,20 +397,33 @@ def post(port: int, body: dict) -> dict:
     return frames[-1]
 
 
-# (model preset, KV pool, the counters its path must raise above 0)
-SERVING = (("llama3.1", "int8", ("flash_prefill", "paged_decode", "qmm4")),
-           ("llama3.2:3b", "int8", ("flash_prefill", "paged_decode", "qmm")),
-           ("llama3.2:3b", "int4", ("flash_prefill", "paged_decode_int4",
-                                    "qmm")))
+# (model preset, KV cache dtype, paged pool or dense slot cache, environment
+# of the path, the counters its path must raise above 0, the counters it
+# must leave at 0)
+SERVING = (
+    ("llama3.1", "int8", True, {}, ("flash_prefill", "paged_decode", "qmm4"),
+     ()),
+    ("llama3.2:3b", "int8", True, {}, ("flash_prefill", "paged_decode",
+                                       "qmm"), ()),
+    ("llama3.2:3b", "int4", True, {}, ("flash_prefill", "paged_decode_int4",
+                                       "qmm"), ()),
+    ("phi3", "int8", True, {}, ("flash_prefill", "paged_decode", "qmm"), ()),
+    ("llama3.2:3b", "bfloat16", False, {}, ("flash_prefill",
+                                            "decode_attention", "qmm"),
+     ("paged_decode", "paged_decode_int4", "mha_decode")),
+    ("phi3", "bfloat16", False, {"TPU_MHA_KERNEL": "1"},
+     ("flash_prefill", "mha_decode", "qmm"),
+     ("paged_decode", "paged_decode_int4", "decode_attention")))
 
 
-def serving_phase(torch, details, model: str, kv_dtype: str, expect) -> dict:
+def serving_phase(torch, details, model: str, kv_dtype: str, paged: bool,
+                  expect, absent) -> dict:
     """Serve ``model`` at full width behind the HTTP server: dense bf16
     weights from the seed go through ``ModelManager.preload``, which
     resolves the weight dtype itself (int4 at 4e9 parameters or more, int8
-    below), on a ``kv_dtype`` pool at the serving defaults. Eight
-    concurrent greedy requests, then a repeat of one. Returns the launch
-    counts of the eight requests."""
+    below), on a ``kv_dtype`` page pool (``paged``) or dense slot cache at
+    the serving defaults. Eight concurrent greedy requests, then a repeat
+    of one. Returns the launch counts of the eight requests."""
     import gc
 
     from ollama_operator_tpu_torch.models.config import get_config
@@ -305,7 +435,7 @@ def serving_phase(torch, details, model: str, kv_dtype: str, expect) -> dict:
     params = dense_params(torch, cfg)
     mm = ModelManager()            # the card: no device argument
     lm = mm.preload(model, cfg, params, byte_tokenizer(cfg.vocab_size),
-                    template="{{ .Prompt }}", kv_dtype=kv_dtype)
+                    template="{{ .Prompt }}", kv_dtype=kv_dtype, paged=paged)
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -313,7 +443,10 @@ def serving_phase(torch, details, model: str, kv_dtype: str, expect) -> dict:
     if lm.serving_dtype != resolve_engine_dtype(cfg, "cuda"):
         raise RuntimeError(f"{model} serves {lm.serving_dtype}")
     e = lm.ecfg
-    tag = f"{model} {lm.serving_dtype} weights, {kv_dtype} KV"
+    if lm.engine.paged != paged:
+        raise RuntimeError(f"{model} resolved paged={lm.engine.paged}")
+    tag = (f"{model} {lm.serving_dtype} weights, {kv_dtype} "
+           f"{'paged' if paged else 'dense'} KV")
     print(f"serving {tag}: slots={e.max_slots} page_size={e.page_size} "
           f"pages={e.n_pages} max_seq={e.max_seq_len} "
           f"chunk={e.decode_chunk} kv={e.cache_dtype} "
@@ -366,10 +499,14 @@ def serving_phase(torch, details, model: str, kv_dtype: str, expect) -> dict:
         if missing:
             raise RuntimeError(f"kernels not launched while serving {tag}: "
                                f"{missing} ({launches})")
+        stray = [k for k in absent if launches[k] != 0]
+        if stray:
+            raise RuntimeError(f"kernels of another path launched while "
+                               f"serving {tag}: {stray} ({launches})")
         n_tok = sum(r["eval_count"] for r in results)
         ttft = sorted(r["prompt_eval_duration"] / 1e6 for r in results)
         out = {"model": model, "weights": lm.serving_dtype, "kv": kv_dtype,
-               "requests": len(results), "wall_s": wall,
+               "paged": paged, "requests": len(results), "wall_s": wall,
                "generated_tokens": n_tok, "aggregate_tok_s": n_tok / wall,
                "ttft_ms": ttft, "kv_bytes": lm.engine.kv_bytes,
                "prompt_tokens": [r["prompt_eval_count"] for r in results],
@@ -445,9 +582,11 @@ def step_breakdown(torch, engine, n_slots: int = 8, n: int = 16) -> dict:
     return out
 
 
-def cross_check(torch, details, model: str, bits: int, kv_dtype: str):
+def cross_check(torch, details, model: str, bits: int, kv_dtype: str,
+                paged: bool = True):
     """Two layers at full width: kernel path vs plain path on the card,
-    ``bits``-bit weights on a ``kv_dtype`` pool."""
+    ``bits``-bit weights on a ``kv_dtype`` page pool (``paged``) or dense
+    slot cache."""
     from ollama_operator_tpu_torch.models import decoder
     from ollama_operator_tpu_torch.models.config import get_config
     from ollama_operator_tpu_torch.ops import attention as A
@@ -472,9 +611,15 @@ def cross_check(torch, details, model: str, bits: int, kv_dtype: str):
                                      cfg.sliding_window)
 
     plain_fns = {mm_name: (Q, "matmul", plain_matmul),
-                 "flash_prefill": (decoder, "chunk_attention", plain_chunk),
-                 "paged_decode": (decoder, "paged_decode_attention",
-                                  PG.paged_decode_attention_plain)}
+                 "flash_prefill": (decoder, "chunk_attention", plain_chunk)}
+    if paged:
+        plain_fns["paged_decode"] = (decoder, "paged_decode_attention",
+                                     PG.paged_decode_attention_plain)
+    else:
+        plain_fns["decode_attention"] = (A, "decode_attention",
+                                         A.decode_attention_plain)
+        plain_fns["mha_decode"] = (A, "mha_decode_attention",
+                                   A.mha_decode_attention_plain)
 
     def run(plain=(), teacher=None):
         """Prefill 200 tokens, then 16 greedy decode steps; the names in
@@ -487,15 +632,19 @@ def cross_check(torch, details, model: str, bits: int, kv_dtype: str):
             setattr(m, a, f)
         try:
             L, KvH, hd, ps, NBLK = 2, cfg.n_kv_heads, cfg.head_dim, 128, 32
-            shp = (L, 8, KvH, ps, hd)
+            # paged: 8 pages of 128 rows; dense: one slot of 512 rows
+            shp = (L, 8, KvH, ps, hd) if paged else (L, 1, KvH, 512, hd)
 
             def pool():
                 if kv_dtype == "int4":
                     return {"q4": torch.zeros(shp[:3] + (ps // 2, hd),
                                               dtype=torch.uint8, device=dev),
                             "s": torch.zeros(shp[:-1], device=dev)}
-                return {"q": torch.zeros(shp, dtype=torch.int8, device=dev),
-                        "s": torch.zeros(shp[:-1], device=dev)}
+                if kv_dtype == "int8":
+                    return {"q": torch.zeros(shp, dtype=torch.int8,
+                                             device=dev),
+                            "s": torch.zeros(shp[:-1], device=dev)}
+                return torch.zeros(shp, dtype=torch.bfloat16, device=dev)
             kp, vp = pool(), pool()
             n, bucket = 200, 256
             toks = torch.zeros((1, bucket), dtype=torch.long, device=dev)
@@ -505,14 +654,23 @@ def cross_check(torch, details, model: str, bits: int, kv_dtype: str):
             table = torch.zeros((1, NBLK), dtype=torch.int32, device=dev)
             table[0, :3] = torch.tensor([4, 1, 6], dtype=torch.int32)
             logits, ks, vs = decoder.prefill_chunk(params, cfg, toks)
-            decoder.paged_insert(cfg, kp, vp, ks, vs, table[0], n)
+            if paged:
+                decoder.paged_insert(cfg, kp, vp, ks, vs, table[0], n)
+            else:
+                decoder.dense_insert(kp, vp, ks, vs, 0)
             out = [logits[0, n - 1]]
             lengths = torch.tensor([n], dtype=torch.int32, device=dev)
             for step in range(16):
                 tok = (out[-1].argmax() if teacher is None
                        else torch.tensor(teacher[step], device=dev))
-                lg, _, _ = decoder.forward_with_cache_paged(
-                    params, cfg, tok.view(1, 1), kp, vp, table, lengths, 3)
+                if paged:
+                    lg, _, _ = decoder.forward_with_cache_paged(
+                        params, cfg, tok.view(1, 1), kp, vp, table, lengths,
+                        3)
+                else:
+                    lg, _, _ = decoder.forward_with_cache(
+                        params, cfg, tok.view(1, 1), kp, vp, lengths,
+                        attn_len=bucket)
                 out.append(lg[0, 0])
                 lengths += 1
             out = torch.stack(out)
@@ -538,9 +696,11 @@ def cross_check(torch, details, model: str, bits: int, kv_dtype: str):
     # distribution that bf16 rounding may break either way, and is listed.
     ties = [i for i in range(len(sk)) if gaps[i] <= 2 * step_err[i]]
     bad = [i for i in range(len(sk)) if sk[i] != sp[i] and i not in ties]
-    tag = f"{model} int{bits} weights, {kv_dtype} KV"
+    tag = (f"{model} int{bits} weights, {kv_dtype} "
+           f"{'paged' if paged else 'dense'} KV")
     details.setdefault("cross_check", []).append({
         "model": model, "weights": f"int{bits}", "kv": kv_dtype,
+        "paged": paged, "kernels": sorted(plain_fns),
         "logit_max_abs_err": err, "logit_scale": scale, "tol": tol,
         "step_err": step_err, "plain_top2_gap": gaps,
         "near_tie_steps": ties, "kernel_tokens": sk, "plain_tokens": sp})
@@ -608,21 +768,31 @@ def main() -> int:
 
     rows, entries = [], {}
 
-    def report(name, source, replaces, err, tol, ms, plain_ms, library_ms,
+    def report(name, source, replaces, check, ms, plain_ms, library_ms,
                bound_ms, bound_by, shape="", main=True):
+        """``check``: (error, tolerance) over the whole output, or
+        (worst row's error, its tolerance, largest error, worst row) from
+        a row-wise check."""
+        err, tol = check[:2]
+        max_err, worst = (check[2], check[3]) if len(check) > 2 else (err,
+                                                                     None)
         ok = err <= tol
-        row = dict(name=name, shape=shape, max_abs_err=err, tol=tol, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+        row = dict(name=name, shape=shape, max_abs_err=max_err, err=err,
+                   tol=tol, worst=worst, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, ok=ok)
         rows.append(row)
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
-        print(f"kernel {name} [{shape}]: max|err| {err:.3g} (tol {tol:g}) "
+        held = (f"max|err| {err:.3g} (tol {tol:g})" if worst is None else
+                f"worst {worst}: max|err| {err:.3g} (tol {tol:.3g}); "
+                f"max|err| of all rows {max_err:.3g}")
+        print(f"kernel {name} [{shape}]: {held} "
               f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain {plain_ms:.4f} "
               f"library {lib} bound {bound_ms:.4f} ({bound_by})", flush=True)
         e = entries.setdefault(name, dict(
             name=name, route="cuda", source="ollama_operator_tpu_torch/"
             + source, replaces=replaces, max_abs_err=0.0))
-        e["max_abs_err"] = max(e["max_abs_err"], err)
+        e["max_abs_err"] = max(e["max_abs_err"], max_err)
         e["ok"] = e.get("ok", True) and ok
         if main:
             e.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -637,6 +807,7 @@ def main() -> int:
         traceback.print_exc()
         return fail(f"kernel phase: {e!r}")
     details["kernel_rows"] = rows
+    print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         return fail(f"kernels disagree with their plain versions: {bad}")
@@ -647,11 +818,19 @@ def main() -> int:
 
     launches_by_path = {}
     try:
-        for model, kv, expect in SERVING:
-            launches_by_path[f"{model} {kv} KV"] = serving_phase(
-                torch, details, model, kv, expect)
+        for model, kv, paged, env, expect, absent in SERVING:
+            path = f"{model} {kv} {'paged' if paged else 'dense'} KV"
+            with mock.patch.dict(os.environ, env):
+                launches_by_path[path] = serving_phase(
+                    torch, details, model, kv, paged, expect, absent)
+            print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
         cross_check(torch, details, "llama3.1", 4, "int8")
         cross_check(torch, details, "llama3.2:3b", 8, "int4")
+        cross_check(torch, details, "llama3.2:3b", 8, "bfloat16",
+                    paged=False)
+        with mock.patch.dict(os.environ, {"TPU_MHA_KERNEL": "1"}):
+            cross_check(torch, details, "phi3", 8, "bfloat16", paged=False)
+        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
     except Exception as e:  # noqa: BLE001 — every phase failure is fatal
         import traceback
         traceback.print_exc()

@@ -1,8 +1,9 @@
 """Decoder-only transformer (llama family) in PyTorch.
 
 Counterpart of ``ollama_operator_tpu/models/decoder.py`` for the paged
-serving path: ``init_params``, ``prefill_chunk``, ``paged_insert`` and
-``forward_with_cache_paged`` at T=1. The params tree keeps the JAX
+and the dense slot-cache serving paths: ``init_params``,
+``prefill_chunk``, ``paged_insert``, and ``forward_with_cache_paged`` and
+``forward_with_cache`` at T=1. The params tree keeps the JAX
 package's layout (plain dicts of tensors, layer leaves stacked on a
 leading ``n_layers`` axis, weights ``[K, O]``, quantized leaves as
 ``{"q4", "s"}`` / ``{"q", "s"}`` dicts):
@@ -13,12 +14,15 @@ leading ``n_layers`` axis, weights ``[K, O]``, quantized leaves as
           w_gate/w_up [L, D, F]  w_down [L, F, D]  (bq/bk/bv optional)
 
 Layers run as a Python loop (PyTorch is eager; the JAX package scans).
-The KV pools are updated in place (the JAX functions are pure and return
-new pools; here the same pools come back), which saves a pool-sized copy
-per step. On the card every int4 projection runs the qmm4 kernel, every
-int8 projection the qmm kernel, prefill attention the flash-prefill kernel
-and decode attention the paged-decode kernel (int8, int4 or bf16 pool;
-``ops/``); on the CPU the same calls run their plain versions. A tied LM
+The KV pools and caches are updated in place (the JAX functions are pure
+and return new ones; here the same tensors come back), which saves a
+cache-sized copy per step. On the card every int4 projection runs the qmm4
+kernel, every int8 projection the qmm kernel, prefill attention the
+flash-prefill kernel, paged decode attention the paged-decode kernel (int8,
+int4 or bf16 pool) and dense-cache decode attention the GQA or MHA decode
+kernel (bf16 cache; an int8 dense cache attends through the plain
+``attend_hf_q``, as the JAX package attends it in XLA; ``ops/``); on the
+CPU the same calls run their plain versions. A tied LM
 head (``tok_emb.T``) stays a bf16 ``torch.matmul``, as the JAX package
 leaves it outside any Pallas kernel.
 
@@ -36,11 +40,11 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import quant as Q
-from ..ops.attention import chunk_attention
+from ..ops.attention import NEG_INF, cached_attention, chunk_attention
 from ..ops.norms import rms_norm
 from ..ops.paged import paged_decode_attention
-from ..ops.quant_cache import (INT4_BIAS, pack_kv4, pool_codes, quantize_kv,
-                               quantize_kv4)
+from ..ops.quant_cache import (INT4_BIAS, attend_hf_q, pack_kv4, pool_codes,
+                               quantize_kv, quantize_kv4)
 from ..ops.rope import apply_rope, rope_angles_cfg
 from .config import ModelConfig
 
@@ -350,3 +354,97 @@ def forward_with_cache_paged(params: Params, cfg: ModelConfig,
             cfg.sliding_window, nblk=attn_blocks)
         x = _residual(cfg, lp, x, Q.matmul(attn.reshape(B, T, -1), lp["wo"]))
     return _unembed(cfg, params, x), k_pool, v_pool
+
+
+# --------------------------------------------------------------------------
+# dense slot cache: [L, B, KvH, S, hd] head-first (int8: {"q": int8 codes,
+# "s": [L, B, KvH, S] f32 scales})
+# --------------------------------------------------------------------------
+
+def dense_insert(k_cache, v_cache, ks, vs, slot: int):
+    """Copy a fresh B=1 prefill chunk (ks/vs [L, 1, KvH, Tb, hd] from
+    :func:`prefill_chunk`) into rows [0, Tb) of ``slot``, bucket padding
+    included, as the JAX engine's dynamic_update_slice does (rows past the
+    prompt are masked until decode steps overwrite them). int8 caches
+    take the quantized codes and scales. In place."""
+    Tb = ks.shape[3]
+    if isinstance(k_cache, dict):
+        for cache, x in ((k_cache, ks), (v_cache, vs)):
+            codes, scales = quantize_kv(x[:, 0])
+            cache["q"][:, slot, :, :Tb] = codes
+            cache["s"][:, slot, :, :Tb] = scales
+    else:
+        k_cache[:, slot, :, :Tb] = ks[:, 0].to(k_cache.dtype)
+        v_cache[:, slot, :, :Tb] = vs[:, 0].to(v_cache.dtype)
+
+
+def _dense_write(cache, i: int, x, bx, hx, pos_w, keep):
+    """Write one layer's new rows x [B, KvH, 1(, hd)] at (b, h, pos_w[b])
+    of ``cache[i]``, in place. A row whose position is past the cache
+    (``keep`` false: a slot decoding past its context) keeps the old
+    value, as the JAX package drops out-of-bounds writes."""
+    layer = cache[i]
+    old = layer[bx, hx, pos_w]
+    layer[bx, hx, pos_w] = torch.where(keep, x.to(layer.dtype), old)
+
+
+def forward_with_cache(params: Params, cfg: ModelConfig,
+                       tokens: torch.Tensor, k_cache, v_cache,
+                       lengths: torch.Tensor, attn_len=None):
+    """One decode step (T=1) against the dense slot cache.
+
+    tokens [B, 1]; k_cache/v_cache [L, B, KvH, S, hd] (bf16/f32) or int8
+    dicts; lengths [B] int32 cached tokens per row. As in the JAX package,
+    each layer first writes the new token's K/V at position lengths[b]
+    (dropped past S), then attends keys 0 .. lengths[b] within the window,
+    read from cache positions [0, attn_len) (``attn_len`` None = S; it
+    must cover max(lengths) + 1): bf16/f32 caches through
+    :func:`cached_attention`, int8 caches through :func:`attend_hf_q`.
+    Returns (logits [B, 1, V] f32, k_cache, v_cache), the caches updated
+    in place."""
+    B, T = tokens.shape
+    if T != 1:
+        raise NotImplementedError("the dense forward runs decode steps "
+                                  "(T=1); prefix extends wait for a later "
+                                  "slice")
+    quant = isinstance(k_cache, dict)
+    L, _, KvH, S, hd = (k_cache["q"] if quant else k_cache).shape
+    A = S if attn_len is None else min(attn_len, S)
+    scale = _attn_scale(cfg)
+    dev = tokens.device
+    q_pos = lengths[:, None]                                # [B, 1] int32
+    positions = q_pos.long()
+    cos, sin = rope_angles_cfg(positions, cfg)
+    k_pos = torch.arange(A, device=dev)[None, None, :]
+    ok = k_pos <= positions[:, :, None]
+    if cfg.sliding_window:
+        ok = ok & (k_pos > positions[:, :, None] - cfg.sliding_window)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    mask = torch.where(ok, zero, NEG_INF)[:, None]          # [B, 1, 1, A]
+    bx = torch.arange(B, device=dev)[:, None, None]
+    hx = torch.arange(KvH, device=dev)[None, :, None]
+    pos_w = positions.clamp(max=S - 1)[:, None, :]          # [B, 1, 1]
+    keep = (positions < S)[:, None, :]
+    x = _embed(cfg, params, tokens)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = _norm(cfg, x, lp["attn_norm_w"])
+        q, k, v = _qkv(cfg, lp, h, cos, sin)
+        k = k.transpose(1, 2)                              # [B, KvH, 1, hd]
+        v = v.transpose(1, 2)
+        if quant:
+            for cache, val in ((k_cache, k), (v_cache, v)):
+                codes, scales = quantize_kv(val)
+                _dense_write(cache["q"], i, codes, bx, hx, pos_w,
+                             keep[..., None])
+                _dense_write(cache["s"], i, scales, bx, hx, pos_w, keep)
+            kwin = {n: t[i, :, :, :A] for n, t in k_cache.items()}
+            vwin = {n: t[i, :, :, :A] for n, t in v_cache.items()}
+            attn = attend_hf_q(q, kwin, vwin, mask, scale, cfg.attn_softcap)
+        else:
+            _dense_write(k_cache, i, k, bx, hx, pos_w, keep[..., None])
+            _dense_write(v_cache, i, v, bx, hx, pos_w, keep[..., None])
+            attn = cached_attention(cfg, q, k_cache[i], v_cache[i], mask,
+                                    q_pos, scale, attn_len=A)
+        x = _residual(cfg, lp, x, Q.matmul(attn.reshape(B, T, -1), lp["wo"]))
+    return _unembed(cfg, params, x), k_cache, v_cache

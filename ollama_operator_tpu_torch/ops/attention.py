@@ -1,18 +1,25 @@
-"""Attention cores and the flash-prefill kernel's wrapper.
+"""Attention cores and the wrappers of the flash-prefill and dense-cache
+decode kernels.
 
 Counterpart of ``ollama_operator_tpu/ops/attention.py`` (``attend_hf``,
-``causal_mask``, ``softcap_scores``, ``chunk_attention``) and of the
-Pallas ``flash_prefill`` in ``ops/pallas/flash.py``. GQA is a grouped
-einsum over head-first K/V ([B, KvH, S, hd]); K/V are never repeated.
+``causal_mask``, ``softcap_scores``, ``chunk_attention``,
+``cached_attention``) and of the Pallas ``flash_prefill``,
+``decode_attention`` and ``mha_decode_attention`` in
+``ops/pallas/flash.py``. GQA is a grouped einsum over head-first K/V
+([B, KvH, S, hd]); K/V are never repeated.
 
-:func:`flash_prefill` launches the CUDA kernel ``csrc/flash_prefill.cu``
-for tensors on the card and runs :func:`flash_prefill_plain`, the plain
-PyTorch version of the same function, for tensors on the CPU.
+:func:`flash_prefill` launches ``csrc/flash_prefill.cu`` and
+:func:`decode_attention` / :func:`mha_decode_attention` launch the two
+entries of ``csrc/decode_attention.cu`` for tensors on the card; for
+tensors on the CPU each runs its plain PyTorch version
+(:func:`flash_prefill_plain`, :func:`decode_attention_plain`,
+:func:`mha_decode_attention_plain`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -109,3 +116,165 @@ def chunk_attention(cfg, q, k, v, scale: float):
     semantics). K/V head-first [B, KvH, T, hd]."""
     return flash_prefill(q, k, v, scale, cfg.attn_softcap,
                          cfg.sliding_window)
+
+
+# --------------------------------------------------------------------------
+# decode against the dense head-first slot cache
+# --------------------------------------------------------------------------
+
+def _decode_plain(q, k_cache, v_cache, q_pos, scale: float, softcap: float,
+                  sliding_window: int, round_p: bool):
+    """One query row per head against cache rows j <= q_pos[b] (and
+    j > q_pos[b] - sliding_window): f32 scores, scaled then soft-capped,
+    a softmax from the row max with NEG_INF for masked keys (a row with no
+    live key gives 0), and out = (p . v) / max(sum p, 1e-30). With
+    ``round_p`` the probabilities are rounded to the cache dtype before
+    the p . v product, as the TPU's GQA decode kernel does."""
+    B, _, H, hd = q.shape
+    KvH, S = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, KvH, H // KvH, hd).float()
+    s = torch.einsum("bkgh,bksh->bkgs", qg, k_cache.float()) * scale
+    s = softcap_scores(s, softcap)
+    k_pos = torch.arange(S, device=q.device)[None, :]
+    qp = q_pos.long()[:, None]
+    ok = k_pos <= qp
+    if sliding_window:
+        ok = ok & (k_pos > qp - sliding_window)
+    s = torch.where(ok[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    p = torch.where(m > NEG_INF / 2, torch.exp(s - m), zero)
+    l = p.sum(dim=-1, keepdim=True)
+    if round_p:
+        p = p.to(v_cache.dtype).float()
+    out = torch.einsum("bkgs,bksh->bkgh", p, v_cache.float())
+    out = out / torch.clamp(l, min=1e-30)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_attention_plain(q, k_cache, v_cache, q_pos, scale: float,
+                           softcap: float = 0.0, sliding_window: int = 0):
+    """Plain version of the GQA decode kernel (the TPU's
+    ``decode_attention``): q [B, 1, H, hd]; k/v [B, KvH, S, hd]; q_pos
+    [B] the query's absolute position → [B, 1, H, hd] (q.dtype)."""
+    return _decode_plain(q, k_cache, v_cache, q_pos, scale, softcap,
+                         sliding_window, round_p=True)
+
+
+def mha_decode_attention_plain(q, k_cache, v_cache, q_pos, scale: float,
+                               softcap: float = 0.0,
+                               sliding_window: int = 0):
+    """Plain version of the MHA decode kernel (the TPU's
+    ``mha_decode_attention``, KvH == H): as :func:`decode_attention_plain`
+    with the probabilities kept in f32."""
+    return _decode_plain(q, k_cache, v_cache, q_pos, scale, softcap,
+                         sliding_window, round_p=False)
+
+
+_PTR, _INT, _I64, _FLT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+
+
+def _decode_launch(mha: bool, q, k_cache, v_cache, q_pos, scale: float,
+                   softcap: float, sliding_window: int):
+    """Launch one entry of ``csrc/decode_attention.cu``; raises on anything
+    it does not take. K/V may be a prefix view of a longer cache (rows of
+    hd contiguous elements, each (slot, head) block at its own stride)."""
+    B, T, H, hd = q.shape
+    _, KvH, S, _ = k_cache.shape
+    name = "mha_decode" if mha else "decode_attention"
+    if T != 1 or not (q.dtype == k_cache.dtype == v_cache.dtype
+                      == torch.bfloat16):
+        raise TypeError(f"{name} kernel takes bf16 q [B, 1, H, hd] and a "
+                        f"bf16 cache; got {tuple(q.shape)} {q.dtype}, "
+                        f"cache {k_cache.dtype}")
+    if (k_cache.shape != (B, KvH, S, hd) or v_cache.shape != k_cache.shape
+            or H % KvH or H // KvH > 8 or (mha and KvH != H) or hd % 8
+            or hd > 256 or S < 1):
+        raise ValueError(f"{name} kernel: q {tuple(q.shape)}, cache "
+                         f"{tuple(k_cache.shape)} unsupported")
+    strides = k_cache.stride()
+    if (v_cache.stride() != strides or strides[2:] != (hd, 1)
+            or strides[0] % 8 or strides[1] % 8
+            or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16):
+        raise ValueError(f"{name} kernel needs rows of hd contiguous "
+                         f"elements at 16-byte aligned strides; got "
+                         f"strides {strides}")
+    if q_pos.dtype != torch.int32 or q_pos.shape != (B,) \
+            or not q_pos.is_contiguous():
+        raise TypeError("q_pos must be a contiguous int32 [B] tensor")
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    heads = [B, H] if mha else [B, H, KvH]
+    fn = cuda_build.function(
+        "decode_attention", "mha_decode_bf16" if mha
+        else "decode_attention_bf16",
+        [_PTR] * 5 + [_INT] * (len(heads) + 2) + [_I64, _I64, _FLT, _FLT,
+                                                  _INT, _PTR])
+    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            q_pos.data_ptr(), out.data_ptr(), *heads, S, hd, strides[0],
+            strides[1], float(scale), float(softcap or 0.0),
+            int(sliding_window), torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(rc, name)
+    cuda_build.launches[name] += 1
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, q_pos, scale: float,
+                     softcap: float = 0.0, sliding_window: int = 0):
+    """Single-token GQA attention against the head-first slot cache.
+
+    q [B, 1, H, hd]; k_cache/v_cache [B, KvH, S, hd]; q_pos [B] int32, the
+    query's absolute position (its own K/V already written there) → [B, 1,
+    H, hd] (q.dtype). On the card this launches the GQA entry of
+    ``csrc/decode_attention.cu`` (bf16; H / KvH <= 8, hd % 8 == 0,
+    hd <= 256; any S), which reads only the live rows, and raises on
+    anything it does not take; on the CPU it runs
+    :func:`decode_attention_plain`."""
+    if not cuda_build.on_card(q, k_cache, v_cache, q_pos):
+        return decode_attention_plain(q, k_cache, v_cache, q_pos, scale,
+                                      softcap, sliding_window)
+    return _decode_launch(False, q, k_cache, v_cache, q_pos, scale,
+                          softcap, sliding_window)
+
+
+def mha_decode_attention(q, k_cache, v_cache, q_pos, scale: float,
+                         softcap: float = 0.0, sliding_window: int = 0):
+    """:func:`decode_attention` for MHA (KvH == H): on the card the MHA
+    entry of ``csrc/decode_attention.cu`` (the TPU's
+    ``mha_decode_attention``), on the CPU
+    :func:`mha_decode_attention_plain`."""
+    if not cuda_build.on_card(q, k_cache, v_cache, q_pos):
+        return mha_decode_attention_plain(q, k_cache, v_cache, q_pos, scale,
+                                          softcap, sliding_window)
+    return _decode_launch(True, q, k_cache, v_cache, q_pos, scale, softcap,
+                          sliding_window)
+
+
+def cached_attention(cfg, q, k_cache, v_cache, mask, q_pos, scale: float,
+                     attn_len=None):
+    """Attention against one layer's head-first slot cache [B, KvH, S, hd],
+    routed as the JAX package's ``cached_attention`` routes it. q_pos
+    [B, T] int32 are the new tokens' absolute positions; ``attn_len``
+    bounds the attended prefix (a view, no copy). A T=1 step goes to
+
+    - the MHA decode kernel for MHA (KvH == H) when ``TPU_MHA_KERNEL=1``
+      (read at call time);
+    - the GQA decode kernel for GQA, and for MHA when the config or
+      ``OLLAMA_TPU_KERNELS`` asks for ``pallas`` explicitly;
+    - the masked einsum (:func:`attend_hf`, mask [B, 1, T, A] additive)
+      otherwise, and for T > 1."""
+    if attn_len is not None and attn_len < k_cache.shape[2]:
+        k_cache = k_cache[:, :, :attn_len]
+        v_cache = v_cache[:, :, :attn_len]
+    if q.shape[1] == 1:
+        is_mha = q.shape[2] == k_cache.shape[1]
+        args = (q, k_cache, v_cache, q_pos[:, 0], scale, cfg.attn_softcap,
+                cfg.sliding_window)
+        if is_mha and os.environ.get("TPU_MHA_KERNEL", "") == "1":
+            return mha_decode_attention(*args)
+        explicit_pallas = (cfg.kernels == "pallas" or os.environ.get(
+            "OLLAMA_TPU_KERNELS") == "pallas")
+        if not is_mha or explicit_pallas:
+            return decode_attention(*args)
+    return attend_hf(q, k_cache, v_cache, mask, scale, cfg.attn_softcap)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` into its own shared library, loaded through ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Libraries go into ``_build/``
-beside ``csrc/`` (listed in ``.gitignore``), named by a hash of the source
-and the flags, so an edited source never loads a stale build. Nothing is
+beside ``csrc/`` (listed in ``.gitignore``), named by a hash of the source,
+of every shared header ``csrc/*.cuh`` and of the flags, so an edited
+source or header never loads a stale build. Nothing is
 built or imported when this module is imported: the CPU tests import every
 module and have no ``nvcc``.
 """
@@ -24,7 +25,8 @@ from typing import Dict, Sequence
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-KERNELS = ("flash_prefill", "paged_decode", "qmm4", "qmm")
+KERNELS = ("flash_prefill", "paged_decode", "qmm4", "qmm",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,9 +35,11 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # kernel -> launches so far; each wrapper adds one where it launches its
 # kernel and nowhere else, so a caller can show which kernels a path went
 # through (reset by assigning 0). The paged-decode library counts its int4
-# pool variant apart from its int8/bf16 one.
+# pool variant apart from its int8/bf16 one; the decode-attention library
+# counts its GQA (``decode_attention``) and MHA (``mha_decode``) entries
+# apart.
 COUNTERS = ("flash_prefill", "paged_decode", "paged_decode_int4", "qmm4",
-            "qmm")
+            "qmm", "decode_attention", "mha_decode")
 launches: Dict[str, int] = {name: 0 for name in COUNTERS}
 
 
@@ -52,9 +56,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{tag[:16]}.so"
+    """The library of kernel ``name``, tagged by its source, every header
+    under ``csrc/`` (any source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str] = KERNELS) -> Dict[str, float]:

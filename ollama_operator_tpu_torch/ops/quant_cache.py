@@ -46,7 +46,11 @@ def attend_hf_q(q, kc: Dict, vc: Dict, mask, scale: float,
     """Grouped-query attention against the quantized head-first cache.
 
     q [B, T, H, hd]; kc/vc {"q" [B, KvH, S, hd] int8, "s" [B, KvH, S]};
-    mask [B, 1, T, S] additive → [B, T, H, hd] (q.dtype). f32 math."""
+    mask [B, 1, T, S] additive → [B, T, H, hd] (q.dtype). The JAX
+    package's rounding: codes meet q in its dtype with f32 products (exact
+    for bf16, so f32 math here), the key scale goes onto the f32 scores,
+    and the value scale goes into the probabilities before they are
+    rounded to q's dtype for the p . v product."""
     B, T, H, hd = q.shape
     kq, ks = kc["q"], kc["s"]
     vq, vs = vc["q"], vc["s"]
@@ -58,7 +62,7 @@ def attend_hf_q(q, kc: Dict, vc: Dict, mask, scale: float,
     scores = softcap_scores(scores * scale, softcap)
     scores = scores + mask[:, :, None, :, :]
     probs = torch.softmax(scores, dim=-1)
-    pv = probs * vs[:, :, None, None, :]
+    pv = (probs * vs[:, :, None, None, :]).to(q.dtype).float()
     out = torch.einsum("bkgts,bksh->btkgh", pv, vq.float())
     return out.reshape(B, T, H, hd).to(q.dtype)
 

@@ -1,20 +1,24 @@
-"""The serving engine: prefill and chunked decode over a paged KV pool.
+"""The serving engine: prefill and chunked decode over a paged KV pool or a
+dense slot cache.
 
-Counterpart of ``ollama_operator_tpu/runtime/engine.py`` for its default
-serving path on one device: slots share a physical page pool (int8 on the
-card by default, int4 on request), admissions prefill one prompt in a
-power-of-two bucket and insert its K/V into the slot's pages, and every
-decode dispatch advances all slots ``decode_chunk`` steps. The surface the
-scheduler drives is the JAX engine's: ``admit``, ``decode_n_launch`` →
-``DecodeHandle.wait``, ``prepare_decode``, ``release``, ``can_admit``,
-``admissible``, ``free_slots``, ``bucket_for``.
+Counterpart of ``ollama_operator_tpu/runtime/engine.py`` on one device,
+for its two caches. Paged (``EngineConfig.paged``): slots share a physical
+page pool (int8 on the card by default, int4 on request). Dense: each slot
+owns its rows of a head-first ``[L, B, KvH, S, hd]`` cache (bf16/f32, or
+int8 codes with per-(position, head) f32 scales). Admissions prefill one
+prompt in a power-of-two bucket and insert its K/V into the slot's pages
+or rows, and every decode dispatch advances all slots ``decode_chunk``
+steps. The surface the scheduler drives is the JAX engine's: ``admit``,
+``decode_n_launch`` → ``DecodeHandle.wait``, ``prepare_decode``,
+``release``, ``can_admit``, ``admissible``, ``free_slots``,
+``bucket_for``.
 
 PyTorch runs eagerly, so there is nothing to compile: a decode dispatch is
 the host loop that enqueues ``n`` steps on the device, and its handle
 waits on a CUDA event recorded after the last step (on the CPU the work is
-done by the time the launch returns). The dense slot cache, radix prefix
-cache, extend, speculative decoding, grammars, mirostat and multi-device
-meshes are not ported yet.
+done by the time the launch returns). The radix prefix cache, extend,
+speculative decoding, grammars, mirostat and multi-device meshes are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -34,10 +38,9 @@ from .paged import PageTable, PagesExhausted
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine sizing. The port is paged-only, so the JAX config's
-    ``paged`` flag has no counterpart; 0 in ``max_slots``,
-    ``decode_chunk`` or ``page_size`` means "resolve per device"
-    (:func:`resolve_serving_defaults`), as in the JAX package."""
+    """Engine sizing. As in the JAX package, 0 in ``max_slots``,
+    ``decode_chunk`` or ``page_size`` and None in ``paged`` mean "resolve
+    per model and device" (:func:`resolve_serving_defaults`)."""
     max_slots: int = 8
     max_seq_len: int = 2048
     # torch.bfloat16 / torch.float32 pools, torch.int8 for the quantized
@@ -48,33 +51,56 @@ class EngineConfig:
     # penalty window capacity (Ollama repeat_last_n default)
     repeat_last_n: int = 64
     decode_chunk: int = 8
+    # the paged KV pool (True) or the dense slot cache (False); the
+    # server's model manager passes None = decide per model at load
+    # (resolve_paged_default); direct engine constructions default dense
+    paged: Optional[bool] = False
     page_size: int = 64
     # data pages in the pool (excl. the trash page); None = the dense
     # equivalent max_slots * max_seq_len / page_size
     n_pages: Optional[int] = None
 
 
+def resolve_paged_default(cfg: ModelConfig, device) -> bool:
+    """The serving default for an unset ``paged`` flag: the JAX package's
+    ``resolve_paged_default`` with the card in the place of the TPU. GQA
+    and MHA models page on the card; MoE stays dense, and every model is
+    dense off the card, as the JAX package is dense off the TPU."""
+    if torch.device(device).type != "cuda":
+        return False
+    return not cfg.n_experts
+
+
 def resolve_serving_defaults(ecfg: EngineConfig, cfg: ModelConfig,
                              device) -> EngineConfig:
     """The JAX package's ``resolve_serving_defaults`` with the card in the
-    place of the TPU: on CUDA a GQA model gets 64 slots, page size 128,
-    decode chunk 32 and, with auto slots and no explicit pool size, a
-    pool of the dense-24 byte ceiling (768 pages at max_seq_len 4096);
-    elsewhere 32 slots, page size 64, chunk 8 and a dense-8 pool."""
+    place of the TPU. ``paged`` None resolves per model
+    (:func:`resolve_paged_default`); an explicit flag wins. Decode chunk
+    32 on the card, 8 elsewhere. Paged: a GQA model on the card gets 64
+    slots and page size 128, anything else 32 slots and page size 64;
+    with auto slots and no explicit pool size the pool holds the dense-24
+    (64 slots) or dense-8 (32 slots) byte ceiling (768 pages for llama3.1
+    at max_seq_len 4096). Dense: 8 slots and no page pool."""
     on_card = torch.device(device).type == "cuda"
     gqa = cfg.n_kv_heads < cfg.n_heads
     chunk = ecfg.decode_chunk or (32 if on_card else 8)
-    ps = ecfg.page_size or (128 if on_card and gqa else 64)
-    if ecfg.max_slots != 0:
+    if ecfg.paged is not None and ecfg.max_slots != 0:
+        ps = ecfg.page_size or (128 if on_card and ecfg.paged and gqa
+                                else 64)
         return dataclasses.replace(ecfg, decode_chunk=chunk, page_size=ps)
-    slots = 64 if on_card and gqa else 32
+    paged = (resolve_paged_default(cfg, device) if ecfg.paged is None
+             else ecfg.paged)
+    ps = ecfg.page_size or (128 if on_card and paged and gqa else 64)
+    slots = ecfg.max_slots or ((64 if on_card and gqa else 32)
+                               if paged else 8)
     n_pages = ecfg.n_pages
-    if n_pages is None:
+    if paged and n_pages is None and ecfg.max_slots == 0:
         serve_seq = min(ecfg.max_seq_len, cfg.max_seq_len)
         ceil_slots = 24 if slots >= 64 else 8
         n_pages = max(1, ceil_slots * serve_seq // ps)
-    return dataclasses.replace(ecfg, max_slots=slots, n_pages=n_pages,
-                               decode_chunk=chunk, page_size=ps)
+    return dataclasses.replace(ecfg, paged=paged, max_slots=slots,
+                               n_pages=n_pages, decode_chunk=chunk,
+                               page_size=ps)
 
 
 def resolve_engine_dtype(cfg: ModelConfig, device) -> str:
@@ -103,17 +129,24 @@ CACHE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                 "int4": "int4"}
 
 
-def resolve_cache_dtype(name_or_dtype) -> Union[torch.dtype, str]:
+def resolve_cache_dtype(name_or_dtype, device=None
+                        ) -> Union[torch.dtype, str]:
     """A KV cache dtype given by name or as a torch dtype → the engine's
     ``cache_dtype`` (a torch dtype, or "int4"); raises for anything
-    outside the supported set."""
+    outside the supported set, and on the card for float32, which no
+    decode kernel there takes (paged or dense: bf16, int8, int4)."""
     if isinstance(name_or_dtype, str):
         if name_or_dtype not in CACHE_DTYPES:
             raise ValueError(f"cache dtype {name_or_dtype!r}; expected one "
                              f"of {sorted(CACHE_DTYPES)}")
-        return CACHE_DTYPES[name_or_dtype]
-    if name_or_dtype not in CACHE_DTYPES.values():
+        name_or_dtype = CACHE_DTYPES[name_or_dtype]
+    elif name_or_dtype not in CACHE_DTYPES.values():
         raise ValueError(f"unsupported cache dtype {name_or_dtype}")
+    if (name_or_dtype is torch.float32 and device is not None
+            and torch.device(device).type == "cuda"):
+        raise ValueError("a float32 KV cache is not served on the card: "
+                         "its decode kernels take bfloat16, int8 or int4 "
+                         "(paged) caches")
     return name_or_dtype
 
 
@@ -171,9 +204,145 @@ class DecodeHandle:
         return self._out
 
 
+def _kv_arrays(shape, cache_dtype, dev):
+    """K and V storage of ``shape`` (rows of hd on the last axis): plain
+    bf16/f32 tensors, or {codes, f32 scales} dicts for int8 ("q") and
+    int4 ("q4", two rows a byte along axis 3). Zero scales make an empty
+    cache read as 0 (ops/quant_cache.py)."""
+    if cache_dtype not in (torch.int8, "int4"):
+        k = torch.zeros(shape, dtype=cache_dtype, device=dev)
+        return k, torch.zeros_like(k)
+    key, code_shape, code_dtype = (
+        ("q4", shape[:3] + (shape[3] // 2, shape[4]), torch.uint8)
+        if cache_dtype == "int4" else ("q", shape, torch.int8))
+
+    def pool():
+        return {key: torch.zeros(code_shape, dtype=code_dtype, device=dev),
+                "s": torch.zeros(shape[:-1], dtype=torch.float32,
+                                 device=dev)}
+    return pool(), pool()
+
+
+class DenseCache:
+    """Each slot owns rows [0, S) of a head-first ``[L, B, KvH, S, hd]``
+    cache (bf16/f32, or int8 codes with per-(position, head) f32 scales):
+    admission writes a prompt's rows in place, nothing is allocated, and
+    a prompt shorter than the context always fits."""
+    pt = None
+
+    def __init__(self, cfg: ModelConfig, B: int, S: int, cache_dtype, dev):
+        if cache_dtype == "int4":
+            raise ValueError("cache dtype 'int4' requires the paged cache "
+                             "(the dense cache has no nibble-packed "
+                             "layout); set paged=True or use int8")
+        self.k, self.v = _kv_arrays(
+            (cfg.n_layers, B, cfg.n_kv_heads, S, cfg.head_dim), cache_dtype,
+            dev)
+
+    def fits(self, slot: int, ahead: int) -> bool:
+        return True
+
+    def fits_empty(self, ahead: int) -> bool:
+        return True
+
+    def claim(self, slot: int, n: int, ahead: int):
+        pass
+
+    def insert(self, cfg: ModelConfig, ks, vs, slot: int, n: int):
+        decoder.dense_insert(self.k, self.v, ks, vs, slot)
+
+    def grow(self, slot: int, n_tokens: int) -> bool:
+        return True
+
+    def stepper(self, attn_len: int):
+        """One decode step over the first ``attn_len`` rows."""
+        def step(params, cfg, tokens, lengths):
+            return decoder.forward_with_cache(params, cfg, tokens, self.k,
+                                              self.v, lengths, attn_len)
+        return step
+
+    def release(self, slot: int):
+        """A released slot's rows stay as they are, masked until the next
+        admission overwrites them."""
+
+    def advance_epoch(self) -> int:
+        return 0
+
+    def retire(self, epoch: int):
+        pass
+
+
+class PagedCache:
+    """Slots share a pool of ``[L, P, KvH, ps, hd]`` pages (page 0 is the
+    trash page) through a :class:`PageTable`: admission and every decode
+    dispatch grow a slot's table, released pages stay fenced until the
+    dispatch that last read them is retired, and a dry pool raises
+    :class:`PagesExhausted`."""
+
+    def __init__(self, cfg: ModelConfig, B: int, S: int, ps: int,
+                 n_pages: Optional[int], cache_dtype, dev):
+        if ps <= 0 or ps & (ps - 1) or S % ps:
+            raise ValueError(f"page_size {ps} must be a power of two "
+                             f"dividing max_seq_len {S}")
+        if cache_dtype == "int4" and ps < 2:
+            raise ValueError("an int4 KV pool needs page_size >= 2")
+        n_pages = n_pages or (B * S) // ps
+        self.pt = PageTable(B, n_pages + 1, ps, S // ps)
+        self.dev = dev
+        self.k, self.v = _kv_arrays(
+            (cfg.n_layers, n_pages + 1, cfg.n_kv_heads, ps, cfg.head_dim),
+            cache_dtype, dev)
+
+    def fits(self, slot: int, ahead: int) -> bool:
+        """Would ``ahead`` rows fit in the slot's pages plus the free
+        ones?"""
+        pt = self.pt
+        return (pt.blocks_for(ahead)
+                <= pt.free_for(slot) + pt.owned_blocks(slot))
+
+    def fits_empty(self, ahead: int) -> bool:
+        return self.pt.blocks_for(ahead) <= self.pt.data_pages
+
+    def claim(self, slot: int, n: int, ahead: int):
+        """Drop the slot's pages and map pages for an ``n``-token prompt,
+        keeping ``ahead`` rows of headroom free."""
+        pt = self.pt
+        pt.release(slot)
+        if pt.blocks_for(ahead) > pt.free_for(slot) or not pt.grow(slot, n):
+            raise PagesExhausted(
+                f"prompt of {n} tokens (+1 chunk headroom) needs "
+                f"{pt.blocks_for(ahead)} pages; {pt.free_for(slot)} free")
+
+    def insert(self, cfg: ModelConfig, ks, vs, slot: int, n: int):
+        row = torch.from_numpy(self.pt.tables[slot]).to(self.dev)
+        decoder.paged_insert(cfg, self.k, self.v, ks, vs, row, n)
+
+    def grow(self, slot: int, n_tokens: int) -> bool:
+        return self.pt.grow(slot, n_tokens)
+
+    def stepper(self, attn_len: int):
+        """One decode step over the pages covering ``attn_len`` rows."""
+        nblk = self.pt.blocks_for(attn_len)
+        tables = torch.from_numpy(self.pt.tables).to(self.dev)
+
+        def step(params, cfg, tokens, lengths):
+            return decoder.forward_with_cache_paged(
+                params, cfg, tokens, self.k, self.v, tables, lengths, nblk)
+        return step
+
+    def release(self, slot: int):
+        self.pt.release(slot)
+
+    def advance_epoch(self) -> int:
+        return self.pt.advance_epoch()
+
+    def retire(self, epoch: int):
+        self.pt.retire_epoch(epoch)
+
+
 class Engine:
-    """Owns the device state (params, page pools, slot state) and runs
-    admissions and decode dispatches."""
+    """Owns the device state (params, KV pools or cache, slot state) and
+    runs admissions and decode dispatches."""
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig =
                  EngineConfig(), device="cuda"):
@@ -189,37 +358,13 @@ class Engine:
                             "activations (int8/int4 weights, bf16 tok_emb)")
         B, S = ecfg.max_slots, min(ecfg.max_seq_len, cfg.max_seq_len)
         self.n_slots, self.max_seq = B, S
-        ps = ecfg.page_size
-        if ps <= 0 or ps & (ps - 1) or S % ps:
-            raise ValueError(f"page_size {ps} must be a power of two "
-                             f"dividing max_seq_len {S}")
-        L, KvH, hd, V = (cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
-                         cfg.vocab_size)
-        self._nblk = S // ps
-        n_pages = ecfg.n_pages or (B * S) // ps
-        self._pt = PageTable(B, n_pages + 1, ps, self._nblk)
+        self.paged = bool(ecfg.paged)
+        V = cfg.vocab_size
+        cache_dtype = resolve_cache_dtype(ecfg.cache_dtype, self.device)
         dev = self.device
-        shape = (L, n_pages + 1, KvH, ps, hd)
-        cache_dtype = resolve_cache_dtype(ecfg.cache_dtype)
-        if cache_dtype in (torch.int8, "int4"):
-            # int4 packs two positions a byte along the page axis
-            # (ops/quant_cache.py); scales stay per position, and zero
-            # scales make an empty pool read as 0
-            if cache_dtype == "int4" and ps < 2:
-                raise ValueError("an int4 KV pool needs page_size >= 2")
-            key, code_shape, code_dtype = (
-                ("q4", shape[:3] + (ps // 2, hd), torch.uint8)
-                if cache_dtype == "int4" else ("q", shape, torch.int8))
-
-            def pool():
-                return {key: torch.zeros(code_shape, dtype=code_dtype,
-                                         device=dev),
-                        "s": torch.zeros(shape[:-1], dtype=torch.float32,
-                                         device=dev)}
-            self.k_cache, self.v_cache = pool(), pool()
-        else:
-            self.k_cache = torch.zeros(shape, dtype=cache_dtype, device=dev)
-            self.v_cache = torch.zeros_like(self.k_cache)
+        self.kv = (PagedCache(cfg, B, S, ecfg.page_size, ecfg.n_pages,
+                              cache_dtype, dev) if self.paged
+                   else DenseCache(cfg, B, S, cache_dtype, dev))
         W = max(1, ecfg.repeat_last_n)
         self._W = W
         # device slot state. counts carries one sentinel column (index V)
@@ -239,6 +384,18 @@ class Engine:
         self._admit_seq = 0
         self._buckets = prefill_buckets(S, ecfg.min_prefill_bucket)
         self._rebuild_slot_tensors()
+
+    @property
+    def k_cache(self):
+        return self.kv.k
+
+    @property
+    def v_cache(self):
+        return self.kv.v
+
+    @property
+    def _pt(self) -> Optional[PageTable]:
+        return self.kv.pt
 
     # ------------------------------------------------------------------
     # host API
@@ -273,23 +430,28 @@ class Engine:
             g.manual_seed(_draw_seed(int(self._seeds[slot]), position))
         return g
 
+    def _ahead(self, n_tokens: int) -> int:
+        """Rows an admission must find room for: the prompt plus one
+        decode chunk of headroom, clamped at the context."""
+        return min(n_tokens + self.ecfg.decode_chunk, self.max_seq)
+
     def can_admit(self, slot: int, n_tokens: int) -> bool:
-        """Would admitting ``n_tokens`` into ``slot`` find enough pages,
-        counting one decode chunk of headroom?"""
-        ahead = min(n_tokens + self.ecfg.decode_chunk, self.max_seq)
-        return (self._pt.blocks_for(ahead)
-                <= self._pt.free_for(slot) + self._pt.owned_blocks(slot))
+        """Would admitting ``n_tokens`` into ``slot`` find room now (a
+        prompt shorter than the context, and pages for it plus one decode
+        chunk when paged)?"""
+        return (0 < n_tokens < self.max_seq
+                and self.kv.fits(slot, self._ahead(n_tokens)))
 
     def admissible(self, n_tokens: int) -> bool:
         """Could a prompt of ``n_tokens`` ever be admitted (pool empty)?"""
-        ahead = min(n_tokens + self.ecfg.decode_chunk, self.max_seq)
-        return self._pt.blocks_for(ahead) <= self._pt.data_pages
+        return (0 < n_tokens < self.max_seq
+                and self.kv.fits_empty(self._ahead(n_tokens)))
 
     def admit(self, slot: int, prompt: np.ndarray,
               opts: SlotOptions = SlotOptions()) -> int:
         """Prefill ``prompt`` into ``slot``; returns the first sampled
-        token. Raises :class:`PagesExhausted` when the pool cannot hold
-        the prompt plus one decode chunk."""
+        token. Paged: raises :class:`PagesExhausted` when the pool cannot
+        hold the prompt plus one decode chunk."""
         if self.active[slot]:
             raise RuntimeError(f"slot {slot} busy")
         prompt = np.asarray(prompt, np.int64)
@@ -298,7 +460,7 @@ class Engine:
             raise ValueError(f"prompt of {n} tokens: need 0 < n < "
                              f"{self.max_seq}")
         bucket = self.bucket_for(n)
-        table_row = self._grow_for_admit(slot, n)
+        self.kv.claim(slot, n, self._ahead(n))
         cfg, dev, V = self.cfg, self.device, self.cfg.vocab_size
         tokens = np.zeros((1, bucket), np.int64)
         tokens[0, :n] = prompt
@@ -324,8 +486,7 @@ class Engine:
         counts_dev = torch.from_numpy(counts).to(dev)
         tok = int(sampling.sample(logits, counts_dev[None, :V], row,
                                   [self._generator(slot, n - 1)])[0])
-        decoder.paged_insert(cfg, self.k_cache, self.v_cache, ks, vs,
-                             table_row, n)
+        self.kv.insert(cfg, ks, vs, slot, n)
         # the first token enters the window at its own position n
         if rln > 0:
             counts[ring[n % rmod]] -= 1
@@ -345,25 +506,15 @@ class Engine:
         self._rebuild_slot_tensors()
         return tok
 
-    def _grow_for_admit(self, slot: int, n: int) -> torch.Tensor:
-        self._pt.release(slot)
-        ahead = min(n + self.ecfg.decode_chunk, self.max_seq)
-        if (self._pt.blocks_for(ahead) > self._pt.free_for(slot)
-                or not self._pt.grow(slot, n)):
-            raise PagesExhausted(
-                f"prompt of {n} tokens (+1 chunk headroom) needs "
-                f"{self._pt.blocks_for(ahead)} pages; "
-                f"{self._pt.free_for(slot)} free")
-        return torch.from_numpy(self._pt.tables[slot]).to(self.device)
-
     def prepare_decode(self, n: Optional[int] = None) -> List[int]:
         """Grow every active slot's table to cover lengths + n (clamped
         at max_seq), oldest admission first; returns the slots that found
-        no pages, newest first, for the caller to preempt."""
+        no pages, newest first, for the caller to preempt (never any for
+        the dense cache)."""
         n = n or self.ecfg.decode_chunk
         order = sorted((s for s in range(self.n_slots) if self.active[s]),
                        key=lambda s: self._admit_order[s])
-        victims = [s for s in order if not self._pt.grow(
+        victims = [s for s in order if not self.kv.grow(
             s, min(int(self._host_lengths[s]) + n, self.max_seq))]
         victims.reverse()
         return victims
@@ -380,17 +531,18 @@ class Engine:
     def decode_n_launch(self, n: Optional[int] = None) -> DecodeHandle:
         """Enqueue ``n`` decode steps for every slot; slot state (host
         lengths included) advances at once and the handle's wait()
-        returns the tokens [n, B]. Pages freed after this launch stay
-        fenced until :meth:`retire` gets its epoch. Raises
-        :class:`PagesExhausted` when the pool cannot cover the chunk —
-        callers that preempt run :meth:`prepare_decode` themselves."""
+        returns the tokens [n, B]. Every slot row is computed, as in the
+        JAX package (inactive rows write and attend their own position 0).
+        Paged: pages freed after this launch stay fenced until
+        :meth:`retire` gets its epoch; raises :class:`PagesExhausted` when
+        the pool cannot cover the chunk — callers that preempt run
+        :meth:`prepare_decode` themselves."""
         n = n or self.ecfg.decode_chunk
         victims = self.prepare_decode(n)
         if victims:
             raise PagesExhausted(f"pool dry; victims {victims}")
         cfg, dev, V = self.cfg, self.device, self.cfg.vocab_size
-        nblk = -(-self._attn_bucket(n) // self.ecfg.page_size)
-        tables = torch.from_numpy(self._pt.tables).to(dev)
+        step = self.kv.stepper(self._attn_bucket(n))
         active = self._active_dev
         act_b = active.bool()
         live = act_b & (self._rln_dev > 0)
@@ -400,9 +552,8 @@ class Engine:
         ones = torch.ones((self.n_slots, 1), dtype=torch.int32, device=dev)
         toks = torch.empty((n, self.n_slots), dtype=torch.int64, device=dev)
         for t in range(n):
-            logits, _, _ = decoder.forward_with_cache_paged(
-                self.params, cfg, self.last_tokens[:, None],
-                self.k_cache, self.v_cache, tables, self.lengths, nblk)
+            logits, _, _ = step(self.params, cfg, self.last_tokens[:, None],
+                                self.lengths)
             gens = [self._generator(s, int(self._host_lengths[s]) + t)
                     if self.active[s] else None
                     for s in range(self.n_slots)]
@@ -428,15 +579,17 @@ class Engine:
         if dev.type == "cuda":
             event = torch.cuda.Event()
             event.record()
-        return DecodeHandle(toks, event, self._pt.advance_epoch())
+        epoch = self.kv.advance_epoch()
+        return DecodeHandle(toks, event, epoch)
 
     def release(self, slot: int):
         """Free ``slot``: its pages return to the pool and its device
-        state resets."""
+        state resets (a dense slot's rows stay as they are, masked until
+        the next admission overwrites them)."""
         self.active[slot] = False
         self._opts.pop(slot, None)
         self._gens[slot] = None
-        self._pt.release(slot)
+        self.kv.release(slot)
         self._host_lengths[slot] = 0
         self._repeat_n[slot] = self._W
         self.lengths[slot] = 0
@@ -447,8 +600,8 @@ class Engine:
 
     def retire(self, epoch: int):
         """The dispatch stamped ``epoch`` (and every earlier one) has been
-        waited on: pages freed since then may be reused."""
-        self._pt.retire_epoch(epoch)
+        waited on: pages freed since then may be reused (paged only)."""
+        self.kv.retire(epoch)
 
     @property
     def kv_bytes(self) -> int:

@@ -1,13 +1,16 @@
-"""Continuous-batching scheduler over the paged engine.
+"""Continuous-batching scheduler over the engine (paged or dense).
 
 Counterpart of ``ollama_operator_tpu/runtime/scheduler.py`` (which cannot
 be reused: it imports the JAX engine). One background thread admits
 waiting requests into free slots (one prefill each), runs one decode
 dispatch for every running slot, and fans the tokens out to per-request
-queues, one queue item per dispatch. When the page pool cannot cover the
-next chunk, the newest slots are preempted: their request goes back to the
-front of the queue with its prompt plus the tokens generated so far, and
-re-admission continues the same stream.
+queues, one queue item per dispatch. On a paged engine, when the page
+pool cannot cover the next chunk, the newest slots are preempted: their
+request goes back to the front of the queue with its prompt plus the
+tokens generated so far, and re-admission continues the same stream. A
+dense engine never runs dry (``prepare_decode`` returns no victims and
+``PagesExhausted`` cannot occur), so there admission waits for a free
+slot only.
 
 Left for later slices: radix/prefix reuse and chunked prefill, speculative
 decoding, grammars, tenants and admission policy, deadlines, drain and the

@@ -118,17 +118,21 @@ class LoadedModel:
     With ``ecfg`` None the engine takes the serving defaults the JAX
     package's model manager resolves: ``max_seq_len`` =
     min(model context, ``num_ctx`` or 4096), the device's KV dtype (int8
-    on the card) and :func:`resolve_serving_defaults` for slots, page
-    size, pool size and decode chunk. ``kv_dtype`` names the KV pool's
-    storage as the JAX server's ``--kv-dtype`` does ("int8", "int4",
-    "bfloat16", "float32") and replaces the one in ``ecfg``."""
+    on the card) and :func:`resolve_serving_defaults` for the cache kind,
+    slots, page size, pool size and decode chunk. ``kv_dtype`` names the
+    KV cache's storage as the JAX server's ``--kv-dtype`` does ("int8",
+    "int4", "bfloat16", "float32") and ``paged`` its kind as the JAX
+    server's ``--paged`` does (True: the page pool; False: the dense slot
+    cache; None: resolved per model and device); each, when given,
+    replaces the one in ``ecfg``."""
 
     def __init__(self, name: str, cfg: ModelConfig, params,
                  tokenizer: Tokenizer, template: Optional[str] = None,
                  system: Optional[str] = None,
                  default_params: Optional[Dict] = None,
                  ecfg: Optional[EngineConfig] = None, device="cuda",
-                 kv_dtype: Optional[str] = None):
+                 kv_dtype: Optional[str] = None,
+                 paged: Optional[bool] = None):
         self.device = resolve_device(device)
         self.name = name
         self.cfg = cfg
@@ -142,11 +146,13 @@ class LoadedModel:
         self.serving_dtype: Optional[str] = None
         if ecfg is None:
             ecfg = resolve_serving_defaults(EngineConfig(
-                max_slots=0, decode_chunk=0, page_size=0,
+                max_slots=0, decode_chunk=0, page_size=0, paged=paged,
                 max_seq_len=min(cfg.max_seq_len, int(
                     self.default_params.get("num_ctx", 4096))),
                 cache_dtype=resolve_kv_dtype_default(self.device)),
                 cfg, self.device)
+        elif paged is not None:
+            ecfg = dataclasses.replace(ecfg, paged=paged)
         if kv_dtype is not None:
             ecfg = dataclasses.replace(
                 ecfg, cache_dtype=resolve_cache_dtype(kv_dtype))

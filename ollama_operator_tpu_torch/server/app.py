@@ -94,7 +94,8 @@ class ModelManager:
         one, else in the dtype resolved for this model and device
         (``resolve_engine_dtype``: int8 below 4e9 parameters and int4
         above on the card, f32 on the CPU). ``params`` is consumed: its
-        leaves are popped as they are converted."""
+        leaves are popped as they are converted. Other keywords go to
+        :class:`LoadedModel` (``kv_dtype``, ``paged``, ``ecfg``, ...)."""
         engine_dtype = dtype or resolve_engine_dtype(cfg, self.device)
         lm = LoadedModel(name, cfg,
                          apply_engine_dtype(params, engine_dtype,

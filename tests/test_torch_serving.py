@@ -61,8 +61,9 @@ def numpy_params():
 
 
 def _port_model(numpy_params, **kw):
-    ecfg = dict(max_slots=4, max_seq_len=128, cache_dtype=torch.int8,
-                page_size=16, min_prefill_bucket=16, decode_chunk=8)
+    ecfg = dict(paged=True, max_slots=4, max_seq_len=128,
+                cache_dtype=torch.int8, page_size=16, min_prefill_bucket=16,
+                decode_chunk=8)
     ecfg.update(kw)
     return LoadedModel(
         "tiny", TPRESETS["tiny"], params_from_numpy(numpy_params),
@@ -215,8 +216,8 @@ def test_entry_points_refuse_cpu_fallback(numpy_params, monkeypatch):
     params = params_from_numpy(numpy_params)
     tok = Tokenizer(model="llama", **BYTES)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Engine(cfg, params, EngineConfig(max_slots=2, max_seq_len=64,
-                                         page_size=16))
+        Engine(cfg, params, EngineConfig(paged=True, max_slots=2,
+                                         max_seq_len=64, page_size=16))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LoadedModel("tiny", cfg, params, tok)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -226,7 +227,7 @@ def test_entry_points_refuse_cpu_fallback(numpy_params, monkeypatch):
 def test_serving_defaults_on_the_card():
     cfg = TPRESETS["llama3.1"]
     e = resolve_serving_defaults(
-        EngineConfig(max_slots=0, decode_chunk=0, page_size=0,
+        EngineConfig(paged=True, max_slots=0, decode_chunk=0, page_size=0,
                      max_seq_len=4096), cfg, "cuda")
     assert (e.max_slots, e.page_size, e.n_pages, e.decode_chunk) == (
         64, 128, 768, 32)

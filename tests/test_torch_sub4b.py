@@ -55,7 +55,7 @@ def _concurrent(lm, prompts, options):
 
 
 G3 = dict(n_heads=6, n_kv_heads=2, tie_embeddings=True)
-ECFG = dict(max_slots=4, max_seq_len=128, page_size=16,
+ECFG = dict(paged=True, max_slots=4, max_seq_len=128, page_size=16,
             min_prefill_bucket=16, decode_chunk=8)
 
 
@@ -76,7 +76,7 @@ def test_tied_g3_int8_weights_match_jax_loaded_model(kv, monkeypatch):
             jnp.asarray, jquant.quantize_params(
                 jax.tree_util.tree_map(np.copy, dense), bits=8)),
         JTokenizer(model="llama", **BYTES), template=TPL,
-        ecfg=JEngineConfig(paged=True, cache_dtype=kv, **ECFG))
+        ecfg=JEngineConfig(cache_dtype=kv, **ECFG))
     try:
         ref = _concurrent(jlm, PROMPTS, GREEDY)
     finally:
