@@ -6,23 +6,25 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Print the card (``nvidia-smi`` name and power limit), the torch and
-   CUDA versions, and build the five CUDA kernel libraries from ``csrc/``
+   CUDA versions, and build the seven CUDA kernel libraries from ``csrc/``
    (one ``nvcc`` per source, all started together).
 2. Kernel phases at the main paths' shapes, in bf16 on the card: each
    kernel against its plain PyTorch version on the same inputs, with the
    tolerance stated beside it (attention kernels: every query row or slot
-   within 1% of its own largest output, the worst one printed); the
+   within 1% of its own largest output, the worst one printed, and the
+   share of bf16 outputs not bit-equal to the plain version's); the
    kernel's time (CUDA events, L2 flushed before every launch, as a
    decode step finds it), the plain version's time, the time of one
    PyTorch library call computing the same function where one exists,
    and the least time the card could take (bytes at 3.35 TB/s or bf16
    operations at 989 TFLOP/s, whichever is larger).
-   Kernels: flash prefill (also at phi3's MHA shape, hd 96, window 2047),
-   paged decode over int8 and int4 pools (also at phi3's G = 1, hd 96),
-   the GQA (K2) and MHA (K3) decode kernels over the dense slot cache, the
-   int4 (qmm4, llama3.1 shapes) and int8 (qmm, llama3.2:3b shapes and
-   phi3's LM head, O = 32064) dequant matmuls.
-3. Serving, six paths, each at full width and full depth behind the
+   Kernels: flash prefill (also at phi3's MHA shape, hd 96, window 2047);
+   the three paged-decode kernels (K6 v3, K4 v2, K5 v4) over int8, int4
+   and bf16 pools, at phi3's G = 1, hd 96, and with nblk below the longest
+   slot's live pages; the GQA (K2) and MHA (K3) decode kernels over the
+   dense slot cache; the int4 (qmm4, llama3.1 shapes) and int8 (qmm,
+   llama3.2:3b shapes and phi3's LM head, O = 32064) dequant matmuls.
+3. Serving, eight paths, each at full width and full depth behind the
    port's HTTP server on an ephemeral port, with random dense bf16 weights
    from a seed handed to ``ModelManager.preload``, which picks the weight
    dtype itself (int4 for llama3.1, int8 for llama3.2:3b and phi3), and
@@ -31,21 +33,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    size 64, 512 pages) — llama3.1 on an int8 pool, llama3.2:3b on an int8
    and on an int4 pool, phi3 on an int8 pool — then dense (8 slots of
    4096 rows, bf16) — llama3.2:3b through the GQA decode kernel, phi3 with
-   ``TPU_MHA_KERNEL=1`` through the MHA decode kernel; decode chunk 32.
-   Each: eight concurrent /api/generate requests (prompts of 96 to 316
-   tokens, num_predict 32, greedy) must each finish with eval_count 32, a
-   repeat of one prompt must give the same tokens, and the launch count of
-   every kernel on that path, counted from 0 just before the eight
-   requests, must be above 0 (and the other cache's decode kernels' 0).
+   ``TPU_MHA_KERNEL=1`` through the MHA decode kernel — then paged again:
+   llama3.1 on an int8 pool with ``TPU_PAGED_V3=0`` (K4) and phi3 on an
+   int8 pool with ``TPU_PAGED_V4=1`` (K5); decode chunk 32.
+   Each: the paged-decode route the knobs pick must be the path's, eight
+   concurrent /api/generate requests (prompts of 96 to 316 tokens,
+   num_predict 32, greedy) must each finish with eval_count 32, a repeat
+   of one prompt must give the same tokens, and the launch count of every
+   kernel on that path, counted from 0 just before the eight requests,
+   must be above 0 (and the other decode kernels' 0).
 4. Cross-checks at full width and two layers: llama3.1 int4 on an int8
    pool, llama3.2:3b int8 on an int4 pool, llama3.2:3b int8 on a bf16
-   dense cache (K2) and phi3 int8 on a bf16 dense cache (K3): the kernel
-   path against the plain path on the card, a prefill and 16 greedy
-   decode steps, the plain path fed the kernel path's tokens. Logits must
-   agree within the stated bf16 tolerance at every step, and the greedy
-   tokens must be identical at every step where greedy is decidable
-   (top-2 gap above twice the step's logit difference; near-ties are
-   listed).
+   dense cache (K2), phi3 int8 on a bf16 dense cache (K3), llama3.1 int4
+   on an int8 pool under ``TPU_PAGED_V3=0`` (K4) and phi3 int8 on an int8
+   pool under ``TPU_PAGED_V4=1`` (K5): the kernel path against the plain
+   path on the card, a prefill and 16 greedy decode steps, the plain path
+   fed the kernel path's tokens. Logits must agree within the stated bf16
+   tolerance at every step, and the greedy tokens must be identical at
+   every step where greedy is decidable (top-2 gap above twice the step's
+   logit difference; near-ties are listed).
 
 Then it prints one JSON line ``{"kernels": [...]}`` (``launches`` summed
 over the serving paths, per path in ``launches_by_path``), the
@@ -143,11 +149,13 @@ def kernel_phases(torch, timer, report):
         A row over thousands of keys has outputs ~50x smaller than one
         over a few, so one tolerance for all would let the long rows off.
         Returns (worst row's error, its tolerance, largest error of any
-        row, which row was worst)."""
+        row, which row was worst, the share of bf16 outputs that are not
+        bit-equal to the plain version's)."""
         d = (out.float() - ref.float()).reshape(rows, -1).abs().amax(1)
         tol = 1e-2 * ref.float().reshape(rows, -1).abs().amax(1)
         w = int((d / tol.clamp(min=1e-30)).argmax())
-        return d[w].item(), tol[w].item(), d.max().item(), label(w)
+        return (d[w].item(), tol[w].item(), d.max().item(), label(w),
+                (out != ref).float().mean().item())
 
     # -- flash prefill: B=1, T=512, KvH=8, hd=128; H=32 (llama3.1 chunk,
     # G = 4) and H=24 (llama3.2:3b, G = 3)
@@ -199,11 +207,26 @@ def kernel_phases(torch, timer, report):
                  f"(phi3)", main=False)
     del q, k, v, out, ref, band, qh
 
-    # -- paged decode over one layer of a two-layer pool. B=64, ps=128,
-    # lengths over 1..2048: int8 pool at H=32 (llama3.1) and H=24
-    # (llama3.2:3b), int4 pool at H=24; then phi3's default path: B=32,
-    # ps=64, H=KvH=32 (G = 1), hd 96, lengths over 1..4095, window 2047
-    def paged_case(B, ps, NBLK, H, KvH, hd, bits, max_len, window, main):
+    # -- paged decode over one layer of a two-layer pool, through each of
+    # the three routes' kernels: K6 (v3, the default), K4 (v2,
+    # TPU_PAGED_V3=0) and K5 (v4, TPU_PAGED_V4=1), each against the plain
+    # version of its own contract. B=64, ps=128, lengths over 1..2048: int8
+    # pool at H=32 (llama3.1) and H=24 (llama3.2:3b), int4 pool at H=24,
+    # bf16 pool at H=32; then phi3's paged path: B=32, ps=64, H=KvH=32
+    # (G = 1), hd 96, lengths over 1..4095, window 2047; then the int8 H=32
+    # shape with nblk cut to half the longest slot's live pages (v2 and v4
+    # ignore the keys past nblk * ps, v3 walks them all)
+    paged_kernels = (
+        ("v3", "csrc/paged_decode.cu",
+         "ollama_operator_tpu/ops/pallas/paged.py:609"),
+        ("v2", "csrc/paged_decode_v2.cu",
+         "ollama_operator_tpu/ops/pallas/paged.py:165"),
+        ("v4", "csrc/paged_decode_v4.cu",
+         "ollama_operator_tpu/ops/pallas/paged.py:414"))
+
+    def paged_case(B, ps, NBLK, H, KvH, hd, bits, max_len, window,
+                   main_routes, cut=False):
+        """``main_routes``: the routes whose main-path shape this is."""
         L = 2
         lengths = torch.randint(1, max_len + 1, (B,), generator=g,
                                 device=dev, dtype=torch.int32)
@@ -217,8 +240,8 @@ def kernel_phases(torch, timer, report):
             tables[b, :n] = perm[off:off + n]
             off += n
         nblk = int(live.max().item())
-        lo = (lengths.long() - window + 1).clamp(min=0) if window else 0
-        n_pos = int((lengths.long() + 1 - lo).sum().item())
+        if cut:
+            nblk //= 2
 
         def pool():
             scales = torch.rand((L, P, KvH, ps), generator=g, device=dev)
@@ -227,41 +250,64 @@ def kernel_phases(torch, timer, report):
                                            generator=g, device=dev,
                                            dtype=torch.int8),
                         "s": scales * 0.02 + 1e-3}
-            return {"q4": torch.randint(0, 256, (L, P, KvH, ps // 2, hd),
-                                        generator=g, device=dev,
-                                        dtype=torch.uint8),
-                    "s": scales * 0.3 + 1e-2}
+            if bits == 4:
+                return {"q4": torch.randint(0, 256, (L, P, KvH, ps // 2, hd),
+                                            generator=g, device=dev,
+                                            dtype=torch.uint8),
+                        "s": scales * 0.3 + 1e-2}
+            return randn(L, P, KvH, ps, hd)
 
         kp, vp = pool(), pool()
         qd = randn(B, 1, H, hd)
         scale = hd ** -0.5
         args = (qd, kp, vp, 1, tables, lengths, scale, 0.0, window)
-        out = PG.paged_decode_attention(*args, nblk=NBLK)
-        ref = PG.paged_decode_attention_plain(*args, nblk=nblk)
-        check = rowwise(out, ref, B, lambda r: f"slot {r} (length "
-                        f"{int(lengths[r])})")
-        # every live position's codes (hd bytes, or hd / 2 for int4) and
-        # f32 scale, for K and V, per kv head; q in, out back, the tables
-        nbytes = (2 * 2 * qd.numel()
-                  + 2 * KvH * n_pos * (hd * pool_bits(kp) // 8 + 4)
-                  + 4 * B * NBLK + 4 * B)
-        flops = 4 * H * hd * n_pos
-        name = "paged_decode_int4" if bits == 4 else "paged_decode"
-        report(name, "csrc/paged_decode.cu",
-               "ollama_operator_tpu/ops/pallas/paged.py:609", check,
-               timer(lambda: PG.paged_decode_attention(*args, nblk=NBLK)),
-               timer(lambda: PG.paged_decode_attention_plain(*args,
-                                                             nblk=nblk)),
-               None, *bound(nbytes, flops),
-               shape=f"B={B} H={H} KvH={KvH} hd={hd} ps={ps} int{bits}, "
-                     f"lengths 1..{max_len}"
-                     + (f" window {window}" if window else "")
-                     + f" ({n_pos} live positions)", main=main)
+        code_bytes = hd * pool_bits(kp) // 8 + (4 if bits < 16 else 0)
+        for route, source, replaces in paged_kernels:
+            fn = getattr(PG, f"paged_decode_attention_{route}")
+            out = fn(*args, nblk=nblk)
+            ref = PG.paged_decode_attention_plain(*args, nblk=nblk,
+                                                  route=route)
+            check = rowwise(out, ref, B, lambda r: f"slot {r} (length "
+                            f"{int(lengths[r])})")
+            # the positions this route attends: keys 0..length (inside the
+            # window), below nblk * ps for v2 and v4
+            last = lengths.long() + 1
+            if route != "v3":
+                last = last.clamp(max=nblk * ps)
+            lo = ((lengths.long() - window + 1).clamp(min=0) if window
+                  else torch.zeros_like(last))
+            n_pos = int((last - lo).clamp(min=0).sum().item())
+            # every attended position's codes (hd bytes, hd / 2 for int4,
+            # 2 hd for bf16) and f32 scale, for K and V, per kv head; q in,
+            # out back, the tables
+            nbytes = (2 * 2 * qd.numel() + 2 * KvH * n_pos * code_bytes
+                      + 4 * B * NBLK + 4 * B)
+            flops = 4 * H * hd * n_pos
+            name = ("paged_decode" if route == "v3" else
+                    f"paged_decode_{route}")
+            if route == "v3" and bits == 4:
+                name = "paged_decode_int4"
+            report(name, source, replaces, check,
+                   timer(lambda: fn(*args, nblk=nblk)),
+                   timer(lambda: PG.paged_decode_attention_plain(
+                       *args, nblk=nblk, route=route)),
+                   None, *bound(nbytes, flops),
+                   shape=f"B={B} H={H} KvH={KvH} hd={hd} ps={ps} "
+                         f"{'bf16' if bits == 16 else f'int{bits}'}, "
+                         f"lengths 1..{max_len}"
+                         + (f" window {window}" if window else "")
+                         + (f" nblk {nblk} < longest {nblk * 2}" if cut
+                            else "")
+                         + f" ({n_pos} attended positions)",
+                   main=route in main_routes)
+            del out, ref
 
-    for H, bits in ((32, 8), (24, 8), (24, 4)):
-        paged_case(64, 128, 32, H, 8, 128, bits, 2048, 0,
-                   main=(H == 32 or bits == 4))
-    paged_case(32, 64, 64, 32, 32, 96, 8, 4095, 2047, main=False)
+    for H, bits, main_routes in ((32, 8, ("v3", "v2")), (24, 8, ()),
+                                 (24, 4, ("v3",)), (32, 16, ())):
+        paged_case(64, 128, 32, H, 8, 128, bits, 2048, 0, main_routes)
+    paged_case(32, 64, 64, 32, 32, 96, 8, 4095, 2047, ("v4",))
+    paged_case(64, 128, 32, 32, 8, 128, 8, 2048, 0, (), cut=True)
+    torch.cuda.empty_cache()
 
     # -- dense-cache decode, B=8 slots of S=4096 rows, lengths spread over
     # 1..4095: K2 (GQA) at llama3.2:3b's heads (H=24, KvH=8, hd=128) with
@@ -398,26 +444,41 @@ def post(port: int, body: dict) -> dict:
 
 
 # (model preset, KV cache dtype, paged pool or dense slot cache, environment
-# of the path, the counters its path must raise above 0, the counters it
-# must leave at 0)
+# of the path, the paged-decode route it must take (None: dense), the
+# counters its path must raise above 0, the counters it must leave at 0)
+PAGED_COUNTERS = ("paged_decode", "paged_decode_int4", "paged_decode_v2",
+                  "paged_decode_v4")
+DENSE_COUNTERS = ("decode_attention", "mha_decode")
 SERVING = (
-    ("llama3.1", "int8", True, {}, ("flash_prefill", "paged_decode", "qmm4"),
-     ()),
-    ("llama3.2:3b", "int8", True, {}, ("flash_prefill", "paged_decode",
-                                       "qmm"), ()),
-    ("llama3.2:3b", "int4", True, {}, ("flash_prefill", "paged_decode_int4",
-                                       "qmm"), ()),
-    ("phi3", "int8", True, {}, ("flash_prefill", "paged_decode", "qmm"), ()),
-    ("llama3.2:3b", "bfloat16", False, {}, ("flash_prefill",
-                                            "decode_attention", "qmm"),
-     ("paged_decode", "paged_decode_int4", "mha_decode")),
-    ("phi3", "bfloat16", False, {"TPU_MHA_KERNEL": "1"},
+    ("llama3.1", "int8", True, {}, "v3",
+     ("flash_prefill", "paged_decode", "qmm4"),
+     ("paged_decode_v2", "paged_decode_v4") + DENSE_COUNTERS),
+    ("llama3.2:3b", "int8", True, {}, "v3",
+     ("flash_prefill", "paged_decode", "qmm"),
+     ("paged_decode_v2", "paged_decode_v4") + DENSE_COUNTERS),
+    ("llama3.2:3b", "int4", True, {}, "v3",
+     ("flash_prefill", "paged_decode_int4", "qmm"),
+     ("paged_decode_v2", "paged_decode_v4") + DENSE_COUNTERS),
+    ("phi3", "int8", True, {}, "v3", ("flash_prefill", "paged_decode", "qmm"),
+     ("paged_decode_v2", "paged_decode_v4") + DENSE_COUNTERS),
+    ("llama3.2:3b", "bfloat16", False, {}, None,
+     ("flash_prefill", "decode_attention", "qmm"),
+     PAGED_COUNTERS + ("mha_decode",)),
+    ("phi3", "bfloat16", False, {"TPU_MHA_KERNEL": "1"}, None,
      ("flash_prefill", "mha_decode", "qmm"),
-     ("paged_decode", "paged_decode_int4", "decode_attention")))
+     PAGED_COUNTERS + ("decode_attention",)),
+    ("llama3.1", "int8", True, {"TPU_PAGED_V3": "0"}, "v2",
+     ("flash_prefill", "paged_decode_v2", "qmm4"),
+     ("paged_decode", "paged_decode_int4", "paged_decode_v4")
+     + DENSE_COUNTERS),
+    ("phi3", "int8", True, {"TPU_PAGED_V4": "1"}, "v4",
+     ("flash_prefill", "paged_decode_v4", "qmm"),
+     ("paged_decode", "paged_decode_int4", "paged_decode_v2")
+     + DENSE_COUNTERS))
 
 
 def serving_phase(torch, details, model: str, kv_dtype: str, paged: bool,
-                  expect, absent) -> dict:
+                  route, expect, absent) -> dict:
     """Serve ``model`` at full width behind the HTTP server: dense bf16
     weights from the seed go through ``ModelManager.preload``, which
     resolves the weight dtype itself (int4 at 4e9 parameters or more, int8
@@ -428,9 +489,12 @@ def serving_phase(torch, details, model: str, kv_dtype: str, paged: bool,
 
     from ollama_operator_tpu_torch.models.config import get_config
     from ollama_operator_tpu_torch.ops import cuda_build
+    from ollama_operator_tpu_torch.ops.paged import paged_route
     from ollama_operator_tpu_torch.runtime.engine import resolve_engine_dtype
     from ollama_operator_tpu_torch.server.app import ModelManager, serve
     cfg = get_config(model)
+    if paged and paged_route() != route:
+        raise RuntimeError(f"paged route {paged_route()}, expected {route}")
     t0 = time.perf_counter()
     params = dense_params(torch, cfg)
     mm = ModelManager()            # the card: no device argument
@@ -446,7 +510,7 @@ def serving_phase(torch, details, model: str, kv_dtype: str, paged: bool,
     if lm.engine.paged != paged:
         raise RuntimeError(f"{model} resolved paged={lm.engine.paged}")
     tag = (f"{model} {lm.serving_dtype} weights, {kv_dtype} "
-           f"{'paged' if paged else 'dense'} KV")
+           f"{f'paged ({route}) ' if paged else 'dense '}KV")
     print(f"serving {tag}: slots={e.max_slots} page_size={e.page_size} "
           f"pages={e.n_pages} max_seq={e.max_seq_len} "
           f"chunk={e.decode_chunk} kv={e.cache_dtype} "
@@ -506,7 +570,8 @@ def serving_phase(torch, details, model: str, kv_dtype: str, paged: bool,
         n_tok = sum(r["eval_count"] for r in results)
         ttft = sorted(r["prompt_eval_duration"] / 1e6 for r in results)
         out = {"model": model, "weights": lm.serving_dtype, "kv": kv_dtype,
-               "paged": paged, "requests": len(results), "wall_s": wall,
+               "paged": paged, "route": route, "requests": len(results),
+               "wall_s": wall,
                "generated_tokens": n_tok, "aggregate_tok_s": n_tok / wall,
                "ttft_ms": ttft, "kv_bytes": lm.engine.kv_bytes,
                "prompt_tokens": [r["prompt_eval_count"] for r in results],
@@ -696,11 +761,12 @@ def cross_check(torch, details, model: str, bits: int, kv_dtype: str,
     # distribution that bf16 rounding may break either way, and is listed.
     ties = [i for i in range(len(sk)) if gaps[i] <= 2 * step_err[i]]
     bad = [i for i in range(len(sk)) if sk[i] != sp[i] and i not in ties]
+    route = PG.paged_route() if paged else None
     tag = (f"{model} int{bits} weights, {kv_dtype} "
-           f"{'paged' if paged else 'dense'} KV")
+           f"{f'paged ({route})' if paged else 'dense'} KV")
     details.setdefault("cross_check", []).append({
         "model": model, "weights": f"int{bits}", "kv": kv_dtype,
-        "paged": paged, "kernels": sorted(plain_fns),
+        "paged": paged, "route": route, "kernels": sorted(plain_fns),
         "logit_max_abs_err": err, "logit_scale": scale, "tol": tol,
         "step_err": step_err, "plain_top2_gap": gaps,
         "near_tie_steps": ties, "kernel_tokens": sk, "plain_tokens": sp})
@@ -771,21 +837,22 @@ def main() -> int:
     def report(name, source, replaces, check, ms, plain_ms, library_ms,
                bound_ms, bound_by, shape="", main=True):
         """``check``: (error, tolerance) over the whole output, or
-        (worst row's error, its tolerance, largest error, worst row) from
-        a row-wise check."""
+        (worst row's error, its tolerance, largest error, worst row, share
+        of outputs not bit-equal) from a row-wise check."""
         err, tol = check[:2]
-        max_err, worst = (check[2], check[3]) if len(check) > 2 else (err,
-                                                                     None)
+        max_err, worst, differ = (check[2:] if len(check) > 2
+                                  else (err, None, None))
         ok = err <= tol
         row = dict(name=name, shape=shape, max_abs_err=max_err, err=err,
-                   tol=tol, worst=worst, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, ok=ok)
+                   tol=tol, worst=worst, bf16_not_bit_equal=differ, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, ok=ok)
         rows.append(row)
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
         held = (f"max|err| {err:.3g} (tol {tol:g})" if worst is None else
                 f"worst {worst}: max|err| {err:.3g} (tol {tol:.3g}); "
-                f"max|err| of all rows {max_err:.3g}")
+                f"max|err| of all rows {max_err:.3g}; bf16 outputs not "
+                f"bit-equal to the plain version: {differ:.4%}")
         print(f"kernel {name} [{shape}]: {held} "
               f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain {plain_ms:.4f} "
               f"library {lib} bound {bound_ms:.4f} ({bound_by})", flush=True)
@@ -818,11 +885,12 @@ def main() -> int:
 
     launches_by_path = {}
     try:
-        for model, kv, paged, env, expect, absent in SERVING:
-            path = f"{model} {kv} {'paged' if paged else 'dense'} KV"
+        for model, kv, paged, env, route, expect, absent in SERVING:
+            path = (f"{model} {kv} "
+                    f"{f'paged ({route})' if paged else 'dense'} KV")
             with mock.patch.dict(os.environ, env):
                 launches_by_path[path] = serving_phase(
-                    torch, details, model, kv, paged, expect, absent)
+                    torch, details, model, kv, paged, route, expect, absent)
             print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
         cross_check(torch, details, "llama3.1", 4, "int8")
         cross_check(torch, details, "llama3.2:3b", 8, "int4")
@@ -830,6 +898,10 @@ def main() -> int:
                     paged=False)
         with mock.patch.dict(os.environ, {"TPU_MHA_KERNEL": "1"}):
             cross_check(torch, details, "phi3", 8, "bfloat16", paged=False)
+        with mock.patch.dict(os.environ, {"TPU_PAGED_V3": "0"}):
+            cross_check(torch, details, "llama3.1", 4, "int8")
+        with mock.patch.dict(os.environ, {"TPU_PAGED_V4": "1"}):
+            cross_check(torch, details, "phi3", 8, "int8")
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
     except Exception as e:  # noqa: BLE001 — every phase failure is fatal
         import traceback

@@ -4,7 +4,8 @@
 // flash_prefill (kernel body _prefill_kernel). Same function: query i of the
 // chunk attends keys j <= i (positions local to the chunk), optionally only
 // inside a sliding window, with an optional tanh softcap on the scores, an
-// f32 online softmax, and the output in the input type.
+// f32 online softmax (the probabilities rounded to bf16 before the p . v
+// product, their sum l taken unrounded), and the output in the input type.
 //
 // What bounds it on the card: operations. A T-token chunk does about
 // 2 * H * T^2 * hd multiply-adds (half of them skipped by causality), and
@@ -154,7 +155,10 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
         // rows with no live key yet keep m == NEG_INF: gate p so masked
         // NEG_INF scores do not turn into exp(0) = 1
         const float p = (m_new > NEG_INF * 0.5f) ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(rg * 4 + i) * ldp + cg + 8 * j] = p;
+        // p . v takes p rounded to bf16, as the TPU kernel's bf16 dot does;
+        // the sum l takes it unrounded
+        Ps[(rg * 4 + i) * ldp + cg + 8 * j] =
+            __bfloat162float(__float2bfloat16(p));
         psum += p;
       }
       psum = group8_sum(psum);

@@ -40,7 +40,8 @@ def attend_hf(q, k, v, mask, scale: float, softcap: float = 0.0):
 
     q [B, T, H, hd]; k, v [B, KvH, S, hd]; mask [B, 1, T, S] additive
     (0 or NEG_INF), broadcastable → [B, T, H, hd] (q.dtype). Scores and
-    softmax in f32."""
+    softmax in f32; the probabilities are rounded to v's dtype before the
+    p . v product, as the JAX package's ``attend_hf`` does."""
     B, T, H, hd = q.shape
     KvH = k.shape[1]
     G = H // KvH
@@ -48,7 +49,7 @@ def attend_hf(q, k, v, mask, scale: float, softcap: float = 0.0):
     scores = torch.einsum("btkgh,bksh->bkgts", qg.float(), k.float())
     scores = softcap_scores(scores * scale, softcap)
     scores = scores + mask[:, :, None, :, :]
-    probs = torch.softmax(scores, dim=-1)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype).float()
     out = torch.einsum("bkgts,bksh->btkgh", probs, v.float())
     return out.reshape(B, T, H, hd).to(q.dtype)
 
@@ -66,14 +67,41 @@ def causal_mask(T: int, S: int, offset: int, sliding_window: int = 0,
     return torch.where(ok, zero, NEG_INF)[None, None]
 
 
+def _softmax_pv(s, ok, v, round_p: bool):
+    """The TPU kernels' softmax and p . v: s [B, KvH, G, T, S] f32 scores
+    (scaled, soft-capped), ok (broadcastable to s) the live keys, v [B,
+    KvH, S, hd] → [B, KvH, G, T, hd] f32. p = exp(s - row max) with masked
+    keys at NEG_INF (a row with no live key gives 0); with ``round_p`` p is
+    rounded to v's dtype before the p . v product, while the sum l takes
+    the unrounded p; out = (p . v) / max(l, 1e-30)."""
+    s = torch.where(ok, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    zero = torch.zeros((), dtype=torch.float32, device=s.device)
+    p = torch.where(m > NEG_INF / 2, torch.exp(s - m), zero)
+    l = p.sum(dim=-1, keepdim=True)
+    if round_p:
+        p = p.to(v.dtype).float()
+    out = torch.einsum("bkgts,bksh->bkgth", p, v.float())
+    return out / torch.clamp(l, min=1e-30)
+
+
 def flash_prefill_plain(q, k, v, scale: float, softcap: float = 0.0,
                         sliding_window: int = 0):
     """Plain version of the flash-prefill kernel: causal (optionally
     windowed) GQA self-attention over a fresh chunk, positions local to
-    the chunk. q [B, T, H, hd], k/v [B, KvH, T, hd] → [B, T, H, hd]."""
-    T = q.shape[1]
-    mask = causal_mask(T, T, 0, sliding_window, device=q.device)
-    return attend_hf(q, k, v, mask, scale, softcap)
+    the chunk. q [B, T, H, hd], k/v [B, KvH, T, hd] → [B, T, H, hd]. The
+    probabilities are taken from the row max and rounded to v's dtype
+    before the p . v product, as the TPU kernel does over a chunk that
+    fits one key block (the CUDA kernel rounds them per 32-key tile, from
+    the running max)."""
+    B, T, H, hd = q.shape
+    KvH = k.shape[1]
+    qg = q.reshape(B, T, KvH, H // KvH, hd).float()
+    s = torch.einsum("btkgh,bksh->bkgts", qg, k.float()) * scale
+    s = softcap_scores(s, softcap)
+    ok = causal_mask(T, T, 0, sliding_window, device=q.device) == 0
+    out = _softmax_pv(s, ok[:, :, None], v, round_p=True)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd).to(q.dtype)
 
 
 def flash_prefill(q, k, v, scale: float, softcap: float = 0.0,
@@ -132,23 +160,15 @@ def _decode_plain(q, k_cache, v_cache, q_pos, scale: float, softcap: float,
     the p . v product, as the TPU's GQA decode kernel does."""
     B, _, H, hd = q.shape
     KvH, S = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(B, KvH, H // KvH, hd).float()
-    s = torch.einsum("bkgh,bksh->bkgs", qg, k_cache.float()) * scale
+    qg = q.reshape(B, 1, KvH, H // KvH, hd).float()
+    s = torch.einsum("btkgh,bksh->bkgts", qg, k_cache.float()) * scale
     s = softcap_scores(s, softcap)
     k_pos = torch.arange(S, device=q.device)[None, :]
     qp = q_pos.long()[:, None]
     ok = k_pos <= qp
     if sliding_window:
         ok = ok & (k_pos > qp - sliding_window)
-    s = torch.where(ok[:, None, None, :], s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    zero = torch.zeros((), dtype=torch.float32, device=q.device)
-    p = torch.where(m > NEG_INF / 2, torch.exp(s - m), zero)
-    l = p.sum(dim=-1, keepdim=True)
-    if round_p:
-        p = p.to(v_cache.dtype).float()
-    out = torch.einsum("bkgs,bksh->bkgh", p, v_cache.float())
-    out = out / torch.clamp(l, min=1e-30)
+    out = _softmax_pv(s, ok[:, None, None, None, :], v_cache, round_p)
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 

@@ -25,8 +25,8 @@ from typing import Dict, Sequence
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-KERNELS = ("flash_prefill", "paged_decode", "qmm4", "qmm",
-           "decode_attention")
+KERNELS = ("flash_prefill", "paged_decode", "paged_decode_v2",
+           "paged_decode_v4", "qmm4", "qmm", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,12 +34,13 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # kernel -> launches so far; each wrapper adds one where it launches its
 # kernel and nowhere else, so a caller can show which kernels a path went
-# through (reset by assigning 0). The paged-decode library counts its int4
-# pool variant apart from its int8/bf16 one; the decode-attention library
-# counts its GQA (``decode_attention``) and MHA (``mha_decode``) entries
-# apart.
-COUNTERS = ("flash_prefill", "paged_decode", "paged_decode_int4", "qmm4",
-            "qmm", "decode_attention", "mha_decode")
+# through (reset by assigning 0). The v3 paged-decode library counts its
+# int4 pool variant apart from its int8/bf16 one; the v2 and v4 libraries
+# count all three pools; the decode-attention library counts its GQA
+# (``decode_attention``) and MHA (``mha_decode``) entries apart.
+COUNTERS = ("flash_prefill", "paged_decode", "paged_decode_int4",
+            "paged_decode_v2", "paged_decode_v4", "qmm4", "qmm",
+            "decode_attention", "mha_decode")
 launches: Dict[str, int] = {name: 0 for name in COUNTERS}
 
 

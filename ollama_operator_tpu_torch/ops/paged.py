@@ -1,7 +1,8 @@
-"""Paged-attention decode: the paged-decode kernel's wrapper and its plain
-version.
+"""Paged-attention decode: the three paged-decode kernels' wrappers, their
+route, and their plain version.
 
-Counterpart of ``paged_decode_attention`` / ``paged_decode_attention_v3``
+Counterpart of ``paged_decode_attention`` (the dispatcher and the v2 grid
+kernel), ``paged_decode_attention_v3`` and ``paged_decode_attention_v4``
 in ``ollama_operator_tpu/ops/pallas/paged.py``: single-token attention for
 each slot against the physical page pool through its block table.
 
@@ -18,20 +19,60 @@ with the true head dim (the JAX package pads hd to 128 lanes and the scale
 pool's last axis to 128 for the TPU's tiling; the card needs neither, and
 hd = 128 models are untouched either way).
 
-:func:`paged_decode_attention` launches ``csrc/paged_decode.cu`` for
-tensors on the card and runs :func:`paged_decode_attention_plain` (gather
-the attended pages, then the einsum attention) for tensors on the CPU.
+:func:`paged_decode_attention` routes as the JAX dispatcher does, reading
+its two knobs at the call (:func:`paged_route`): ``TPU_PAGED_V4=1`` to
+:func:`paged_decode_attention_v4` (``csrc/paged_decode_v4.cu``), else
+``TPU_PAGED_V3`` other than ``"1"`` to :func:`paged_decode_attention_v2`
+(``csrc/paged_decode_v2.cu``), else :func:`paged_decode_attention_v3`
+(``csrc/paged_decode.cu``). The three kernels take the same shapes, so the
+knobs alone decide the route. Each wrapper launches its kernel for tensors
+on the card and runs :func:`paged_decode_attention_plain` for tensors on
+the CPU.
+
+The routes differ in one thing, which keys ``nblk`` lets through: v2 and
+v4 attend the first ``nblk`` blocks of a slot's table and ignore keys at
+or past ``nblk * ps``; v3 walks every live page of the table whatever
+``nblk`` is. The engine passes an ``nblk`` that covers every active slot,
+so serving never sees the difference.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
 from . import cuda_build
-from .attention import NEG_INF, attend_hf
-from .quant_cache import attend_hf_q, attend_hf_q4, pool_codes
+from .attention import NEG_INF, softcap_scores
+from .quant_cache import pool_codes, unpack_kv4
+
+ROUTES = ("v2", "v3", "v4")
+
+
+def paged_route() -> str:
+    """The paged-decode kernel the knobs pick now: "v4" when
+    ``TPU_PAGED_V4`` is "1", else "v3" when ``TPU_PAGED_V3`` is "1" (its
+    default), else "v2" (the JAX dispatcher's order)."""
+    if os.environ.get("TPU_PAGED_V4", "0") == "1":
+        return "v4"
+    if os.environ.get("TPU_PAGED_V3", "1") == "1":
+        return "v3"
+    return "v2"
+
+
+def paged_shape_error(H: int, KvH: int, hd: int, ps: int, quant4: bool):
+    """Why the paged-decode kernels cannot take these heads and pages, or
+    None. The three kernels share their limits: H a multiple of KvH with
+    H / KvH <= 8, hd % 4 == 0 and hd <= 256, ps <= 128, and ps even for an
+    int4 pool."""
+    if KvH <= 0 or H % KvH or H // KvH > 8:
+        return f"H={H} KvH={KvH}: the group H / KvH must be at most 8"
+    if hd % 4 or hd > 256:
+        return f"hd={hd}: must be a multiple of 4, at most 256"
+    if ps > 128 or (quant4 and ps % 2):
+        return f"page size {ps}: must be at most 128 (and even for int4)"
+    return None
 
 
 def _gather_pages(pool: torch.Tensor, layer: int, tbl: torch.Tensor
@@ -48,28 +89,66 @@ def _gather_pages(pool: torch.Tensor, layer: int, tbl: torch.Tensor
 
 def paged_decode_attention_plain(q, k_pool, v_pool, layer: int, tables,
                                  lengths, scale: float, softcap: float = 0.0,
-                                 sliding_window: int = 0, *, nblk: int):
-    """Plain version of the paged-decode kernel: gather the first ``nblk``
-    blocks of every slot's table and attend with the causal/window mask
-    at the slot's position ``lengths[b]`` (keys 0 .. lengths[b])."""
+                                 sliding_window: int = 0, *, nblk: int,
+                                 route: str = None):
+    """Plain version of the paged-decode kernel of ``route`` (default: the
+    knobs' :func:`paged_route`). It attends keys 0 .. lengths[b] of each
+    slot (only those inside ``sliding_window``) in the first ``nblk``
+    blocks of its table for "v2" and "v4", in every block of the table for
+    "v3", and computes what the TPU kernels compute: page by page in block
+    order, an f32 online softmax from the running max (scores scaled, then
+    the key scale, then the softcap), the probabilities times the value
+    scale rounded to q's dtype before the p . v product, the sum l over
+    the unrounded probabilities, out = acc / max(l, 1e-30) (0 for a slot
+    with no key in range)."""
+    route = route or paged_route()
+    if route not in ROUTES:
+        raise ValueError(f"paged route {route!r}; expected one of {ROUTES}")
     quant = isinstance(k_pool, dict)
     ps = (k_pool["s"] if quant else k_pool).shape[3]
-    tbl = tables[:, :nblk].long()
-    k_pos = torch.arange(nblk * ps, device=q.device)[None, None, :]
-    q_pos = lengths.long()[:, None, None]
+    W = tables.shape[1] if route == "v3" else nblk
+    tbl = tables[:, :W].long()
+    B, _, H, hd = q.shape
+    if quant:
+        kc, vc = (_gather_pages(pool_codes(p), layer, tbl)
+                  for p in (k_pool, v_pool))
+        if "q4" in k_pool:
+            kc, vc = unpack_kv4(kc), unpack_kv4(vc)
+        ks, vs = (_gather_pages(p["s"], layer, tbl) for p in (k_pool, v_pool))
+    else:
+        kc = _gather_pages(k_pool, layer, tbl)
+        vc = _gather_pages(v_pool, layer, tbl)
+    KvH = kc.shape[1]
+    G = H // KvH
+    qg = q.reshape(B, KvH, G, hd).float()
+    s = torch.einsum("bkgh,bksh->bkgs", qg, kc.float()) * scale
+    if quant:
+        s = s * ks[:, :, None, :]
+    s = softcap_scores(s, softcap)
+    k_pos = torch.arange(W * ps, device=q.device)[None, :]
+    q_pos = lengths.long()[:, None]
     ok = k_pos <= q_pos
     if sliding_window:
         ok = ok & (k_pos > q_pos - sliding_window)
+    s = torch.where(ok[:, None, None, :], s, NEG_INF)
+    s = s.reshape(B, KvH, G, W, ps)
+    # the running max after each page, and each page's share of the final
+    # (acc, l): the online update's chain of rescalings, as one factor
+    m_run = s.amax(dim=-1).cummax(dim=-1).values          # [B, KvH, G, W]
     zero = torch.zeros((), dtype=torch.float32, device=q.device)
-    mask = torch.where(ok, zero, NEG_INF)[:, None]      # [B, 1, 1, S]
+    p = torch.where(m_run[..., None] > NEG_INF / 2,
+                    torch.exp(s - m_run[..., None]), zero)
+    l_page = p.sum(dim=-1)
     if quant:
-        kw, vw = ({k: _gather_pages(v, layer, tbl) for k, v in p.items()}
-                  for p in (k_pool, v_pool))
-        attend = attend_hf_q4 if "q4" in k_pool else attend_hf_q
-        return attend(q, kw, vw, mask, scale, softcap)
-    kw = _gather_pages(k_pool, layer, tbl)
-    vw = _gather_pages(v_pool, layer, tbl)
-    return attend_hf(q, kw, vw, mask, scale, softcap)
+        p = p * vs.reshape(B, KvH, 1, W, ps)
+    p = p.to(q.dtype).float()
+    acc_page = torch.einsum("bkgwp,bkwph->bkgwh", p,
+                            vc.float().reshape(B, KvH, W, ps, hd))
+    w = torch.exp(m_run - m_run[..., -1:])
+    acc = (acc_page * w[..., None]).sum(dim=3)
+    l = (l_page * w).sum(dim=-1, keepdim=True)
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
 _PTR = ctypes.c_void_p
@@ -77,31 +156,22 @@ _INT = ctypes.c_int
 _FLT = ctypes.c_float
 
 
-def paged_decode_attention(q, k_pool, v_pool, layer: int, tables, lengths,
-                           scale: float, softcap: float = 0.0,
-                           sliding_window: int = 0, *, nblk: int):
-    """Single-token attention against the paged pool.
+def _pool_tensors(k_pool, v_pool):
+    if isinstance(k_pool, dict):
+        return (pool_codes(k_pool), k_pool["s"], pool_codes(v_pool),
+                v_pool["s"])
+    return (k_pool, v_pool)
 
-    q [B, 1, H, hd]; pools in the layout above; ``layer`` which L slice;
-    tables [B, NBLK] int32 physical page per logical block; lengths [B]
-    int32, the query's absolute position (its own K/V already written at
-    that position); ``nblk`` the attended width in blocks (<= NBLK; the
-    kernel walks only each slot's live pages within the table).
-    → [B, 1, H, hd] (q.dtype).
 
-    On the card this launches ``csrc/paged_decode.cu`` (bf16 q; int8,
-    int4 or bf16 pools; H / KvH <= 8, ps <= 128 and even for int4,
-    hd % 4 == 0, hd <= 256) and raises on anything it does not take; on
-    the CPU it runs :func:`paged_decode_attention_plain`."""
+def _launch(route: str, q, k_pool, v_pool, layer: int, tables, lengths,
+            scale: float, softcap: float, sliding_window: int, nblk: int):
+    """Check the inputs and launch the CUDA kernel of ``route``; raises on
+    anything the kernel does not take. Returns [B, 1, H, hd] bf16."""
     quant = isinstance(k_pool, dict)
-    pools = ((pool_codes(k_pool), k_pool["s"], pool_codes(v_pool),
-              v_pool["s"]) if quant else (k_pool, v_pool))
-    if not cuda_build.on_card(q, tables, lengths, *pools):
-        return paged_decode_attention_plain(
-            q, k_pool, v_pool, layer, tables, lengths, scale, softcap,
-            sliding_window, nblk=nblk)
     quant4 = quant and "q4" in k_pool
-    k_arr, v_arr = pools[0], pools[2 if quant else 1]
+    k_arr = pool_codes(k_pool) if quant else k_pool
+    v_arr = pool_codes(v_pool) if quant else v_pool
+    scales = (k_pool["s"], v_pool["s"]) if quant else ()
     B, T, H, hd = q.shape
     L, P, KvH, rows, hd_pool = k_arr.shape
     ps = 2 * rows if quant4 else rows
@@ -109,14 +179,16 @@ def paged_decode_attention(q, k_pool, v_pool, layer: int, tables, lengths,
     if T != 1 or q.dtype != torch.bfloat16:
         raise ValueError(f"paged_decode kernel takes bf16 q [B, 1, H, hd]; "
                          f"got {tuple(q.shape)} {q.dtype}")
-    if (hd_pool != hd or H % KvH or H // KvH > 8 or ps > 128 or hd % 4
-            or hd > 256 or nblk > NBLK or not 0 <= layer < L):
-        raise ValueError(f"paged_decode kernel: H={H} KvH={KvH} ps={ps} "
-                         f"hd={hd} pool hd={hd_pool} nblk={nblk}/{NBLK} "
-                         f"layer={layer}/{L} unsupported")
+    why = paged_shape_error(H, KvH, hd, ps, quant4)
+    if why or hd_pool != hd or not 0 < nblk <= NBLK or not 0 <= layer < L:
+        raise ValueError(f"paged_decode kernel: {why or ''} pool hd="
+                         f"{hd_pool} nblk={nblk}/{NBLK} layer={layer}/{L}")
+    if route == "v4" and B > 1024:
+        raise ValueError(f"paged_decode_v4 kernel takes at most 1024 "
+                         f"slots, got {B}")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("tables and lengths must be int32")
-    for t in pools + (tables, lengths):
+    for t in (k_arr, v_arr, *scales, tables, lengths):
         if not t.is_contiguous():
             raise ValueError("paged_decode kernel needs contiguous pools, "
                              "tables and lengths")
@@ -124,35 +196,121 @@ def paged_decode_attention(q, k_pool, v_pool, layer: int, tables, lengths,
         code_dtype = torch.uint8 if quant4 else torch.int8
         if (k_arr.dtype != code_dtype or v_arr.dtype != code_dtype
                 or v_arr.shape != k_arr.shape
-                or any(p["s"].dtype != torch.float32
-                       or p["s"].shape != (L, P, KvH, ps)
-                       for p in (k_pool, v_pool))):
+                or any(s.dtype != torch.float32
+                       or s.shape != (L, P, KvH, ps) for s in scales)):
             raise TypeError(f"{'int4' if quant4 else 'int8'} pool needs "
                             f"{code_dtype} codes [L, P, KvH, "
                             f"{'ps/2' if quant4 else 'ps'}, hd] and f32 "
                             f"[L, P, KvH, ps] scales")
-    elif k_arr.dtype != torch.bfloat16:
+    elif k_arr.dtype != torch.bfloat16 or v_arr.dtype != torch.bfloat16:
         raise TypeError(f"paged_decode kernel takes int8, int4 or bf16 "
                         f"pools, got {k_arr.dtype}")
     q = q.contiguous()
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream().cuda_stream
-    tail = [B, H, KvH, hd, P, ps, NBLK, int(layer), float(scale),
-            float(softcap or 0.0), int(sliding_window), stream]
-    tail_types = [_INT] * 8 + [_FLT, _FLT, _INT, _PTR]
-    if quant:
-        symbol = "paged_decode_int4" if quant4 else "paged_decode_int8"
-        fn = cuda_build.function("paged_decode", symbol,
-                                 [_PTR] * 8 + tail_types)
-        rc = fn(q.data_ptr(), k_arr.data_ptr(), k_pool["s"].data_ptr(),
-                v_arr.data_ptr(), v_pool["s"].data_ptr(), tables.data_ptr(),
-                lengths.data_ptr(), out.data_ptr(), *tail)
+    ks, vs = (s.data_ptr() for s in scales) if quant else (None, None)
+    args = [q.data_ptr(), k_arr.data_ptr(), ks, v_arr.data_ptr(), vs,
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr()]
+    types = [_PTR] * 8
+    if route != "v3":
+        # per (run of pages, kv head, group row): the partial softmax
+        # state, merged per slot in block order by the kernel's second pass
+        G = H // KvH
+        part_acc = torch.empty((B * nblk, KvH, G, hd), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((B * nblk, KvH, G, 2), dtype=torch.float32,
+                              device=q.device)
+        args += [part_acc.data_ptr(), part_ml.data_ptr()]
+        types += [_PTR] * 2
+    args += [B, H, KvH, hd, P, ps, NBLK, nblk, int(layer), float(scale),
+             float(softcap or 0.0), int(sliding_window)]
+    types += [_INT] * 9 + [_FLT, _FLT, _INT]
+    if route == "v4":
+        # a fixed number of CTAs per kv head, each walking an equal share
+        # of the flat list of live pages (at most one page each per slot)
+        args.append(max(1, min(B * nblk, 2048 // KvH)))
+        types.append(_INT)
+    lib = {"v2": "paged_decode_v2", "v3": "paged_decode",
+           "v4": "paged_decode_v4"}[route]
+    pool = "int4" if quant4 else "int8" if quant else "bf16"
+    fn = cuda_build.function(lib, f"{lib}_{pool}", types + [_PTR])
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(rc, lib)
+    return out
+
+
+def _paged(route: str, q, k_pool, v_pool, layer: int, tables, lengths,
+           scale: float, softcap: float, sliding_window: int, nblk: int):
+    """The kernel of ``route`` for tensors on the card (counting its
+    launch), its plain version for tensors on the CPU."""
+    if not cuda_build.on_card(q, tables, lengths,
+                              *_pool_tensors(k_pool, v_pool)):
+        return paged_decode_attention_plain(
+            q, k_pool, v_pool, layer, tables, lengths, scale, softcap,
+            sliding_window, nblk=nblk, route=route)
+    out = _launch(route, q, k_pool, v_pool, layer, tables, lengths, scale,
+                  softcap, sliding_window, nblk)
+    if route != "v3":
+        counter = f"paged_decode_{route}"
+    elif isinstance(k_pool, dict) and "q4" in k_pool:
+        counter = "paged_decode_int4"
     else:
-        fn = cuda_build.function("paged_decode", "paged_decode_bf16",
-                                 [_PTR] * 6 + tail_types)
-        rc = fn(q.data_ptr(), k_arr.data_ptr(), v_arr.data_ptr(),
-                tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), *tail)
-    cuda_build.check(rc, "paged_decode")
-    counter = "paged_decode_int4" if quant4 else "paged_decode"
+        counter = "paged_decode"
     cuda_build.launches[counter] += 1
     return out
+
+
+def paged_decode_attention_v3(q, k_pool, v_pool, layer: int, tables,
+                              lengths, scale: float, softcap: float = 0.0,
+                              sliding_window: int = 0, *, nblk: int):
+    """Single-token attention against the paged pool (the TPU's v3).
+
+    q [B, 1, H, hd]; pools in the layout above; ``layer`` which L slice;
+    tables [B, NBLK] int32 physical page per logical block; lengths [B]
+    int32, the query's absolute position (its own K/V already written at
+    that position); ``nblk`` the attended width in blocks (<= NBLK; this
+    kernel walks each slot's live pages within the whole table).
+    → [B, 1, H, hd] (q.dtype).
+
+    On the card this launches ``csrc/paged_decode.cu`` (bf16 q; int8,
+    int4 or bf16 pools; the limits of :func:`paged_shape_error`) and
+    raises on anything it does not take; on the CPU it runs
+    :func:`paged_decode_attention_plain` with v3's contract."""
+    return _paged("v3", q, k_pool, v_pool, layer, tables, lengths, scale,
+                  softcap, sliding_window, nblk)
+
+
+def paged_decode_attention_v2(q, k_pool, v_pool, layer: int, tables,
+                              lengths, scale: float, softcap: float = 0.0,
+                              sliding_window: int = 0, *, nblk: int):
+    """:func:`paged_decode_attention_v3`'s arguments, with the TPU v2 grid
+    kernel's contract (keys in the first ``nblk`` blocks only): on the
+    card ``csrc/paged_decode_v2.cu`` (one CTA per kv head, block and slot,
+    then a merge pass), on the CPU the plain version with route "v2"."""
+    return _paged("v2", q, k_pool, v_pool, layer, tables, lengths, scale,
+                  softcap, sliding_window, nblk)
+
+
+def paged_decode_attention_v4(q, k_pool, v_pool, layer: int, tables,
+                              lengths, scale: float, softcap: float = 0.0,
+                              sliding_window: int = 0, *, nblk: int):
+    """:func:`paged_decode_attention_v3`'s arguments, with the TPU v4 flat
+    grid kernel's contract (keys in the first ``nblk`` blocks only): on
+    the card ``csrc/paged_decode_v4.cu`` (CTAs walking equal shares of
+    the flat list of live pages, then a merge pass), on the CPU the plain
+    version with route "v4"."""
+    return _paged("v4", q, k_pool, v_pool, layer, tables, lengths, scale,
+                  softcap, sliding_window, nblk)
+
+
+_ROUTED = {"v2": paged_decode_attention_v2, "v3": paged_decode_attention_v3,
+           "v4": paged_decode_attention_v4}
+
+
+def paged_decode_attention(q, k_pool, v_pool, layer: int, tables, lengths,
+                           scale: float, softcap: float = 0.0,
+                           sliding_window: int = 0, *, nblk: int):
+    """Single-token attention against the paged pool through the kernel
+    that :func:`paged_route` picks at this call (the JAX dispatcher's
+    knobs; arguments as :func:`paged_decode_attention_v3`)."""
+    return _ROUTED[paged_route()](q, k_pool, v_pool, layer, tables, lengths,
+                                  scale, softcap, sliding_window, nblk=nblk)

@@ -118,11 +118,3 @@ def unpack_kv4(packed: torch.Tensor, axis: int = -2) -> torch.Tensor:
     out = torch.stack([lo, hi], dim=-1).flatten(-2)
     return out.movedim(-1, axis)
 
-
-def attend_hf_q4(q, kc: Dict, vc: Dict, mask, scale: float,
-                 softcap: float = 0.0):
-    """:func:`attend_hf_q` over an int4 view: kc/vc {"q4" [B, KvH, S//2,
-    hd] uint8, "s" [B, KvH, S]}, unpacked to per-position codes first."""
-    return attend_hf_q(q, {"q": unpack_kv4(kc["q4"]), "s": kc["s"]},
-                       {"q": unpack_kv4(vc["q4"]), "s": vc["s"]}, mask,
-                       scale, softcap)

@@ -24,6 +24,7 @@ ported yet.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Union
 
 import numpy as np
@@ -33,6 +34,7 @@ from ..device import resolve_device
 from ..models import decoder
 from ..models.config import ModelConfig
 from ..ops import sampling
+from ..ops.paged import paged_route, paged_shape_error
 from .paged import PageTable, PagesExhausted
 
 
@@ -64,9 +66,14 @@ class EngineConfig:
 def resolve_paged_default(cfg: ModelConfig, device) -> bool:
     """The serving default for an unset ``paged`` flag: the JAX package's
     ``resolve_paged_default`` with the card in the place of the TPU. GQA
-    and MHA models page on the card; MoE stays dense, and every model is
-    dense off the card, as the JAX package is dense off the TPU."""
+    and MHA models page on the card, except that an MHA model stays dense
+    when the v3 kernel is reverted (``TPU_PAGED_V3`` other than "1"); MoE
+    stays dense, and every model is dense off the card, as the JAX package
+    is dense off the TPU."""
     if torch.device(device).type != "cuda":
+        return False
+    if (cfg.n_kv_heads >= cfg.n_heads
+            and os.environ.get("TPU_PAGED_V3", "1") != "1"):
         return False
     return not cfg.n_experts
 
@@ -286,6 +293,11 @@ class PagedCache:
                              f"dividing max_seq_len {S}")
         if cache_dtype == "int4" and ps < 2:
             raise ValueError("an int4 KV pool needs page_size >= 2")
+        why = paged_shape_error(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                ps, cache_dtype == "int4")
+        if why and torch.device(dev).type == "cuda":
+            raise ValueError(f"no paged-decode kernel on the card takes "
+                             f"this pool ({paged_route()} route): {why}")
         n_pages = n_pages or (B * S) // ps
         self.pt = PageTable(B, n_pages + 1, ps, S // ps)
         self.dev = dev
