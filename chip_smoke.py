@@ -7,23 +7,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Print the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and build the seven CUDA kernel libraries from ``csrc/``
-   (one ``nvcc`` per source, all started together).
+   (one ``nvcc`` per source, all started together); print each library's
+   tensor-core instruction count (``HMMA``/``HGMMA`` lines of
+   ``cuobjdump -sass``), which must be above 0 for the flash-prefill and
+   qmm4 libraries.
 2. Kernel phases at the main paths' shapes, in bf16 on the card: each
    kernel against its plain PyTorch version on the same inputs, with the
    tolerance stated beside it (attention kernels: every query row or slot
    within 1% of its own largest output, the worst one printed, and the
    share of bf16 outputs not bit-equal to the plain version's); the
    kernel's time (CUDA events, L2 flushed before every launch, as a
-   decode step finds it), the plain version's time, the time of one
-   PyTorch library call computing the same function where one exists,
-   and the least time the card could take (bytes at 3.35 TB/s or bf16
-   operations at 989 TFLOP/s, whichever is larger).
-   Kernels: flash prefill (also at phi3's MHA shape, hd 96, window 2047);
+   decode step finds it, the host's launch work kept out of the window),
+   the plain version's time, the time of one PyTorch library call
+   computing the same function where one exists, and the least time the
+   card could take (bytes at 3.35 TB/s or bf16 operations at 989
+   TFLOP/s, whichever is larger).
+   Kernels: flash prefill (also at phi3's MHA shape, hd 96, window 2047,
+   and at two ragged chunks, one with hd 80, a window and a softcap);
    the three paged-decode kernels (K6 v3, K4 v2, K5 v4) over int8, int4
    and bf16 pools, at phi3's G = 1, hd 96, and with nblk below the longest
    slot's live pages; the GQA (K2) and MHA (K3) decode kernels over the
    dense slot cache; the int4 (qmm4, llama3.1 shapes) and int8 (qmm,
-   llama3.2:3b shapes and phi3's LM head, O = 32064) dequant matmuls.
+   llama3.2:3b shapes, N = 8 among them, where qmm takes the decode form,
+   and phi3's LM head, O = 32064) dequant matmuls. Also the tied LM head's
+   f32 product (a bf16 GEMM with an f32 output) against the f32 product
+   of the same values.
 3. Serving, eight paths, each at full width and full depth behind the
    port's HTTP server on an ephemeral port, with random dense bf16 weights
    from a seed handed to ``ModelManager.preload``, which picks the weight
@@ -78,6 +86,7 @@ from unittest import mock
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 20261017
+TENSOR_CORE_KERNELS = ("flash_prefill", "qmm4")
 
 
 def fail(msg: str) -> int:
@@ -106,7 +115,12 @@ def bound(nbytes: float, flops: float):
 
 class Timer:
     """Mean device time of ``fn`` over ``iters`` launches, each after an
-    L2 flush (a 256 MB write), so weights and pages come from HBM."""
+    L2 flush (a 256 MB write), so weights and pages come from HBM. A
+    device-side spin (~0.5 ms) follows the flush, so the host's work to
+    launch ``fn`` (its Python, a library's dispatch) is done before the
+    start event runs and only device time lands between the events."""
+
+    SPIN_CYCLES = 1_000_000
 
     def __init__(self, torch):
         self.torch = torch
@@ -120,6 +134,7 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.flush_buf.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -206,6 +221,38 @@ def kernel_phases(torch, timer, report):
            shape=f"B={B} T={T} H={H} KvH={H} hd={hd} window={window} "
                  f"(phi3)", main=False)
     del q, k, v, out, ref, band, qh
+
+    # -- flash prefill at ragged chunks (T no multiple of the 64-row and
+    # 64-key tiles): llama3.2:3b's heads at a 300-token prompt, and hd 80
+    # with GQA, a 64-key window and a softcap of 30 at 200 tokens
+    for B, T, H, KvH, hd, window, softcap in ((1, 300, 24, 8, 128, 0, 0.0),
+                                              (2, 200, 8, 2, 80, 64, 30.0)):
+        q, k, v = (randn(B, T, H, hd), randn(B, KvH, T, hd),
+                   randn(B, KvH, T, hd))
+        scale = hd ** -0.5
+        args = (q, k, v, scale, softcap, window)
+        out, ref = A.flash_prefill(*args), A.flash_prefill_plain(*args)
+        check = rowwise(out, ref, B * T, lambda r: f"query {r}")
+        i = torch.arange(T, device=dev)
+        band = i[None, :] <= i[:, None]
+        if window:
+            band &= i[None, :] > i[:, None] - window
+        n_pairs = int(band.sum().item())
+        qh = q.transpose(1, 2)
+        kr = k.repeat_interleave(H // KvH, dim=1)
+        vr = v.repeat_interleave(H // KvH, dim=1)
+        report("flash_prefill", "csrc/flash_prefill.cu",
+               "ollama_operator_tpu/ops/pallas/flash.py:134", check,
+               timer(lambda: A.flash_prefill(*args)),
+               timer(lambda: A.flash_prefill_plain(*args)),
+               None if softcap else timer(
+                   lambda: F.scaled_dot_product_attention(
+                       qh, kr, vr, attn_mask=band, scale=scale)),
+               *bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                      4 * B * H * hd * n_pairs),
+               shape=f"B={B} T={T} H={H} KvH={KvH} hd={hd} window={window} "
+                     f"softcap={softcap} (ragged)", main=False)
+        del q, k, v, out, ref, band, qh, kr, vr
 
     # -- paged decode over one layer of a two-layer pool, through each of
     # the three routes' kernels: K6 (v3, the default), K4 (v2,
@@ -354,26 +401,47 @@ def kernel_phases(torch, timer, report):
                main=main)
         del k, v, kr, vr, out, ref
 
-    # -- dequant matmuls on every projection shape, N in {1, 64, 512}:
-    # qmm4 (int4) at llama3.1's, qmm (int8) at llama3.2:3b's. Both take
-    # the weight rounded to bf16 and sum f32 products of the same values,
-    # in another order than the plain version
-    for name, fn, plain, quant, replaces, shapes, main in (
+    # -- the tied LM head's f32 product (llama3.2:3b: 8 rows, D 3072,
+    # vocab 128256): one bf16 GEMM with an f32 output (aten::mm.dtype, a
+    # library call the port makes, as the JAX package leaves this product
+    # to XLA) against the f32 product of the same bf16 values
+    from ollama_operator_tpu_torch.models.decoder import _mm_f32
+    xh, emb = randn(8, 3072), randn(128256, 3072, scale=0.02)
+    got = _mm_f32(xh, emb.t())
+    want = xh.float() @ emb.float().t()
+    err = (got - want).abs().max().item()
+    htol = 1e-5 * want.abs().max().item()   # f32 sums in another order
+    print(f"tied head (aten::mm.dtype) [N=8 K=3072 V=128256]: dtype "
+          f"{got.dtype}; max|err| {err:.3g} against the f32 product (tol "
+          f"{htol:.3g})", flush=True)
+    if got.dtype != torch.float32 or not err <= htol:
+        raise RuntimeError("the tied head's f32 product disagrees")
+    del xh, emb, got, want
+
+    # -- dequant matmuls on every projection shape: qmm4 (int4) at
+    # llama3.1's, N in {1, 64, 512}; qmm (int8) at llama3.2:3b's, N in {1,
+    # 8, 64, 512} (8: the dense paths' decode, where qmm takes the decode
+    # form). Each kernel and its plain version sum f32 products of the
+    # same values in another order: qmm's f32 FMAs, qmm4's tensor cores
+    # (bf16 x bf16 products exact, accumulated in f32 over k16 steps and
+    # then across K groups, splits summed in a fixed order): a few f32
+    # ulps of sums of |y| ~ 1, far inside 1e-3
+    for name, fn, plain, quant, replaces, shapes, main, rows in (
             ("qmm4", Q.qmm4, Q.qmm4_plain, Q.quantize_groupwise_int4,
              "ollama_operator_tpu/ops/pallas/quant.py:142",
              {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
               "w_gate/w_up": (4096, 14336), "w_down": (14336, 4096),
-              "lm_head": (4096, 128256)}, "w_gate/w_up"),
+              "lm_head": (4096, 128256)}, "w_gate/w_up", (1, 64, 512)),
             ("qmm", Q.qmm, Q.qmm_plain, Q.quantize_groupwise,
              "ollama_operator_tpu/ops/pallas/quant.py:73",
              {"wq/wo": (3072, 3072), "wk/wv": (3072, 1024),
               "w_gate/w_up": (3072, 8192), "w_down": (8192, 3072)},
-             "w_gate/w_up")):
+             "w_gate/w_up", (1, 8, 64, 512))):
         for wname, (K, O) in shapes.items():
             qw = quant(torch.randn((K, O), generator=g, device=dev) * 0.02)
             codes = qw["q4"] if "q4" in qw else qw["q"]
             wbf = Q.dequantize_groupwise(qw).to(bf)
-            for N in (1, 64, 512):
+            for N in rows:
                 x = randn(N, K)
                 out = fn(x, codes, qw["s"])
                 ref = plain(x, codes, qw["s"])
@@ -831,6 +899,16 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
     details["card"] = card
     details["build_s"] = t_build
+    # tensor-core instructions in each library's SASS: the redesigned K1
+    # and K8 run both their products on the tensor cores
+    sass = {name: cuda_build.tensor_core_instructions(name)
+            for name in cuda_build.KERNELS}
+    details["tensor_core_sass_lines"] = sass
+    print(f"tensor-core SASS lines (HMMA/HGMMA) by library: {sass}",
+          flush=True)
+    missing = [n for n in TENSOR_CORE_KERNELS if sass[n] <= 0]
+    if missing:
+        return fail(f"no tensor-core instructions in {missing}")
 
     rows, entries = [], {}
 

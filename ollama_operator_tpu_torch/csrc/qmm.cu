@@ -1,31 +1,39 @@
 // Weight-only int8 dequant-matmul (W8A16), for Hopper (sm_90a).
 //
 // Replaces the TPU kernel ollama_operator_tpu/ops/pallas/quant.py ::
-// qmm_pallas (kernel body _kernel). Same function for bf16 x:
-//   y[n, o] = sum_k x[n, k] * bf16(code[k, o] * s[k / 32, o]),  y in f32,
-// i.e. the dequantized weight is rounded to bf16 (as _kernel drops its tile
-// to the compute dtype before the dot) and every product and the sum are
-// f32 (a bf16 times a bf16 is exact in f32). Codes are int8 [K, O], one
-// f32 scale per group of 32 rows and column.
+// qmm_pallas (kernel body _kernel), computing for bf16 x the function the
+// JAX package serves int8 weights with (its XLA qmm, ops/quant.py):
+//   N > 16:  y[n, o] = sum_k x[n, k] * bf16(code[k, o] * s[k / 32, o]),
+//            the dequantized weight rounded to bf16 (as _kernel drops its
+//            tile to the compute dtype before the dot);
+//   N <= 16: y[n, o] = sum_G s[G, o] * (sum_{k in G} x[n, k] * code[k, o]),
+//            the decode form: exact codes, each group's dot in f32, the f32
+//            scale applied after it.
+// y is f32 and every product is exact in f32 (a bf16 times a bf16, or a
+// bf16 times an int8 code). Codes are int8 [K, O], one f32 scale per group
+// of 32 rows and column. The kernel picks the form from the call's N, not
+// from its row tile.
 //
 // What bounds it on the card: bytes at decode sizes (N up to 64: each code
 // byte is read once and feeds N multiply-adds), operations at prefill
-// sizes. This first version has no tensor cores: it runs f32 FMAs
-// (67 TFLOP/s peak), so it is slow at large N; that is accepted here and
-// recorded in PERF.md.
+// sizes. This version has no tensor cores: it runs f32 FMAs (67 TFLOP/s
+// peak), so it is slow at large N; that is accepted here and recorded in
+// PERF.md.
 //
-// Design (the qmm4 kernel's, with one code byte a weight): a CTA of 64
-// threads owns 256 output columns (4 adjacent columns a thread, read as one
-// 4-byte word of codes and one float4 of scales, so a warp reads 128
+// Design (the first qmm4 kernel's, with one code byte a weight): a CTA of
+// 64 threads owns 256 output columns (4 adjacent columns a thread, read as
+// one 4-byte word of codes and one float4 of scales, so a warp reads 128
 // contiguous bytes per row of K) and NT rows of x. It walks its share of
 // the K groups: x rows for 4 groups are staged in shared memory as f32;
 // per group a thread loads its 32 code words (the scale row changes every
-// 32 rows, so one float4 of scales serves the whole group), dequantizes
-// each code, rounds it to bf16 and uses it for all NT rows. When the column
-// and row tiles alone give too few CTAs to fill 132 SMs (decode; wk/wv at
-// O = 1024 give 4 column tiles), K is split over gridDim.z; each split
-// writes its own partial [N, O] and a second kernel sums the splits in a
-// fixed order, so results do not depend on scheduling.
+// 32 rows, so one float4 of scales serves the whole group) and either
+// dequantizes each code, rounds it to bf16 and uses it for all NT rows, or
+// (N <= 16) sums x times the code per row and scales the group's sum. When
+// the column and row tiles alone give too few CTAs to fill 132 SMs
+// (decode; wk/wv at O = 1024 give 4 column tiles), K is split over
+// gridDim.z; each split writes its own partial [N, O] and a second kernel
+// sums the splits in a fixed order, so results do not depend on
+// scheduling.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,6 +51,7 @@ constexpr int TILE_O = NTHREADS * COLS; // columns per CTA
 constexpr int GROUP = 32;
 constexpr int STAGE_GROUPS = 4;
 constexpr int STAGE_K = STAGE_GROUPS * GROUP;
+constexpr int DECODE_N = 16;  // ops/quant.py DECODE_N
 
 template <int NT>
 __global__ void __launch_bounds__(NTHREADS)
@@ -57,6 +66,7 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x,
   const int G = K / GROUP;
   const int g0 = blockIdx.z * groups_per_split;
   const int g1 = min(g0 + groups_per_split, G);
+  const bool decode_form = N <= DECODE_N;
 
   float acc[NT][COLS];
 #pragma unroll
@@ -85,19 +95,46 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
         for (int j = 0; j < GROUP; ++j)
           words[j] = *(const uint32_t*)(q + ((int64_t)g * GROUP + j) * O + o);
+        if (decode_form) {
+          float gacc[NT][COLS];
 #pragma unroll
-        for (int j = 0; j < GROUP; ++j) {
-          float w[COLS];
+          for (int n = 0; n < NT; ++n)
 #pragma unroll
-          for (int c = 0; c < COLS; ++c)
-            w[c] = round_bf16((float)(int8_t)((words[j] >> (8 * c)) & 0xffu)
-                              * scl[c]);
+            for (int c = 0; c < COLS; ++c) gacc[n][c] = 0.f;
 #pragma unroll
-          for (int n = 0; n < NT; ++n) {
-            const float xv = xs[n][gi * GROUP + j];
+          for (int j = 0; j < GROUP; ++j) {
+            float w[COLS];
 #pragma unroll
             for (int c = 0; c < COLS; ++c)
-              acc[n][c] = fmaf(xv, w[c], acc[n][c]);
+              w[c] = (float)(int8_t)((words[j] >> (8 * c)) & 0xffu);
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              const float xv = xs[n][gi * GROUP + j];
+#pragma unroll
+              for (int c = 0; c < COLS; ++c)
+                gacc[n][c] = fmaf(xv, w[c], gacc[n][c]);
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int c = 0; c < COLS; ++c)
+              acc[n][c] = fmaf(gacc[n][c], scl[c], acc[n][c]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < GROUP; ++j) {
+            float w[COLS];
+#pragma unroll
+            for (int c = 0; c < COLS; ++c)
+              w[c] = round_bf16(
+                  (float)(int8_t)((words[j] >> (8 * c)) & 0xffu) * scl[c]);
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              const float xv = xs[n][gi * GROUP + j];
+#pragma unroll
+              for (int c = 0; c < COLS; ++c)
+                acc[n][c] = fmaf(xv, w[c], acc[n][c]);
+            }
           }
         }
       }

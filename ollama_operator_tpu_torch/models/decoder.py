@@ -170,6 +170,21 @@ def _embed(cfg: ModelConfig, params: Params, tokens):
     return x
 
 
+def _mm_f32(x, w):
+    """x [..., D] @ w [D, V] → f32, as the JAX package's einsum with
+    ``preferred_element_type=float32``: the product of the operands as they
+    are, summed in f32, never rounded to their dtype first. On the card a
+    bf16 pair goes to one GEMM with an f32 output (``aten::mm.dtype``); on
+    the CPU the operands are widened (a bf16 times a bf16 is exact in
+    f32)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.is_cuda and x2.dtype == w.dtype == torch.bfloat16:
+        y = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        y = x2.float() @ w.float()
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def _unembed(cfg: ModelConfig, params: Params, x):
     """Final norm + LM head → f32 logits."""
     x = _norm(cfg, x, params["out_norm_w"])
@@ -178,7 +193,7 @@ def _unembed(cfg: ModelConfig, params: Params, x):
     else:
         head = (params["tok_emb"].t() if cfg.tie_embeddings
                 else params["lm_head"])
-        logits = (x @ head).float()
+        logits = _mm_f32(x, head)
     if cfg.logit_scale:
         logits = logits / cfg.logit_scale
     if cfg.logit_softcap:

@@ -92,7 +92,7 @@ def flash_prefill_plain(q, k, v, scale: float, softcap: float = 0.0,
     the chunk. q [B, T, H, hd], k/v [B, KvH, T, hd] → [B, T, H, hd]. The
     probabilities are taken from the row max and rounded to v's dtype
     before the p . v product, as the TPU kernel does over a chunk that
-    fits one key block (the CUDA kernel rounds them per 32-key tile, from
+    fits one key block (the CUDA kernel rounds them per 64-key tile, from
     the running max)."""
     B, T, H, hd = q.shape
     KvH = k.shape[1]
@@ -110,7 +110,7 @@ def flash_prefill(q, k, v, scale: float, softcap: float = 0.0,
 
     q [B, T, H, hd], k/v head-first [B, KvH, T, hd] → [B, T, H, hd]. On
     the card this launches ``csrc/flash_prefill.cu`` (bf16, hd a multiple
-    of 8 up to 128) and raises on anything it does not take; on the CPU
+    of 16 up to 128) and raises on anything it does not take; on the CPU
     it runs :func:`flash_prefill_plain`."""
     if not cuda_build.on_card(q, k, v):
         return flash_prefill_plain(q, k, v, scale, softcap, sliding_window)
@@ -121,10 +121,14 @@ def flash_prefill(q, k, v, scale: float, softcap: float = 0.0,
     if k.shape != (B, KvH, T, hd) or v.shape != k.shape:
         raise ValueError(f"k/v shape {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
-    if H % KvH or hd % 8 or hd > 128:
-        raise ValueError(f"flash_prefill kernel: H={H} KvH={KvH} hd={hd} "
-                         f"unsupported")
+    # hd a multiple of 16 up to 128: the TPU kernel's own rule
+    if T < 1 or H % KvH or hd % 16 or hd > 128:
+        raise ValueError(f"flash_prefill kernel: T={T} H={H} KvH={KvH} "
+                         f"hd={hd} unsupported")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_prefill kernel: operands must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     fn = cuda_build.function(
         "flash_prefill", "flash_prefill_bf16",

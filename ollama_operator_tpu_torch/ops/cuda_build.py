@@ -104,6 +104,18 @@ def ptxas_report(name: str) -> str:
     return log.read_text(errors="replace") if log.exists() else ""
 
 
+def tensor_core_instructions(name: str) -> int:
+    """Lines of ``cuobjdump -sass`` of kernel ``name``'s built library that
+    are tensor-core instructions (``HMMA``, ``HGMMA``): above 0 when the
+    library runs its products on tensor cores."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return sum(1 for line in sass.splitlines()
+               if "HMMA" in line or "HGMMA" in line)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for kernel ``name``, building it if needed."""
     lib = _libs.get(name)

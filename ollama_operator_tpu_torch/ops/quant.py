@@ -18,8 +18,10 @@ tensors on the card and run :func:`qmm_plain` / :func:`qmm4_plain` for
 tensors on the CPU; :func:`matmul` sends every int8 and int4 matmul
 through them, prefill included. With bf16 activations (the card's path)
 both compute ``y = sum_k x[k] * bf16(code[k] * s[k/32])`` in f32, as the
-TPU kernels do; with f32 activations (the CPU tests) the weight stays
-f32.
+TPU kernels do, except the int8 matmul at N <= 16 rows, which takes the
+decode form of the JAX package's XLA ``qmm`` (the function it serves
+int8 weights with): ``sum_G s[G] * (sum_{k in G} x[k] * code[k])``. With
+f32 activations (the CPU tests) the weight stays f32.
 """
 
 from __future__ import annotations
@@ -32,6 +34,10 @@ import torch
 from . import cuda_build
 
 GROUP = 32
+# at most this many rows, the JAX package's XLA int8 ``qmm`` takes its
+# decode form (the scale after each group's dot); ``csrc/qmm.cu`` switches
+# at the same N
+DECODE_N = 16
 
 # matmul leaves worth quantizing; tok_emb stays dense (it is a gather)
 QUANT_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -141,8 +147,19 @@ def _weight_for(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def qmm_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
               ) -> torch.Tensor:
     """Plain version of the qmm kernel: x [N, K] @ dequant(int8 q [K, O],
-    s [K/32, O]) → [N, O] f32. The weight is code times f32 group scale,
-    rounded to bf16 when x is bf16; the product accumulates in f32."""
+    s [K/32, O]) → [N, O] f32, the function the JAX package serves int8
+    weights with (its XLA ``qmm``). For bf16 x at N <= 16 that is its
+    decode form, ``sum_G s[G] * (sum_{k in G} x[k] * code[k])``: exact
+    codes, each group's dot in f32, the f32 scale applied after it.
+    Otherwise the weight is code times f32 group scale, rounded to bf16
+    when x is bf16, and the product accumulates in f32."""
+    N, K = x.shape
+    if x.dtype == torch.bfloat16 and N <= DECODE_N:
+        G, O = K // GROUP, q.shape[1]
+        partial = torch.einsum("nGg,Ggo->nGo",
+                               x.float().reshape(N, G, GROUP),
+                               q.float().reshape(G, GROUP, O))
+        return torch.einsum("nGo,Go->no", partial, s.float())
     return x.float() @ _weight_for(x, dequantize_groupwise({"q": q, "s": s}))
 
 
@@ -157,15 +174,15 @@ def qmm4_plain(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor
 
 _ROW_TILES = (1, 2, 4, 8, 16)
 _TILE_O = 256        # columns per CTA in csrc/qmm.cu and csrc/qmm4.cu
-_STAGE_GROUPS = 4    # groups staged per shared-memory pass
+_STAGE_GROUPS = 4    # groups staged per shared-memory pass (csrc/qmm.cu)
 _TARGET_CTAS = 264   # two per SM on the H100's 132
+_MIN_SPLIT_GROUPS = 8  # K groups a split of csrc/qmm4.cu walks at least
 
 
 def qmm4_plan(N: int, K: int, O: int) -> Tuple[int, int, int]:
-    """(row tile, K splits, groups per split) for the qmm and qmm4
-    kernels: the smallest row tile that covers N (up to 16), and K split
-    across CTAs only when column and row tiles alone leave the card
-    underfilled."""
+    """(row tile, K splits, groups per split) for the qmm kernel: the
+    smallest row tile that covers N (up to 16), and K split across CTAs
+    only when column and row tiles alone leave the card underfilled."""
     nt = next(t for t in _ROW_TILES if t >= min(N, 16))
     ctas = -(-O // _TILE_O) * -(-N // nt)
     G = K // GROUP
@@ -177,12 +194,33 @@ def qmm4_plan(N: int, K: int, O: int) -> Tuple[int, int, int]:
     return nt, -(-G // gps), gps
 
 
+def qmm4_mma_plan(N: int, K: int, O: int) -> Tuple[int, int, int, int]:
+    """(16-row tiles a CTA, CTAs down the rows, K splits, groups per
+    split) for the tensor-core qmm4 kernel: one 16-row tile at N <= 16,
+    two at N <= 32, else four, with as many row blocks as cover N. When
+    column and row tiles alone leave the card underfilled, K is split
+    across CTAs (at least 8 groups a split) as far as the CTAs still fit
+    one wave of two per SM; a second kernel sums the splits in split
+    order."""
+    mt = 1 if N <= 16 else 2 if N <= 32 else 4
+    row_blocks = -(-N // (16 * mt))
+    ctas = -(-O // _TILE_O) * row_blocks
+    G = K // GROUP
+    ksplit = 1
+    if ctas < _TARGET_CTAS:
+        ksplit = max(1, min(_TARGET_CTAS // ctas, G // _MIN_SPLIT_GROUPS))
+    gps = -(-G // ksplit)
+    return mt, row_blocks, -(-G // gps), gps
+
+
 def _launch(name: str, x: torch.Tensor, codes: torch.Tensor,
-            s: torch.Tensor) -> torch.Tensor:
+            s: torch.Tensor, o_multiple: int, plan) -> torch.Tensor:
     """Launch ``csrc/<name>.cu`` for x [N, K] bf16 against one quantized
     [K, O] weight (int8 codes [K, O] or packed uint8 codes [K/2, O]) and
-    f32 scales [K/32, O] → [N, O] f32. Raises on anything the kernel does
-    not take."""
+    f32 scales [K/32, O] → [N, O] f32, with the launch shape ``plan(N, K,
+    O)`` (ending in K splits and groups per split). Raises on anything the
+    kernel does not take: K % 32, O % ``o_multiple``, operands that are
+    not 16-byte aligned."""
     N, K = x.shape
     O = codes.shape[1]
     code_dtype, code_rows = ((torch.int8, K) if name == "qmm"
@@ -192,21 +230,24 @@ def _launch(name: str, x: torch.Tensor, codes: torch.Tensor,
         raise TypeError(f"{name} kernel takes bf16 x, {code_dtype} codes, "
                         f"f32 scales; got {x.dtype}, {codes.dtype}, "
                         f"{s.dtype}")
-    if (codes.shape[0] != code_rows or K % GROUP or O % 4
-            or s.shape != (K // GROUP, O)):
+    if (N < 1 or O < 1 or codes.shape[0] != code_rows or K % GROUP
+            or O % o_multiple or s.shape != (K // GROUP, O)):
         raise ValueError(f"{name} kernel: x {tuple(x.shape)}, codes "
                          f"{tuple(codes.shape)}, s {tuple(s.shape)} "
                          f"unsupported")
     x, codes, s = x.contiguous(), codes.contiguous(), s.contiguous()
-    nt, ksplit, gps = qmm4_plan(N, K, O)
+    if any(t.data_ptr() % 16 for t in (x, codes, s)):
+        raise ValueError(f"{name} kernel: operands must be 16-byte aligned")
+    shape = plan(N, K, O)
+    ksplit = shape[-2]
     out = torch.empty((N, O), dtype=torch.float32, device=x.device)
     work = (torch.empty((ksplit, N, O), dtype=torch.float32,
                         device=x.device) if ksplit > 1 else out)
     fn = cuda_build.function(
-        name, f"{name}_bf16",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        name, f"{name}_bf16", [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * (3 + len(shape)) + [ctypes.c_void_p])
     rc = fn(x.data_ptr(), codes.data_ptr(), s.data_ptr(), out.data_ptr(),
-            work.data_ptr(), N, K, O, nt, ksplit, gps,
+            work.data_ptr(), N, K, O, *shape,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(rc, name)
     cuda_build.launches[name] += 1
@@ -214,14 +255,15 @@ def _launch(name: str, x: torch.Tensor, codes: torch.Tensor,
 
 
 def qmm(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """x [N, K] @ dequant(int8 q [K, O], s [K/32, O]) → [N, O] f32.
+    """x [N, K] @ dequant(int8 q [K, O], s [K/32, O]) → [N, O] f32, the
+    function of :func:`qmm_plain` (the decode form at N <= 16 for bf16 x).
 
     On the card this launches ``csrc/qmm.cu`` (x bf16, K % 32 == 0,
     O % 4 == 0) for every N and raises on anything it does not take; on
     the CPU it runs :func:`qmm_plain`."""
     if not cuda_build.on_card(x, q, s):
         return qmm_plain(x, q, s)
-    return _launch("qmm", x, q, s)
+    return _launch("qmm", x, q, s, 4, qmm4_plan)
 
 
 def qmm4(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor
@@ -229,11 +271,11 @@ def qmm4(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor
     """x [N, K] @ dequant(q4 [K/2, O], s [K/32, O]) → [N, O] f32.
 
     On the card this launches ``csrc/qmm4.cu`` (x bf16, K % 32 == 0,
-    O % 4 == 0) for every N and raises on anything it does not take; on
+    O % 16 == 0) for every N and raises on anything it does not take; on
     the CPU it runs :func:`qmm4_plain`."""
     if not cuda_build.on_card(x, q4, s):
         return qmm4_plain(x, q4, s)
-    return _launch("qmm4", x, q4, s)
+    return _launch("qmm4", x, q4, s, 16, qmm4_mma_plan)
 
 
 def matmul(x: torch.Tensor, w: Any,

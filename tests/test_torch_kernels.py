@@ -11,7 +11,9 @@ across blocks; 1e-5 for the int4 pool at G = 3), 2e-5 for the int8 and
 int4 matmuls (f32 dot of the same dequantized weights, summed in another
 order). With bf16 activations the matmuls are held to 1e-5 x max|y|: the
 kernels and their plain versions round the dequantized weight to bf16 as
-the Pallas kernels do, so only the f32 summation order differs.
+the Pallas kernels do (the int8 matmul at N <= 16 takes the XLA ``qmm``'s
+decode form instead, the function that serves int8 weights there), so
+only the f32 summation order differs.
 """
 
 import jax.numpy as jnp
@@ -24,6 +26,7 @@ from ollama_operator_tpu.ops.pallas.flash import flash_prefill as jflash
 from ollama_operator_tpu.ops.pallas.paged import paged_decode_attention_v3
 from ollama_operator_tpu.ops.pallas.quant import qmm4_pallas, qmm_pallas
 from ollama_operator_tpu_torch.ops import attention as tattn
+from ollama_operator_tpu_torch.ops import cuda_build
 from ollama_operator_tpu_torch.ops import paged as tpaged
 from ollama_operator_tpu_torch.ops import quant as tquant
 
@@ -120,9 +123,12 @@ def _bf16_pair(a):
 @pytest.mark.parametrize("N,K,O", [(1, 256, 128), (8, 256, 384),
                                    (64, 512, 256)])
 def test_qmm_matches_pallas(N, K, O):
-    """int8 weights: f32 x within 2e-5 relative, bf16 x within
-    1e-5 x max|y| (the plain version rounds the dequantized weight to
-    bf16 as ``qmm_pallas`` does)."""
+    """int8 weights: f32 x within 2e-5 relative against ``qmm_pallas``;
+    bf16 x within 1e-5 x max|y| against the function that serves int8
+    weights in the JAX package: ``qmm_pallas`` (the dequantized weight
+    rounded to bf16) at N = 64, where the XLA ``qmm`` computes the same,
+    and the XLA ``qmm``'s decode form (the scale after each group's exact
+    dot) at N <= 16, fed x as f32 holding the same bf16 values."""
     rng = np.random.default_rng(40 + N)
     x = rng.standard_normal((N, K)).astype(np.float32)
     w = rng.standard_normal((K, O)).astype(np.float32) * 0.02
@@ -134,7 +140,11 @@ def test_qmm_matches_pallas(N, K, O):
     np.testing.assert_allclose(t.numpy(), j, rtol=2e-5,
                                atol=2e-5 * np.abs(j).max())
     jx, tx = _bf16_pair(x)
-    j = np.asarray(qmm_pallas(jx, jq, js, interpret=True))
+    if N <= 16:
+        j = np.asarray(jquant.qmm(jx.astype(jnp.float32), {"q": jq, "s": js},
+                                  out_dtype=jnp.float32))
+    else:
+        j = np.asarray(qmm_pallas(jx, jq, js, interpret=True))
     t = tquant.qmm(tx, _t(qw["q"]), _t(qw["s"]))
     np.testing.assert_allclose(t.numpy(), j, rtol=0,
                                atol=1e-5 * np.abs(j).max())
@@ -206,6 +216,41 @@ def test_qmm4_plan_covers_every_group():
         G = K // 32
         assert nt in (1, 2, 4, 8, 16) and nt >= min(N, 16)
         assert gps % 4 == 0 and (ksplit - 1) * gps < G <= ksplit * gps
+
+
+@pytest.mark.parametrize("N", [1, 8, 17, 64, 512])
+def test_qmm4_mma_plan_covers_every_group_and_row(N):
+    """The tensor-core qmm4 kernel's plan at llama3.1's projection
+    shapes: its 16-row tiles cover N (the last row block is needed), its
+    K splits cover every group once, in split order, with no empty
+    split."""
+    for K, O in [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                 (4096, 128256), (96, 16)]:
+        mt, row_blocks, ksplit, gps = tquant.qmm4_mma_plan(N, K, O)
+        assert mt in (1, 2, 4) and mt == (1 if N <= 16 else
+                                          2 if N <= 32 else 4)
+        assert (row_blocks - 1) * 16 * mt < N <= row_blocks * 16 * mt
+        G = K // 32
+        assert ksplit >= 1 and (ksplit - 1) * gps < G <= ksplit * gps
+        starts = [z * gps for z in range(ksplit)]
+        covered = [g for z in starts for g in range(z, min(z + gps, G))]
+        assert covered == list(range(G))
+        if ksplit > 1:
+            assert gps >= 8
+            assert -(-O // 256) * row_blocks * ksplit <= 264
+
+
+@pytest.mark.parametrize("hd", [8, 24, 40, 136])
+def test_flash_prefill_kernel_refuses_head_dims(hd, monkeypatch):
+    """On the card the flash-prefill wrapper takes hd a multiple of 16 up
+    to 128 (the TPU kernel's rule) and raises on anything else before it
+    builds or launches anything."""
+    monkeypatch.setattr(cuda_build, "on_card", lambda *t: True)
+    monkeypatch.setattr(cuda_build, "function", None)
+    q = torch.zeros((1, 8, 4, hd), dtype=torch.bfloat16)
+    k = torch.zeros((1, 2, 8, hd), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported"):
+        tattn.flash_prefill(q, k, k, hd ** -0.5)
 
 
 def test_wrappers_refuse_mixed_devices():
