@@ -9,8 +9,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    CUDA versions, and build the seven CUDA kernel libraries from ``csrc/``
    (one ``nvcc`` per source, all started together); print each library's
    tensor-core instruction count (``HMMA``/``HGMMA`` lines of
-   ``cuobjdump -sass``), which must be above 0 for the flash-prefill and
-   qmm4 libraries.
+   ``cuobjdump -sass``), which must be above 0 for the flash-prefill,
+   qmm4, qmm and decode-attention libraries; the qmm and decode-attention
+   kernels must not spill registers.
 2. Kernel phases at the main paths' shapes, in bf16 on the card: each
    kernel against its plain PyTorch version on the same inputs, with the
    tolerance stated beside it (attention kernels: every query row or slot
@@ -27,11 +28,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the three paged-decode kernels (K6 v3, K4 v2, K5 v4) over int8, int4
    and bf16 pools, at phi3's G = 1, hd 96, and with nblk below the longest
    slot's live pages; the GQA (K2) and MHA (K3) decode kernels over the
-   dense slot cache; the int4 (qmm4, llama3.1 shapes) and int8 (qmm,
-   llama3.2:3b shapes, N = 8 among them, where qmm takes the decode form,
-   and phi3's LM head, O = 32064) dequant matmuls. Also the tied LM head's
-   f32 product (a bf16 GEMM with an f32 output) against the f32 product
-   of the same values.
+   dense slot cache (K2 also at the serving lengths and at other head
+   dims, a full group and a softcap, and both at other sequence chunks
+   than their wrappers'); the int4 (qmm4, llama3.1 shapes) and int8
+   (qmm, llama3.2:3b shapes, N = 8 among them, where qmm takes the decode
+   form, and N = 17, the first past it; phi3's LM head, O = 32064, and a
+   second ragged O) dequant matmuls. Also the tied LM head's f32 product
+   (a bf16 GEMM with an f32 output) against the f32 product of the same
+   values.
 3. Serving, eight paths, each at full width and full depth behind the
    port's HTTP server on an ephemeral port, with random dense bf16 weights
    from a seed handed to ``ModelManager.preload``, which picks the weight
@@ -76,6 +80,7 @@ import collections
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -86,7 +91,9 @@ from unittest import mock
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 20261017
-TENSOR_CORE_KERNELS = ("flash_prefill", "qmm4")
+TENSOR_CORE_KERNELS = ("flash_prefill", "qmm4", "qmm", "decode_attention")
+# libraries whose kernels must not spill registers (ptxas report)
+NO_SPILL_KERNELS = ("qmm", "decode_attention")
 
 
 def fail(msg: str) -> int:
@@ -143,6 +150,22 @@ class Timer:
             e.synchronize()
             total += s.elapsed_time(e)
         return total / iters
+
+    def host_us(self, fn, iters: int = 100) -> float:
+        """Mean host time of one call of ``fn`` in µs: ``iters`` calls
+        enqueued behind a device spin (~10 ms), so no call waits on the
+        device and the host's own work (Python, allocations, launches) is
+        what the clock reads."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20 * self.SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        took = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return took / iters * 1e6
 
 
 def kernel_phases(torch, timer, report):
@@ -358,25 +381,55 @@ def kernel_phases(torch, timer, report):
 
     # -- dense-cache decode, B=8 slots of S=4096 rows, lengths spread over
     # 1..4095: K2 (GQA) at llama3.2:3b's heads (H=24, KvH=8, hd=128) with
-    # no window and with a window of 2047, K3 (MHA) at phi3's (H=KvH=32,
-    # hd=96, window 2047). The library call is SDPA over the full S with
-    # each slot's visible rows as a boolean mask, K/V pre-repeated for GQA
+    # no window and with a window of 2047, and with every slot at the
+    # serving lengths (1..300 live rows), K3 (MHA) at phi3's (H=KvH=32,
+    # hd=96, window 2047); then K2 at the main shape and at the serving
+    # lengths, and K3 at its shape, with other sequence chunks than the
+    # wrappers' (the measurement the chunk size was picked by); then K2 at
+    # hd 64 with G = 8 and a softcap, and at head dims 256 and 72 (its
+    # scalar kernel). The library call is SDPA over the full S with each
+    # slot's visible rows as a boolean mask, K/V pre-repeated for GQA (none
+    # for soft-capped scores). Each row also reads the wrapper's host time
+    # a call (its checks, the partials' allocation and both launches)
     B, S = 8, 4096
-    lengths = torch.linspace(1, S - 1, B, device=dev).round().int()
-    for name, H, KvH, hd, window, fn, plain, replaces, main in (
-            ("decode_attention", 24, 8, 128, 0, A.decode_attention,
-             A.decode_attention_plain,
-             "ollama_operator_tpu/ops/pallas/flash.py:240", True),
-            ("decode_attention", 24, 8, 128, 2047, A.decode_attention,
-             A.decode_attention_plain,
-             "ollama_operator_tpu/ops/pallas/flash.py:240", False),
-            ("mha_decode", 32, 32, 96, 2047, A.mha_decode_attention,
-             A.mha_decode_attention_plain,
-             "ollama_operator_tpu/ops/pallas/flash.py:361", True)):
+    spread = torch.linspace(1, S - 1, B, device=dev).round().int()
+    short = torch.linspace(1, 300, B, device=dev).round().int()
+    kinds = {"decode_attention": (
+                 A.decode_attention, A.decode_attention_plain,
+                 "ollama_operator_tpu/ops/pallas/flash.py:240"),
+             "mha_decode": (
+                 A.mha_decode_attention, A.mha_decode_attention_plain,
+                 "ollama_operator_tpu/ops/pallas/flash.py:361")}
+    # (kernel, H, KvH, hd, window, softcap, lengths, main, chunk knob)
+    dense_cases = [
+        ("decode_attention", 24, 8, 128, 0, 0.0, spread, True, None),
+        ("decode_attention", 24, 8, 128, 2047, 0.0, spread, False, None),
+        ("decode_attention", 24, 8, 128, 0, 0.0, short, False, None),
+        ("mha_decode", 32, 32, 96, 2047, 0.0, spread, True, None)]
+    for chunk in (128, 512):
+        for lengths in (spread, short):
+            dense_cases.append(("decode_attention", 24, 8, 128, 0, 0.0,
+                                lengths, False, ("DECODE_CHUNK", chunk)))
+        dense_cases.append(("mha_decode", 32, 32, 96, 2047, 0.0, spread,
+                            False, ("DECODE_CHUNK", chunk)))
+    # K2's tensor-core kernel at another head dim and a full group (hd 64,
+    # G = 8) with soft-capped scores; then at head dims it does not take
+    # (256, and 72: no multiple of 16), where the split scalar kernel serves
+    dense_cases.append(("decode_attention", 32, 4, 64, 0, 30.0, spread,
+                        False, None))
+    for H, KvH, hd in ((4, 2, 256), (6, 2, 72)):
+        dense_cases.append(("decode_attention", H, KvH, hd, 0, 0.0, spread,
+                            False, None))
+    for (name, H, KvH, hd, window, softcap, lengths, main,
+         knob) in dense_cases:
+        fn, plain, replaces = kinds[name]
+        saved = (knob[0], getattr(A, knob[0])) if knob else None
+        if knob:
+            setattr(A, *knob)
         k, v, qd = randn(B, KvH, S, hd), randn(B, KvH, S, hd), randn(
             B, 1, H, hd)
         scale = hd ** -0.5
-        args = (qd, k, v, lengths, scale, 0.0, window)
+        args = (qd, k, v, lengths, scale, softcap, window)
         out, ref = fn(*args), plain(*args)
         check = rowwise(out, ref, B, lambda r: f"slot {r} (q_pos "
                         f"{int(lengths[r])})")
@@ -390,15 +443,20 @@ def kernel_phases(torch, timer, report):
         qh = qd.transpose(1, 2)
         report(name, "csrc/decode_attention.cu", replaces, check,
                timer(lambda: fn(*args)), timer(lambda: plain(*args)),
-               timer(lambda: F.scaled_dot_product_attention(
-                   qh, kr, vr, attn_mask=visible[:, None, None, :],
-                   scale=scale)),
+               None if softcap else timer(
+                   lambda: F.scaled_dot_product_attention(
+                       qh, kr, vr, attn_mask=visible[:, None, None, :],
+                       scale=scale)),
                # the live K/V rows once per kv head, q in, out back
                *bound(2 * 2 * KvH * n_live * hd + 2 * 2 * qd.numel()
                       + 4 * B, 4 * H * hd * n_live),
                shape=f"B={B} H={H} KvH={KvH} hd={hd} S={S} lengths "
-                     f"1..{S - 1} window {window} ({n_live} live rows)",
-               main=main)
+                     f"1..{int(lengths.max())} window {window} softcap "
+                     f"{softcap} ({n_live} live rows) chunk "
+                     f"{A.DECODE_CHUNK}",
+               main=main, host_us=timer.host_us(lambda: fn(*args)))
+        if saved:
+            setattr(A, *saved)
         del k, v, kr, vr, out, ref
 
     # -- the tied LM head's f32 product (llama3.2:3b: 8 rows, D 3072,
@@ -420,12 +478,12 @@ def kernel_phases(torch, timer, report):
 
     # -- dequant matmuls on every projection shape: qmm4 (int4) at
     # llama3.1's, N in {1, 64, 512}; qmm (int8) at llama3.2:3b's, N in {1,
-    # 8, 64, 512} (8: the dense paths' decode, where qmm takes the decode
-    # form). Each kernel and its plain version sum f32 products of the
-    # same values in another order: qmm's f32 FMAs, qmm4's tensor cores
-    # (bf16 x bf16 products exact, accumulated in f32 over k16 steps and
-    # then across K groups, splits summed in a fixed order): a few f32
-    # ulps of sums of |y| ~ 1, far inside 1e-3
+    # 8, 17, 64, 512} (8: the dense paths' decode, where qmm takes the
+    # decode form; 17: the first N past it). Each kernel and its plain
+    # version sum f32 products of the same values in another order: the
+    # tensor cores (bf16 x bf16 products exact, accumulated in f32 over k16
+    # steps and then across K groups, splits summed in a fixed order): a
+    # few f32 ulps of sums of |y| ~ 1, far inside 1e-3
     for name, fn, plain, quant, replaces, shapes, main, rows in (
             ("qmm4", Q.qmm4, Q.qmm4_plain, Q.quantize_groupwise_int4,
              "ollama_operator_tpu/ops/pallas/quant.py:142",
@@ -436,7 +494,7 @@ def kernel_phases(torch, timer, report):
              "ollama_operator_tpu/ops/pallas/quant.py:73",
              {"wq/wo": (3072, 3072), "wk/wv": (3072, 1024),
               "w_gate/w_up": (3072, 8192), "w_down": (8192, 3072)},
-             "w_gate/w_up", (1, 8, 64, 512))):
+             "w_gate/w_up", (1, 8, 17, 64, 512))):
         for wname, (K, O) in shapes.items():
             qw = quant(torch.randn((K, O), generator=g, device=dev) * 0.02)
             codes = qw["q4"] if "q4" in qw else qw["q"]
@@ -457,23 +515,27 @@ def kernel_phases(torch, timer, report):
                        shape=f"{wname} N={N} K={K} O={O}",
                        main=(wname == main and N == 64))
             del qw, codes, wbf
-    # -- qmm at phi3's untied LM head: O = 32064 is no multiple of the
-    # kernel's 256-column tile; N = 32 rows (the paged path's slots)
-    N, K, O = 32, 3072, 32064
-    qw = Q.quantize_groupwise(torch.randn((K, O), generator=g, device=dev)
-                              * 0.02)
-    wbf = Q.dequantize_groupwise(qw).to(bf)
-    x = randn(N, K)
-    out, ref = Q.qmm(x, qw["q"], qw["s"]), Q.qmm_plain(x, qw["q"], qw["s"])
-    report("qmm", "csrc/qmm.cu", "ollama_operator_tpu/ops/pallas/quant.py:73",
-           ((out - ref).abs().max().item(), 1e-3),
-           timer(lambda: Q.qmm(x, qw["q"], qw["s"])),
-           timer(lambda: Q.qmm_plain(x, qw["q"], qw["s"])),
-           timer(lambda: torch.matmul(x, wbf)),
-           *bound(2 * N * K + K * O + 4 * (K // 32) * O + 4 * N * O,
-                  2.0 * N * K * O),
-           shape=f"lm_head phi3 N={N} K={K} O={O}", main=False)
-    del qw, wbf
+    # -- qmm at ragged last column tiles: phi3's untied LM head (O = 32064
+    # = 125 x 256 + 64) at N = 32 rows (the paged path's slots), and
+    # w_gate widened by 64 columns at N = 64
+    for wname, N, K, O in (("lm_head phi3", 32, 3072, 32064),
+                           ("w_gate + 64 (ragged)", 64, 3072, 8192 + 64)):
+        qw = Q.quantize_groupwise(torch.randn((K, O), generator=g,
+                                              device=dev) * 0.02)
+        wbf = Q.dequantize_groupwise(qw).to(bf)
+        x = randn(N, K)
+        out = Q.qmm(x, qw["q"], qw["s"])
+        ref = Q.qmm_plain(x, qw["q"], qw["s"])
+        report("qmm", "csrc/qmm.cu",
+               "ollama_operator_tpu/ops/pallas/quant.py:73",
+               ((out - ref).abs().max().item(), 1e-3),
+               timer(lambda: Q.qmm(x, qw["q"], qw["s"])),
+               timer(lambda: Q.qmm_plain(x, qw["q"], qw["s"])),
+               timer(lambda: torch.matmul(x, wbf)),
+               *bound(2 * N * K + K * O + 4 * (K // 32) * O + 4 * N * O,
+                      2.0 * N * K * O),
+               shape=f"{wname} N={N} K={K} O={O}", main=False)
+        del qw, wbf
     torch.cuda.empty_cache()
 
 
@@ -899,8 +961,8 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
     details["card"] = card
     details["build_s"] = t_build
-    # tensor-core instructions in each library's SASS: the redesigned K1
-    # and K8 run both their products on the tensor cores
+    # tensor-core instructions in each library's SASS: K1, K8, K7 and K2
+    # run their products on the tensor cores
     sass = {name: cuda_build.tensor_core_instructions(name)
             for name in cuda_build.KERNELS}
     details["tensor_core_sass_lines"] = sass
@@ -909,11 +971,17 @@ def main() -> int:
     missing = [n for n in TENSOR_CORE_KERNELS if sass[n] <= 0]
     if missing:
         return fail(f"no tensor-core instructions in {missing}")
+    spills = [f"{n}: {line.strip()}" for n in NO_SPILL_KERNELS
+              for line in cuda_build.ptxas_report(n).splitlines()
+              if any(int(x) for x in re.findall(
+                  r"(\d+) bytes spill (?:stores|loads)", line))]
+    if spills:
+        return fail(f"register spills: {spills}")
 
     rows, entries = [], {}
 
     def report(name, source, replaces, check, ms, plain_ms, library_ms,
-               bound_ms, bound_by, shape="", main=True):
+               bound_ms, bound_by, shape="", main=True, host_us=None):
         """``check``: (error, tolerance) over the whole output, or
         (worst row's error, its tolerance, largest error, worst row, share
         of outputs not bit-equal) from a row-wise check."""
@@ -924,16 +992,19 @@ def main() -> int:
         row = dict(name=name, shape=shape, max_abs_err=max_err, err=err,
                    tol=tol, worst=worst, bf16_not_bit_equal=differ, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+                   bound_ms=bound_ms, bound_by=bound_by, ok=ok,
+                   host_us=host_us)
         rows.append(row)
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
         held = (f"max|err| {err:.3g} (tol {tol:g})" if worst is None else
                 f"worst {worst}: max|err| {err:.3g} (tol {tol:.3g}); "
                 f"max|err| of all rows {max_err:.3g}; bf16 outputs not "
                 f"bit-equal to the plain version: {differ:.4%}")
+        host = "" if host_us is None else f"; host {host_us:.1f} us/call"
         print(f"kernel {name} [{shape}]: {held} "
               f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain {plain_ms:.4f} "
-              f"library {lib} bound {bound_ms:.4f} ({bound_by})", flush=True)
+              f"library {lib} bound {bound_ms:.4f} ({bound_by}){host}",
+              flush=True)
         e = entries.setdefault(name, dict(
             name=name, route="cuda", source="ollama_operator_tpu_torch/"
             + source, replaces=replaces, max_abs_err=0.0))

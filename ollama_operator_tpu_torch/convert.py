@@ -15,11 +15,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from .device import resolve_device
 
-def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
-    """numpy → torch on ``device``, bit for bit. bfloat16 arrays (numpy's
+
+def tensor_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
+    """numpy → torch on ``device`` (the card unless the caller names the
+    CPU; raises without CUDA), bit for bit. bfloat16 arrays (numpy's
     extension dtype, as JAX hands them out) travel as their 16-bit
     patterns."""
+    device = resolve_device(device)
     a = np.array(a)   # a private, writable, contiguous copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16
@@ -27,9 +31,10 @@ def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_numpy(tree: Any, device="cpu") -> Any:
+def params_from_numpy(tree: Any, device="cuda") -> Any:
     """A (nested dict) params tree of numpy arrays → the same tree of
-    torch tensors on ``device``."""
+    torch tensors on ``device`` (the card unless the caller names the
+    CPU; raises without CUDA)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)

@@ -18,24 +18,37 @@
 //
 // Design. The TPU kernels walk fixed blocks of up to 512 rows in grid order
 // and skip those past q_pos; here a CTA walks exactly the live rows
-// [max(0, q_pos - window + 1), min(q_pos, S - 1)] in 32-row tiles, and a
-// warp owns a tile. Its lanes copy the tile's K and V rows (contiguous in
-// the cache) into the warp's own shared buffers with 16-byte cp.async
-// copies, two tiles in flight, so the next tile's copy overlaps this tile's
-// math. Lane j scores row j against the G query rows (staged once in shared
-// memory as f32); warp shuffles give the tile's max and sum; then lane l
-// accumulates the bf16 pairs (4-byte words) l, l + 32, ... of every V row,
-// so hd = 96 (48 words) needs no power of two. Shared rows are padded by 16
-// bytes (32 when hd / 8 is odd) so the lanes' 16-byte row reads fall on
-// distinct banks.
+// [max(0, q_pos - window + 1), min(q_pos, S - 1)] of its chunk in 32-row
+// tiles, and a warp owns a tile: its lanes copy the tile's K and V rows
+// (contiguous in the cache) into the warp's own shared buffers with 16-byte
+// cp.async copies, two tiles in flight when the warp has more than one, so
+// the next tile's copy overlaps this tile's math. The warps of a CTA keep
+// their own running max, sum and accumulator and merge them through shared
+// memory at the end.
 //
-// GQA (K2): one CTA per (kv head, slot) holds the G <= 8 query rows of its
-// group; its NW warps take the tiles round robin, each with its own running
-// max, sum and accumulator, merged through shared memory at the end. MHA
-// (K3): the TPU kernel tiles 8 heads a program because a G = 1 program
-// leaves 7/8 of the MXU's rows idle; here query rows are not the parallel
-// axis (a lane scores a key), so the same warp-tile code runs compiled for
-// one query row, one CTA per (head, slot).
+// Both entries split the sequence (flash-decoding): the grid is (kv head,
+// slot, chunk of ``chunk`` rows), chunk z covering rows [z * chunk,
+// (z + 1) * chunk), so a long slot no longer walks all its tiles on one
+// CTA's four warps. Each CTA stores its partial softmax state (m, l,
+// acc[G][hd]) in f32; a chunk with no live row (past q_pos, or before the
+// window) stores m = NEG_INF, l = 0 and exits. A second launch
+// (merge_chunks) combines each (kv head, slot, query row)'s chunks in chunk
+// order, so a repeat gives the same bits. The grid depends on S and the
+// chunk size only, never on the lengths, so no length is read back to the
+// host. GQA (K2) at hd a multiple of 16 up to 128 scores and sums on
+// tensor cores (decode_mma_kernel: the group's G query rows are the rows of
+// a 16-row mma tile, as in the flash-prefill kernel); other head dims take
+// the scalar kernel below.
+//
+// MHA (K3): the TPU kernel tiles 8 heads a program because a G = 1 program
+// leaves 7/8 of the MXU's rows idle; here the scalar warp-tile code runs
+// compiled for one query row, one CTA per (head, slot, chunk). In the
+// scalar kernel lane j scores row j against the query rows (staged once in
+// shared memory as f32); warp shuffles give the tile's max
+// and sum; then lane l accumulates the bf16 pairs (4-byte words) l, l + 32,
+// ... of every V row, so hd = 96 (48 words) needs no power of two. Shared
+// rows are padded by 16 bytes (32 when hd / 8 is odd) so the lanes' 16-byte
+// row reads fall on distinct banks.
 //
 // Cache layout: row j of (slot b, kv head h) starts at element
 // b * stride_b + h * stride_h + j * hd, so a [B, KvH, A, hd] view that is a
@@ -88,6 +101,58 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// 16 bytes global -> shared; src_bytes 0 zero-fills the destination
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d += a . b, one 16x8x16 bf16 tile with f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 -> one bf16 pair, each rounded to nearest; lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // Row pitch of a staged tile in bytes: the row plus 16 bytes, or 32 when
 // hd / 8 is odd, so that 8 lanes reading 16 bytes of 8 consecutive rows
 // touch all 32 banks once.
@@ -95,18 +160,47 @@ __host__ __device__ inline int tile_pitch(int hd) {
   return 2 * hd + (((hd / 8) & 1) ? 32 : 16);
 }
 
+// Staged tiles a warp holds: two (the next one's copy overlaps this one's
+// math), or one when a chunk has no more tiles than the CTA has warps.
+__host__ __device__ inline int tile_stages(int chunk, int nw) {
+  return chunk <= nw * TILE ? 1 : 2;
+}
+
+// The live rows [lo, hi] of a query at qp: [max(0, qp - window + 1),
+// min(qp, S - 1)] inside chunk z's [z * chunk, (z + 1) * chunk)
+// (ops/attention.py decode_chunk_rows); false when there are none. The
+// entries refuse chunk <= 0, so the test below always holds; it stays
+// because nvcc 12.8 (-O3, sm_90a) does not finish compiling this file when
+// the clamp is unconditional.
+__device__ __forceinline__ bool chunk_rows(int qp, int S, int window,
+                                           int chunk, int z, int& lo,
+                                           int& hi) {
+  lo = window > 0 && qp - window + 1 > 0 ? qp - window + 1 : 0;
+  hi = min(qp, S - 1);
+  if (chunk > 0) {
+    lo = max(lo, z * chunk);
+    hi = min(hi, z * chunk + chunk - 1);
+  }
+  return lo <= hi;
+}
+
 // MAXG is the largest group the instantiation takes: 8 for the GQA entry,
 // 1 for the MHA entry. The GQA entry rounds p to bf16 before the p.v
 // product, as the TPU's K2 feeds the MXU; the MHA entry keeps it in f32,
-// as the TPU's K3 does its products on the VPU.
+// as the TPU's K3 does its products on the VPU. The CTA takes chunk
+// blockIdx.z of the rows and stores its partial state as run
+// blockIdx.y * gridDim.z + blockIdx.z of part_acc [runs, KvH, G, hd] and
+// part_ml [runs, KvH, G, 2] (m, l).
 template <int MAXG>
 __global__ void __launch_bounds__(128)
 decode_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
-              const int* __restrict__ q_pos, __nv_bfloat16* __restrict__ out,
+              const int* __restrict__ q_pos, float* __restrict__ part_acc,
+              float* __restrict__ part_ml,
               int H, int KvH, int S, int hd, int64_t stride_b,
-              int64_t stride_h, float scale, float softcap, int window) {
+              int64_t stride_h, float scale, float softcap, int window,
+              int chunk) {
   constexpr bool ROUND_P = MAXG > 1;
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KvH;
@@ -114,24 +208,33 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int pitch = tile_pitch(hd);
+  const int nst = tile_stages(chunk, NW);
   const int chunks = hd / 8;   // 16-byte chunks a row
   const int words = hd / 2;    // bf16 pairs a row
   float* qs = (float*)smem;                          // [G][hd]
   float* Ps = qs + G * hd;                           // [NW][MAXG][TILE]
   unsigned char* tiles = (unsigned char*)(Ps + NW * MAXG * TILE);
-  // warp w, stage st: K tile at ((w * 2 + st) * 2) * TILE * pitch, V after it
-  unsigned char* mine = tiles + (size_t)warp * 4 * TILE * pitch;
+  // warp w, stage st: K tile at ((w * nst + st) * 2) * TILE * pitch, V
+  // after it
+  unsigned char* mine = tiles + (size_t)warp * nst * 2 * TILE * pitch;
   float* Pw = Ps + warp * MAXG * TILE;
+
+  const int64_t run_e =
+      (((int64_t)b * gridDim.z + blockIdx.z) * KvH + kvh) * G;
+  int lo, hi;
+  if (!chunk_rows(q_pos[b], S, window, chunk, blockIdx.z, lo, hi)) {
+    if (threadIdx.x < G) {  // no live row in this chunk: a partial of 0
+      part_ml[(run_e + threadIdx.x) * 2] = NEG_INF;
+      part_ml[(run_e + threadIdx.x) * 2 + 1] = 0.f;
+    }
+    return;
+  }
+  const int n_live = hi - lo + 1;
 
   for (int idx = threadIdx.x; idx < G * hd; idx += blockDim.x)
     qs[idx] = __bfloat162float(q[((int64_t)b * H + kvh * G) * hd + idx]);
 
-  const int qp = q_pos[b];
-  int lo = 0;
-  if (window > 0 && qp - window + 1 > 0) lo = qp - window + 1;
-  const int hi = min(qp, S - 1);
-  const int n_live = hi - lo + 1;
-  const int ntiles = n_live > 0 ? (n_live + TILE - 1) / TILE : 0;
+  const int ntiles = (n_live + TILE - 1) / TILE;
   const int64_t base = (int64_t)b * stride_b + (int64_t)kvh * stride_h;
 
   auto stage = [&](int t, int st) {
@@ -247,8 +350,9 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_wait<0>();
 
-  // merge the warps' partial softmax states: M = max over warps of m,
-  // out = sum(acc_w * e_w) / max(sum(l_w * e_w), 1e-30), e_w = exp(m_w - M)
+  // merge the warps' partial softmax states and store the chunk's: M = max
+  // over warps of m, L = sum(l_w * e_w), A = sum(acc_w * e_w),
+  // e_w = exp(m_w - M)
   __syncthreads();  // every warp is done with its tiles
   float* Mw = (float*)tiles;            // [NW][MAXG]
   float* Lw = Mw + NW * MAXG;           // [NW][MAXG]
@@ -282,38 +386,337 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
       L = fmaf(Lw[w * MAXG + g], e, L);
       A = fmaf(Aw[((size_t)w * G + g) * hd + d], e, A);
     }
-    out[((int64_t)b * H + kvh * G) * hd + idx] =
-        __float2bfloat16(A / fmaxf(L, 1e-30f));
+    part_acc[(run_e + g) * hd + d] = A;
+    if (d == 0) {
+      part_ml[(run_e + g) * 2] = M;
+      part_ml[(run_e + g) * 2 + 1] = L;
+    }
+  }
+}
+
+// GQA decode on tensor cores (HD a multiple of 16, at most 128). One CTA of
+// 4 warps per (kv head, slot, chunk); the G <= 8 query rows of the group are
+// the rows of a 16-row mma tile (rows G .. 15 zero), kept by every warp as
+// A fragments for the whole walk. A warp takes the chunk's 32-row tiles
+// round robin, copies each tile's K and V rows into its own shared buffers
+// (rows past the live range zero-filled, 16-byte row padding so the 8 rows
+// an ldmatrix phase reads fall on distinct banks), S = Q . K^T with K read
+// by ldmatrix, and O += P . V with V read by ldmatrix.trans, as the
+// flash-prefill kernel does. The S accumulator fragment is the P operand
+// fragment: a row's max and sum are two xor shuffles in a quad, and packing
+// it to bf16 pairs is the p rounding (l takes p unrounded). Only the first 8
+// rows can be query rows, so rows 8 .. 15 of P are zero and never exp'd.
+// The warps' (m, l, acc) are merged through shared memory and stored as the
+// chunk's partial, which merge_chunks combines.
+template <int HD>
+__global__ void __launch_bounds__(128)
+decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const int* __restrict__ q_pos, float* __restrict__ part_acc,
+                  float* __restrict__ part_ml, int H, int KvH, int S,
+                  int64_t stride_b, int64_t stride_h, float scale,
+                  float softcap, int window, int chunk) {
+  constexpr int NW = 4;
+  constexpr int LD = HD + 8;       // bf16 per staged row: +16 bytes
+  constexpr int CHUNKS = HD / 8;   // 16-byte chunks a row
+  constexpr int KSTEPS = HD / 16;  // k16 steps of Q . K^T
+  constexpr int DTILES = HD / 8;   // n8 tiles of the output
+  constexpr int NT = TILE / 8;     // n8 tiles of S
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = H / KvH;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: which matrix, row
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int nst = tile_stages(chunk, NW);
+  __nv_bfloat16* Qs = (__nv_bfloat16*)smem;  // [16][LD]
+  __nv_bfloat16* tiles = Qs + 16 * LD;
+  // warp w, stage st: K tile at (w * nst + st) * 2 * TILE * LD, V after it
+  __nv_bfloat16* mine = tiles + (size_t)warp * nst * 2 * TILE * LD;
+
+  const int64_t run_e =
+      (((int64_t)b * gridDim.z + blockIdx.z) * KvH + kvh) * G;
+  int lo, hi;
+  if (!chunk_rows(q_pos[b], S, window, chunk, blockIdx.z, lo, hi)) {
+    if (threadIdx.x < G) {  // no live row in this chunk: a partial of 0
+      part_ml[(run_e + threadIdx.x) * 2] = NEG_INF;
+      part_ml[(run_e + threadIdx.x) * 2 + 1] = 0.f;
+    }
+    return;
+  }
+  const int ntiles = (hi - lo) / TILE + 1;
+  const int64_t base = (int64_t)b * stride_b + (int64_t)kvh * stride_h;
+
+  for (int c = threadIdx.x; c < 16 * CHUNKS; c += blockDim.x) {
+    const int r = c / CHUNKS, col = (c % CHUNKS) * 8;
+    cp_async16_zfill(Qs + r * LD + col,
+                     q + ((int64_t)b * H + kvh * G + min(r, G - 1)) * HD + col,
+                     r < G ? 16 : 0);
+  }
+  cp_async_commit();
+
+  auto stage = [&](int t, int st) {
+    const int k0 = lo + t * TILE;
+    __nv_bfloat16* kt = mine + (size_t)st * 2 * TILE * LD;
+    __nv_bfloat16* vt = kt + TILE * LD;
+    for (int idx = lane; idx < TILE * CHUNKS; idx += 32) {
+      const int r = idx / CHUNKS, col = (idx % CHUNKS) * 8;
+      const int64_t off = base + (int64_t)min(k0 + r, hi) * HD + col;
+      const int n = k0 + r <= hi ? 16 : 0;
+      cp_async16_zfill(kt + r * LD + col, k + off, n);
+      cp_async16_zfill(vt + r * LD + col, v + off, n);
+    }
+  };
+
+  int t = warp;
+  if (t < ntiles) stage(t, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // this thread's copies of Q have landed
+  __syncthreads();     // ... and every thread's
+  uint32_t qf[KSTEPS][4];
+#pragma unroll
+  for (int st = 0; st < KSTEPS; ++st)
+    ldmatrix_x4(qf[st], Qs + (lane & 15) * LD + st * 16 + (lane >> 4) * 8);
+
+  float o[DTILES][4];
+#pragma unroll
+  for (int d = 0; d < DTILES; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  float m_r = NEG_INF, l_r = 0.f;  // this lane's query row g
+
+  for (int it = 0; t < ntiles; ++it, t += NW) {
+    if (t + NW < ntiles) {
+      stage(t + NW, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const __nv_bfloat16* kt = mine + (size_t)(it & 1) * 2 * TILE * LD;
+    const __nv_bfloat16* vt = kt + TILE * LD;
+    const int k0 = lo + t * TILE;
+
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int st = 0; st < KSTEPS; ++st) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, kt + (np * 16 + mr + 8 * (mi >> 1)) * LD + st * 16 +
+                            8 * (mi & 1));
+        mma_bf16(s[2 * np], qf[st], kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qf[st], kb[2], kb[3]);
+      }
+    }
+
+    // row g's scores (accumulators 0 and 1 of each n-tile): scaled,
+    // soft-capped, keys past hi masked
+    float mx = NEG_INF;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = s[n][e] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        if (k0 + n * 8 + 2 * t4 + e > hi) x = NEG_INF;
+        s[n][e] = x;
+        mx = fmaxf(mx, x);
+      }
+    }
+    const float m_new = fmaxf(m_r, quad_max(mx));
+    const float alpha = __expf(m_r - m_new);
+    m_r = m_new;
+
+    // p = exp(s - m) as bf16 A fragments of P . V (k16 step j takes the
+    // key n-tiles 2j and 2j + 1; rows 8 .. 15 zero); l sums p unrounded
+    uint32_t pf[NT / 2][4];
+    float psum = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float p0 = __expf(s[n][0] - m_new);
+      const float p1 = __expf(s[n][1] - m_new);
+      psum += p0 + p1;
+      pf[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
+      pf[n >> 1][(n & 1) * 2 + 1] = 0u;
+    }
+    l_r = l_r * alpha + quad_sum(psum);
+#pragma unroll
+    for (int d = 0; d < DTILES; ++d) {
+      o[d][0] *= alpha;
+      o[d][1] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+#pragma unroll
+      for (int dp = 0; dp < DTILES / 2; ++dp) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vt + (j * 16 + mr + 8 * (mi & 1)) * LD +
+                                  dp * 16 + 8 * (mi >> 1));
+        mma_bf16(o[2 * dp], pf[j], vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], pf[j], vb[2], vb[3]);
+      }
+    }
+    __syncwarp();  // this stage is read before it is staged again
+  }
+  cp_async_wait<0>();
+
+  // merge the warps' states through shared memory (the tiles are free):
+  // M = max m_w, L = sum l_w e_w, A = sum acc_w e_w, e_w = exp(m_w - M)
+  __syncthreads();
+  float* Mw = (float*)tiles;   // [NW][8]
+  float* Lw = Mw + NW * 8;     // [NW][8]
+  float* Aw = Lw + NW * 8;     // [NW][8][HD]
+  if (g < G) {
+    if (t4 == 0) {
+      Mw[warp * 8 + g] = m_r;
+      Lw[warp * 8 + g] = l_r;
+    }
+#pragma unroll
+    for (int d = 0; d < DTILES; ++d) {
+      float* a = Aw + ((size_t)warp * 8 + g) * HD + d * 8 + 2 * t4;
+      a[0] = o[d][0];
+      a[1] = o[d][1];
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < G * HD; idx += blockDim.x) {
+    const int gg = idx / HD, d = idx - gg * HD;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, Mw[w * 8 + gg]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float e = __expf(Mw[w * 8 + gg] - M);
+      L = fmaf(Lw[w * 8 + gg], e, L);
+      A = fmaf(Aw[((size_t)w * 8 + gg) * HD + d], e, A);
+    }
+    part_acc[(run_e + gg) * HD + d] = A;
+    if (d == 0) {
+      part_ml[(run_e + gg) * 2] = M;
+      part_ml[(run_e + gg) * 2 + 1] = L;
+    }
+  }
+}
+
+// Second launch of the split kernels: one CTA per (kv head, slot, query
+// row of the group) merges that row's nchunk partials in chunk order, as
+// merge_partials in paged_common.cuh does (M = max m, out = sum w acc /
+// max(sum w l, 1e-30), w = exp(m - M), a chunk with m at NEG_INF weighing 0
+// and its acc never read), with the (m, l) of every chunk staged in shared
+// memory by one pass, and the live chunks (a contiguous run: those that
+// hold a row of [lo, hi]) walked without a branch, so each output's loads
+// of acc are independent of one another.
+__global__ void __launch_bounds__(128)
+merge_chunks(const float* __restrict__ part_acc,
+             const float* __restrict__ part_ml,
+             __nv_bfloat16* __restrict__ out,
+             int H, int KvH, int hd, int nchunk) {
+  extern __shared__ float ml[];  // [nchunk][2] (m, l); then w over m
+  __shared__ float Ls;
+  __shared__ int live[2];
+  const int kvh = blockIdx.x, b = blockIdx.y, g = blockIdx.z;
+  const int G = H / KvH;
+  // partial of chunk z: (b * nchunk + z) * KvH * G + kvh * G + g
+  const int64_t e0 = ((int64_t)b * nchunk * KvH + kvh) * G + g;
+  const int64_t z_step = (int64_t)KvH * G;
+  for (int i = threadIdx.x; i < nchunk * 2; i += blockDim.x)
+    ml[i] = part_ml[(e0 + (i >> 1) * z_step) * 2 + (i & 1)];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int z0 = nchunk, z1 = -1;
+    float M = NEG_INF;
+    for (int z = 0; z < nchunk; ++z) {
+      if (ml[2 * z] > NEG_INF * 0.5f) {
+        z0 = min(z0, z);
+        z1 = z;
+        M = fmaxf(M, ml[2 * z]);
+      }
+    }
+    float L = 0.f;
+    for (int z = z0; z <= z1; ++z) {
+      const float w = expf(ml[2 * z] - M);
+      L = fmaf(w, ml[2 * z + 1], L);
+      ml[2 * z] = w;
+    }
+    Ls = L;
+    live[0] = z0;
+    live[1] = z1;
+  }
+  __syncthreads();
+  const int z0 = live[0], z1 = live[1];
+  const float den = fmaxf(Ls, 1e-30f);
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    const float* a = part_acc + e0 * hd + d;
+    float num = 0.f;
+#pragma unroll 8
+    for (int z = z0; z <= z1; ++z)
+      num = fmaf(ml[2 * z], a[z * z_step * hd], num);
+    out[((int64_t)b * H + kvh * G + g) * hd + d] =
+        __float2bfloat16(num / den);
   }
 }
 
 // Warps a CTA: two staged tiles a warp must fit in shared memory.
 inline int warps_for(int hd) { return hd <= 128 ? 4 : 2; }
 
-// Dynamic shared memory of a launch: the G query rows, the warps' p rows
-// and their double-buffered K/V tiles (the merge at the end reuses the
-// tiles), laid out as decode_kernel<MAXG> reads them.
+// Dynamic shared memory of a launch with nst staged tiles a warp: the G
+// query rows, the warps' p rows and their staged K/V tiles (the merge at
+// the end reuses the tiles), laid out as decode_kernel<MAXG> reads them.
 template <int MAXG>
-size_t smem_bytes(int G, int hd) {
+size_t smem_bytes(int G, int hd, int nst) {
   const int nw = warps_for(hd);
   return sizeof(float) * ((size_t)G * hd + (size_t)nw * MAXG * TILE) +
-         (size_t)nw * 4 * TILE * tile_pitch(hd);
+         (size_t)nw * nst * 2 * TILE * tile_pitch(hd);
 }
 
+// Second launch of a call: merge_chunks over (kv head, slot, query
+// row of the group). The (m, l) of every chunk sit in shared memory; the
+// cap is raised past the default 48 KB only for a cache long enough to
+// need it.
+int launch_merge(const float* part_acc, const float* part_ml, void* out,
+                 int B, int H, int KvH, int hd, int nchunk,
+                 cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 2 * nchunk;
+  static size_t granted = 48 << 10;
+  if (smem > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        merge_chunks, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    granted = smem;
+  }
+  merge_chunks<<<dim3(KvH, B, H / KvH), 128, smem, stream>>>(
+      part_acc, part_ml, (__nv_bfloat16*)out, H, KvH, hd, nchunk);
+  return (int)cudaGetLastError();
+}
+
+bool valid(int H, int KvH, int maxg, int hd, int S, int chunk) {
+  return KvH > 0 && H % KvH == 0 && H / KvH <= maxg && hd % 8 == 0 &&
+         hd <= MAX_HD && S >= 1 && chunk > 0 && chunk % TILE == 0;
+}
+
+// The scalar kernel (K3, and K2 at a head dim the tensor-core kernel does
+// not take): partials, then their merge.
 template <int MAXG>
 int launch(const void* q, const void* k, const void* v, const int* q_pos,
-           void* out, int B, int H, int KvH, int S, int hd, long long stride_b,
-           long long stride_h, float scale, float softcap, int window,
-           void* stream) {
+           void* out, float* part_acc, float* part_ml, int B, int H, int KvH,
+           int S, int hd, long long stride_b, long long stride_h, float scale,
+           float softcap, int window, int chunk, void* stream) {
   const int G = H / KvH;
-  if (H % KvH || G > MAXG || hd % 8 || hd > MAX_HD || S < 1)
-    return (int)cudaErrorInvalidValue;
+  if (!valid(H, KvH, MAXG, hd, S, chunk)) return (int)cudaErrorInvalidValue;
   // the shared memory cap is raised once per instantiation, to what its
   // largest launch needs (every hd it takes), not on every launch
   static const cudaError_t cap = [] {
     size_t most = 0;
     for (int d = 8; d <= MAX_HD; d += 8) {
-      const size_t need = smem_bytes<MAXG>(MAXG, d);
+      const size_t need = smem_bytes<MAXG>(MAXG, d, 2);
       most = most > need ? most : need;
     }
     return cudaFuncSetAttribute(decode_kernel<MAXG>,
@@ -321,13 +724,50 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos,
                                 (int)most);
   }();
   if (cap != cudaSuccess) return (int)cap;
-  dim3 grid(KvH, B);
-  decode_kernel<MAXG><<<grid, 32 * warps_for(hd), smem_bytes<MAXG>(G, hd),
+  const int nchunk = (S + chunk - 1) / chunk;
+  const int nw = warps_for(hd);
+  decode_kernel<MAXG><<<dim3(KvH, B, nchunk), 32 * nw,
+                        smem_bytes<MAXG>(G, hd, tile_stages(chunk, nw)),
                         (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, q_pos, (__nv_bfloat16*)out, H, KvH, S, hd,
-      (int64_t)stride_b, (int64_t)stride_h, scale, softcap, window);
-  return (int)cudaGetLastError();
+      (const __nv_bfloat16*)v, q_pos, part_acc, part_ml, H, KvH, S, hd,
+      (int64_t)stride_b, (int64_t)stride_h, scale, softcap, window, chunk);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_merge(part_acc, part_ml, out, B, H, KvH, hd, nchunk,
+                      (cudaStream_t)stream);
+}
+
+// Dynamic shared memory of decode_mma_kernel with nst staged tiles a warp:
+// Q's 16 rows and the four warps' staged K/V tiles (the merge at the end
+// reuses the tiles).
+inline size_t mma_smem_bytes(int hd, int nst) {
+  return sizeof(__nv_bfloat16) * (size_t)(hd + 8) * (16 + 4 * nst * 2 * TILE);
+}
+
+// The tensor-core kernel (K2 at hd a multiple of 16 up to 128): partials,
+// then their merge.
+template <int HD>
+int launch_mma(const void* q, const void* k, const void* v, const int* q_pos,
+               void* out, float* part_acc, float* part_ml, int B, int H,
+               int KvH, int S, long long stride_b, long long stride_h,
+               float scale, float softcap, int window, int chunk,
+               void* stream) {
+  static const cudaError_t cap = cudaFuncSetAttribute(
+      decode_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)mma_smem_bytes(HD, 2));
+  if (cap != cudaSuccess) return (int)cap;
+  const int nchunk = (S + chunk - 1) / chunk;
+  decode_mma_kernel<HD><<<dim3(KvH, B, nchunk), 128,
+                          mma_smem_bytes(HD, tile_stages(chunk, 4)),
+                          (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, q_pos, part_acc, part_ml, H, KvH, S,
+      (int64_t)stride_b, (int64_t)stride_h, scale, softcap, window, chunk);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_merge(part_acc, part_ml, out, B, H, KvH, HD, nchunk,
+                      (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -336,24 +776,46 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos,
 // contiguous elements, row j of (b, h) at b * stride_b + h * stride_h +
 // j * hd (16-byte aligned: the wrapper checks); S rows per (b, h); q_pos [B]
 // int32; out [B, 1, H, hd] bf16. H % KvH == 0, H / KvH <= 8, hd % 8 == 0,
-// hd <= 256. Returns cudaGetLastError() (cudaErrorInvalidValue for shapes
-// it does not take).
+// hd <= 256. The rows are split in chunks of ``chunk`` (a positive
+// multiple of 32); part_acc [B * nchunk, KvH, H / KvH, hd] and part_ml
+// [B * nchunk, KvH, H / KvH, 2] f32 hold the partials, nchunk =
+// ceil(S / chunk). Two launches on ``stream`` (partials, merge). Returns
+// cudaGetLastError() (cudaErrorInvalidValue, and no launch, for a shape or
+// chunk it does not take).
 extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      const void* v, const int* q_pos,
-                                     void* out, int B, int H, int KvH, int S,
-                                     int hd, long long stride_b,
+                                     void* out, void* part_acc,
+                                     void* part_ml, int B, int H, int KvH,
+                                     int S, int hd, long long stride_b,
                                      long long stride_h, float scale,
-                                     float softcap, int window, void* stream) {
-  return launch<8>(q, k, v, q_pos, out, B, H, KvH, S, hd, stride_b, stride_h,
-                   scale, softcap, window, stream);
+                                     float softcap, int window, int chunk,
+                                     void* stream) {
+  if (!valid(H, KvH, 8, hd, S, chunk)) return (int)cudaErrorInvalidValue;
+  switch (hd) {
+#define HD_CASE(n)                                                          \
+  case n:                                                                   \
+    return launch_mma<n>(q, k, v, q_pos, out, (float*)part_acc,             \
+                         (float*)part_ml, B, H, KvH, S, stride_b, stride_h, \
+                         scale, softcap, window, chunk, stream);
+    HD_CASE(16) HD_CASE(32) HD_CASE(48) HD_CASE(64)
+    HD_CASE(80) HD_CASE(96) HD_CASE(112) HD_CASE(128)
+#undef HD_CASE
+    default:
+      break;
+  }
+  return launch<8>(q, k, v, q_pos, out, (float*)part_acc, (float*)part_ml,
+                   B, H, KvH, S, hd, stride_b, stride_h, scale, softcap,
+                   window, chunk, stream);
 }
 
 // MHA decode (K3): the same arguments with KvH == H (one query row a CTA).
 extern "C" int mha_decode_bf16(const void* q, const void* k, const void* v,
-                               const int* q_pos, void* out, int B, int H,
-                               int S, int hd, long long stride_b,
-                               long long stride_h, float scale, float softcap,
-                               int window, void* stream) {
-  return launch<1>(q, k, v, q_pos, out, B, H, H, S, hd, stride_b, stride_h,
-                   scale, softcap, window, stream);
+                               const int* q_pos, void* out, void* part_acc,
+                               void* part_ml, int B, int H, int S, int hd,
+                               long long stride_b, long long stride_h,
+                               float scale, float softcap, int window,
+                               int chunk, void* stream) {
+  return launch<1>(q, k, v, q_pos, out, (float*)part_acc, (float*)part_ml,
+                   B, H, H, S, hd, stride_b, stride_h, scale, softcap, window,
+                   chunk, stream);
 }

@@ -39,6 +39,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..ops import quant as Q
 from ..ops.attention import NEG_INF, cached_attention, chunk_attention
 from ..ops.norms import rms_norm
@@ -73,13 +74,15 @@ def check_supported(cfg: ModelConfig) -> ModelConfig:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
-                device="cpu") -> Params:
+                device="cuda") -> Params:
     """Random weights with the JAX package's distributions (normal with
     std 0.02 for matrices, ones for norm weights, zeros for biases); the
     bits differ, since the generators differ. Each leaf is filled one
-    [K, O] slice at a time, so f32 temporaries stay one slice big.
-    ``generator`` must live on ``device``."""
+    [K, O] slice at a time, so f32 temporaries stay one slice big. The
+    weights go to the card unless the caller names the CPU (raises
+    without CUDA); ``generator`` must live on ``device``."""
     check_supported(cfg)
+    device = resolve_device(device)
     L, D, Fd, V = cfg.n_layers, cfg.dim, cfg.ffn_dim, cfg.vocab_size
 
     def w(*shape, scale=0.02):

@@ -198,6 +198,27 @@ def mha_decode_attention_plain(q, k_cache, v_cache, q_pos, scale: float,
 _PTR, _INT, _I64, _FLT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
 
+# Cache rows a CTA of the dense decode kernels walks: both split the
+# sequence into chunks of this many rows (a positive multiple of their
+# 32-row tile) and merge the chunks' partial softmax states in a second
+# launch. 256 measured fastest on the H100 for the GQA kernel at the
+# serving lengths and within 4% of 512 at the 4096-row slots (PERF.md
+# section 6).
+DECODE_CHUNK = 256
+
+
+def decode_chunk_rows(q_pos: int, S: int, window: int, chunk: int):
+    """The cache rows each CTA of the split decode kernel attends for a
+    query at ``q_pos``: one ``range`` per chunk z of ``ceil(S / chunk)``,
+    the live rows [max(0, q_pos - window + 1), min(q_pos, S - 1)] inside
+    [z * chunk, (z + 1) * chunk), empty for a chunk past q_pos or before
+    the window (as ``csrc/decode_attention.cu`` computes them). The chunk
+    count depends on S and ``chunk`` only."""
+    lo = max(0, q_pos - window + 1) if window > 0 else 0
+    hi = min(q_pos, S - 1)
+    return [range(max(lo, z * chunk), min(hi, z * chunk + chunk - 1) + 1)
+            for z in range(-(-S // chunk))]
+
 
 def _decode_launch(mha: bool, q, k_cache, v_cache, q_pos, scale: float,
                    softcap: float, sliding_window: int):
@@ -227,18 +248,29 @@ def _decode_launch(mha: bool, q, k_cache, v_cache, q_pos, scale: float,
     if q_pos.dtype != torch.int32 or q_pos.shape != (B,) \
             or not q_pos.is_contiguous():
         raise TypeError("q_pos must be a contiguous int32 [B] tensor")
+    chunk = DECODE_CHUNK
+    if chunk <= 0 or chunk % 32:
+        raise ValueError(f"{name} kernel splits the rows in chunks of a "
+                         f"positive multiple of 32; DECODE_CHUNK is {chunk}")
     q = q.contiguous()
     out = torch.empty_like(q)
+    # the chunks' partial states in one allocation: acc [runs, KvH, G, hd]
+    # then (m, l) [runs, KvH, G, 2], runs = B * chunks
+    runs = B * -(-S // chunk)
+    part = torch.empty(runs * H * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+    ml_ptr = part.data_ptr() + 4 * runs * H * hd
     heads = [B, H] if mha else [B, H, KvH]
     fn = cuda_build.function(
         "decode_attention", "mha_decode_bf16" if mha
         else "decode_attention_bf16",
-        [_PTR] * 5 + [_INT] * (len(heads) + 2) + [_I64, _I64, _FLT, _FLT,
-                                                  _INT, _PTR])
+        [_PTR] * 7 + [_INT] * (len(heads) + 2) + [_I64, _I64, _FLT, _FLT,
+                                                  _INT, _INT, _PTR])
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            q_pos.data_ptr(), out.data_ptr(), *heads, S, hd, strides[0],
-            strides[1], float(scale), float(softcap or 0.0),
-            int(sliding_window), torch.cuda.current_stream().cuda_stream)
+            q_pos.data_ptr(), out.data_ptr(), part.data_ptr(), ml_ptr,
+            *heads, S, hd, strides[0], strides[1],
+            float(scale), float(softcap or 0.0), int(sliding_window), chunk,
+            torch.cuda.current_stream().cuda_stream)
     cuda_build.check(rc, name)
     cuda_build.launches[name] += 1
     return out
@@ -252,9 +284,10 @@ def decode_attention(q, k_cache, v_cache, q_pos, scale: float,
     query's absolute position (its own K/V already written there) → [B, 1,
     H, hd] (q.dtype). On the card this launches the GQA entry of
     ``csrc/decode_attention.cu`` (bf16; H / KvH <= 8, hd % 8 == 0,
-    hd <= 256; any S), which reads only the live rows, and raises on
-    anything it does not take; on the CPU it runs
-    :func:`decode_attention_plain`."""
+    hd <= 256; any S), which splits the rows in chunks of
+    ``DECODE_CHUNK``, reads only the live ones and merges the chunks in a
+    second launch, and raises on anything it does not take; on the CPU it
+    runs :func:`decode_attention_plain`."""
     if not cuda_build.on_card(q, k_cache, v_cache, q_pos):
         return decode_attention_plain(q, k_cache, v_cache, q_pos, scale,
                                       softcap, sliding_window)

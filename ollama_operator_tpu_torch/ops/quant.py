@@ -36,7 +36,7 @@ from . import cuda_build
 GROUP = 32
 # at most this many rows, the JAX package's XLA int8 ``qmm`` takes its
 # decode form (the scale after each group's dot); ``csrc/qmm.cu`` switches
-# at the same N
+# at the same N (its one-tile instantiation, ``qmm_mma_plan``)
 DECODE_N = 16
 
 # matmul leaves worth quantizing; tok_emb stays dense (it is a gather)
@@ -172,45 +172,46 @@ def qmm4_plain(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor
                                                            "s": s}))
 
 
-_ROW_TILES = (1, 2, 4, 8, 16)
 _TILE_O = 256        # columns per CTA in csrc/qmm.cu and csrc/qmm4.cu
-_STAGE_GROUPS = 4    # groups staged per shared-memory pass (csrc/qmm.cu)
-_TARGET_CTAS = 264   # two per SM on the H100's 132
-_MIN_SPLIT_GROUPS = 8  # K groups a split of csrc/qmm4.cu walks at least
+_SMS = 132           # the H100's streaming multiprocessors
+_MIN_SPLIT_GROUPS = 8  # K groups a split walks at least
 
 
-def qmm4_plan(N: int, K: int, O: int) -> Tuple[int, int, int]:
-    """(row tile, K splits, groups per split) for the qmm kernel: the
-    smallest row tile that covers N (up to 16), and K split across CTAs
-    only when column and row tiles alone leave the card underfilled."""
-    nt = next(t for t in _ROW_TILES if t >= min(N, 16))
-    ctas = -(-O // _TILE_O) * -(-N // nt)
+def _mma_plan(N: int, K: int, O: int, mt: int, ctas_per_sm: int
+              ) -> Tuple[int, int, int, int]:
+    """(16-row tiles a CTA, CTAs down the rows, K splits, groups per
+    split) for a tensor-core dequant-matmul kernel with ``mt`` 16-row
+    tiles a CTA: as many row blocks as cover N and, when column and row
+    tiles alone leave the card underfilled, K split across CTAs (at least
+    8 groups a split) as far as the CTAs still fit one wave of
+    ``ctas_per_sm`` a SM; a second kernel sums the splits in split
+    order."""
+    row_blocks = -(-N // (16 * mt))
+    ctas = -(-O // _TILE_O) * row_blocks
+    target = _SMS * ctas_per_sm
     G = K // GROUP
     ksplit = 1
-    if ctas < _TARGET_CTAS:
-        ksplit = max(1, min(-(-_TARGET_CTAS // ctas), G // _STAGE_GROUPS))
+    if ctas < target:
+        ksplit = max(1, min(target // ctas, G // _MIN_SPLIT_GROUPS))
     gps = -(-G // ksplit)
-    gps = -(-gps // _STAGE_GROUPS) * _STAGE_GROUPS
-    return nt, -(-G // gps), gps
+    return mt, row_blocks, -(-G // gps), gps
 
 
 def qmm4_mma_plan(N: int, K: int, O: int) -> Tuple[int, int, int, int]:
-    """(16-row tiles a CTA, CTAs down the rows, K splits, groups per
-    split) for the tensor-core qmm4 kernel: one 16-row tile at N <= 16,
-    two at N <= 32, else four, with as many row blocks as cover N. When
-    column and row tiles alone leave the card underfilled, K is split
-    across CTAs (at least 8 groups a split) as far as the CTAs still fit
-    one wave of two per SM; a second kernel sums the splits in split
-    order."""
-    mt = 1 if N <= 16 else 2 if N <= 32 else 4
-    row_blocks = -(-N // (16 * mt))
-    ctas = -(-O // _TILE_O) * row_blocks
-    G = K // GROUP
-    ksplit = 1
-    if ctas < _TARGET_CTAS:
-        ksplit = max(1, min(_TARGET_CTAS // ctas, G // _MIN_SPLIT_GROUPS))
-    gps = -(-G // ksplit)
-    return mt, row_blocks, -(-G // gps), gps
+    """The qmm4 kernel's plan (:func:`_mma_plan`): one 16-row tile a CTA
+    at N <= 16, two at N <= 32, else four; two CTAs a SM."""
+    return _mma_plan(N, K, O, 1 if N <= 16 else 2 if N <= 32 else 4, 2)
+
+
+def qmm_mma_plan(N: int, K: int, O: int) -> Tuple[int, int, int, int]:
+    """The qmm kernel's plan (:func:`_mma_plan`): one 16-row tile a CTA at
+    N <= 16 (where the kernel takes the decode form), two at N <= 32,
+    four at N <= 64, else eight (128 rows share each dequantized weight,
+    so a prefill dequantizes it once per 128 rows). K splits fill one
+    CTA a SM: on the H100 that measured faster than two at N = 1, 8 and
+    64 (PERF.md section 6)."""
+    mt = (1 if N <= DECODE_N else 2 if N <= 32 else 4 if N <= 64 else 8)
+    return _mma_plan(N, K, O, mt, 1)
 
 
 def _launch(name: str, x: torch.Tensor, codes: torch.Tensor,
@@ -259,11 +260,11 @@ def qmm(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     function of :func:`qmm_plain` (the decode form at N <= 16 for bf16 x).
 
     On the card this launches ``csrc/qmm.cu`` (x bf16, K % 32 == 0,
-    O % 4 == 0) for every N and raises on anything it does not take; on
-    the CPU it runs :func:`qmm_plain`."""
+    O % 16 == 0: its 16-byte copies of code rows) for every N and raises
+    on anything it does not take; on the CPU it runs :func:`qmm_plain`."""
     if not cuda_build.on_card(x, q, s):
         return qmm_plain(x, q, s)
-    return _launch("qmm", x, q, s, 4, qmm4_plan)
+    return _launch("qmm", x, q, s, 16, qmm_mma_plan)
 
 
 def qmm4(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor

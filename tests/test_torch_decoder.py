@@ -52,7 +52,7 @@ def test_decoder_paged_matches_jax(bits):
     if bits:
         pn = jquant.quantize_params(pn, bits=bits)
     jp = jax.tree_util.tree_map(jnp.asarray, pn)
-    tp = params_from_numpy(pn)
+    tp = params_from_numpy(pn, device="cpu")
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, TCFG.vocab_size, n).astype(np.int32)
                for n in (13, 30)]
@@ -100,7 +100,8 @@ def test_decoder_paged_matches_jax(bits):
 def test_init_params_layout_matches_jax():
     jp = jax.tree_util.tree_map(
         np.asarray, jdec.init_params(JCFG, jax.random.key(0), jnp.float32))
-    tp = tdec.init_params(TCFG, torch.Generator().manual_seed(0),
+    tp = tdec.init_params(TCFG,
+                          torch.Generator(device="cpu").manual_seed(0),
                           torch.float32, "cpu")
     assert set(tp) == set(jp) and set(tp["layers"]) == set(jp["layers"])
     for k, v in jp["layers"].items():

@@ -168,6 +168,49 @@ def test_decode_plain_rows_without_live_keys_are_zero():
     assert torch.equal(out, torch.zeros_like(out))
 
 
+@pytest.mark.parametrize("window", [0, 24, 2047])
+def test_decode_chunks_cover_every_live_row_once(window):
+    """The GQA decode kernel's sequence split at S = 4096: for every query
+    position 0..S-1 its chunks (a count that depends on S alone) hold the
+    live rows [max(0, q_pos - window + 1), q_pos] each exactly once, in
+    chunk order, and a chunk past q_pos or before the window holds
+    none."""
+    S, chunk = 4096, tattn.DECODE_CHUNK
+    assert chunk % 32 == 0
+    for qp in range(S):
+        rows = tattn.decode_chunk_rows(qp, S, window, chunk)
+        assert len(rows) == -(-S // chunk)
+        lo = max(0, qp - window + 1) if window else 0
+        live = [r for r in rows if len(r)]
+        assert live[0].start == lo and live[-1].stop == qp + 1
+        assert all(a.stop == b.start for a, b in zip(live, live[1:]))
+        for z, r in enumerate(rows):
+            assert z * chunk <= r.start and r.stop <= (z + 1) * chunk \
+                or not len(r)
+            if z * chunk > qp or (z + 1) * chunk <= lo:
+                assert not len(r)
+
+
+@pytest.mark.parametrize("mha", [False, True])
+@pytest.mark.parametrize("chunk", [0, -256, 48])
+def test_decode_kernels_refuse_a_chunk_off_their_tile(chunk, mha,
+                                                      monkeypatch):
+    """On the card both dense decode wrappers split the rows in chunks of
+    ``DECODE_CHUNK``, a positive multiple of the kernels' 32-row tile, and
+    raise on any other chunk before they build, allocate or launch
+    anything."""
+    monkeypatch.setattr(cuda_build, "on_card", lambda *t: True)
+    monkeypatch.setattr(cuda_build, "function", None)
+    monkeypatch.setattr(tattn, "DECODE_CHUNK", chunk)
+    H = 4 if mha else 8
+    q = torch.zeros((2, 1, H, 64), dtype=torch.bfloat16)
+    k = torch.zeros((2, 4, 128, 64), dtype=torch.bfloat16)
+    q_pos = torch.tensor([3, 90], dtype=torch.int32)
+    fn = tattn.mha_decode_attention if mha else tattn.decode_attention
+    with pytest.raises(ValueError, match="chunks of a positive multiple"):
+        fn(q, k, k, q_pos, 0.125)
+
+
 def _jax_dense_insert(cache, ks, slot, quant):
     dus = jax.lax.dynamic_update_slice
     if quant:
@@ -203,7 +246,7 @@ def test_forward_with_cache_matches_jax(model, kv, monkeypatch):
     tcfg = dataclasses.replace(TPRESETS["tiny"], **over)
     jp = jax.tree_util.tree_map(
         np.asarray, jdec.init_params(jcfg, jax.random.key(7), jnp.float32))
-    tp = params_from_numpy(jp)
+    tp = params_from_numpy(jp, device="cpu")
     jp = jax.tree_util.tree_map(jnp.asarray, jp)
     quant = kv == "int8"
     L, B, S = jcfg.n_layers, 2, 64
@@ -261,7 +304,7 @@ def test_forward_with_cache_drops_writes_past_the_context():
     tcfg = TPRESETS["tiny"]
     jp = jax.tree_util.tree_map(
         np.asarray, jdec.init_params(jcfg, jax.random.key(8), jnp.float32))
-    tp = params_from_numpy(jp)
+    tp = params_from_numpy(jp, device="cpu")
     rng = np.random.default_rng(12)
     shp = (jcfg.n_layers, 2, jcfg.n_kv_heads, 16, jcfg.head_dim)
     k = rng.standard_normal(shp).astype(np.float32)
@@ -361,7 +404,8 @@ def test_serving_defaults_table(cfg, device, paged, expect):
 
 def test_dense_engine_refuses_int4_and_skips_page_bookkeeping():
     cfg = TPRESETS["tiny"]
-    params = tdec.init_params(cfg, torch.Generator().manual_seed(0),
+    params = tdec.init_params(cfg,
+                              torch.Generator(device="cpu").manual_seed(0),
                               torch.float32, "cpu")
     with pytest.raises(ValueError, match="requires the paged cache"):
         Engine(cfg, params, EngineConfig(max_slots=2, max_seq_len=64,
@@ -408,7 +452,8 @@ def test_build_tag_covers_shared_headers(tmp_path, monkeypatch):
 
 
 def test_http_generate_on_the_dense_cache():
-    p = tdec.init_params(TPRESETS["tiny"], torch.Generator().manual_seed(4),
+    p = tdec.init_params(TPRESETS["tiny"],
+                         torch.Generator(device="cpu").manual_seed(4),
                          torch.float32, "cpu")
     mm = ModelManager(device="cpu")
     lm = mm.preload("tiny", TPRESETS["tiny"], p,

@@ -48,7 +48,7 @@ def test_dense_engine_greedy_streams_match_jax(model, kv, monkeypatch):
     jeng = JEngine(jcfg, jax.tree_util.tree_map(jnp.asarray, numpy_params),
                    ecfg=JEngineConfig(paged=False, cache_dtype=getattr(
                        jnp, kv), **ECFG))
-    teng = Engine(tcfg, params_from_numpy(numpy_params),
+    teng = Engine(tcfg, params_from_numpy(numpy_params, device="cpu"),
                   EngineConfig(paged=False, cache_dtype=getattr(torch, kv),
                                **ECFG), device="cpu")
     assert not teng.paged

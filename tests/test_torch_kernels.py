@@ -209,13 +209,50 @@ def test_paged_decode_int4_pool_matches_pallas_v3(window):
                                    atol=1e-5)
 
 
-def test_qmm4_plan_covers_every_group():
-    for N, K, O in [(1, 4096, 1024), (64, 4096, 4096), (64, 14336, 4096),
-                    (512, 4096, 128256), (3, 96, 8)]:
-        nt, ksplit, gps = tquant.qmm4_plan(N, K, O)
+# llama3.2:3b's and phi3's int8 projection shapes (K, O): wq/wo, wk/wv,
+# w_gate/w_up, w_down, phi3's qkv (O = 3 x 3072) and untied LM head
+# (O = 32064, a ragged last column tile), and a second ragged O
+QMM_SHAPES = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072),
+              (3072, 9216), (3072, 32064), (3072, 8192 + 64)]
+
+
+@pytest.mark.parametrize("N", [1, 8, 16, 17, 64, 512])
+def test_qmm_mma_plan_covers_every_group_and_row(N):
+    """The tensor-core qmm kernel's plan: one 16-row tile (the decode form)
+    exactly at N <= 16, else 2, 4 or 8 tiles; its row blocks cover N (the
+    last one is needed), its K splits cover every group once, in split
+    order, with no empty split, within one wave of one CTA a SM; every
+    shape is one the kernel takes."""
+    for K, O in QMM_SHAPES:
+        mt, row_blocks, ksplit, gps = tquant.qmm_mma_plan(N, K, O)
+        assert mt == (1 if N <= 16 else 2 if N <= 32 else 4 if N <= 64
+                      else 8)
+        assert (mt == 1) == (N <= tquant.DECODE_N)
+        assert (row_blocks - 1) * 16 * mt < N <= row_blocks * 16 * mt
         G = K // 32
-        assert nt in (1, 2, 4, 8, 16) and nt >= min(N, 16)
-        assert gps % 4 == 0 and (ksplit - 1) * gps < G <= ksplit * gps
+        assert ksplit >= 1 and (ksplit - 1) * gps < G <= ksplit * gps
+        starts = [z * gps for z in range(ksplit)]
+        covered = [g for z in starts for g in range(z, min(z + gps, G))]
+        assert covered == list(range(G))
+        if ksplit > 1:
+            assert gps >= 8
+            assert -(-O // 256) * row_blocks * ksplit <= 132
+        assert K % 32 == 0 and O % 16 == 0
+
+
+@pytest.mark.parametrize("O", [8200, 32068, 1028])
+def test_qmm_kernel_refuses_columns_off_its_copies(O, monkeypatch):
+    """On the card the qmm wrapper takes O % 16 == 0 (the kernel copies
+    code rows in 16-byte chunks) and raises on anything else, O % 4 == 0
+    included, before it builds or launches anything."""
+    monkeypatch.setattr(cuda_build, "on_card", lambda *t: True)
+    monkeypatch.setattr(cuda_build, "function", None)
+    K = 64
+    x = torch.zeros((8, K), dtype=torch.bfloat16)
+    q = torch.zeros((K, O), dtype=torch.int8)
+    s = torch.zeros((K // 32, O), dtype=torch.float32)
+    with pytest.raises(ValueError, match="unsupported"):
+        tquant.qmm(x, q, s)
 
 
 @pytest.mark.parametrize("N", [1, 8, 17, 64, 512])

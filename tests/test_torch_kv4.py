@@ -138,7 +138,7 @@ def test_decoder_int4_pool_matches_jax():
     pn = jquant.quantize_params(jax.tree_util.tree_map(np.asarray, params),
                                 bits=8)
     jp = jax.tree_util.tree_map(jnp.asarray, pn)
-    tp = params_from_numpy(pn)
+    tp = params_from_numpy(pn, device="cpu")
     assert "lm_head" not in tp
     rng = np.random.default_rng(8)
     prompts = [rng.integers(0, TCFG.vocab_size, n).astype(np.int32)

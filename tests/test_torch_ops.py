@@ -143,7 +143,7 @@ def test_tied_int8_tree_converts_bit_for_bit():
         np.asarray, jdec.init_params(cfg, jax.random.key(2), jnp.float32)),
         bits=8)
     pn["tok_emb"] = np.asarray(jnp.asarray(pn["tok_emb"], jnp.bfloat16))
-    tp = params_from_numpy(pn)
+    tp = params_from_numpy(pn, device="cpu")
     assert "lm_head" not in tp and set(tp["layers"]["w_down"]) == {"q", "s"}
     assert tp["tok_emb"].dtype == torch.bfloat16
     np.testing.assert_array_equal(

@@ -153,7 +153,7 @@ def test_paged_engine_matches_dense_under_each_route(route, kv,
     route's knobs equals the dense engine's, a window of 8 biting on the
     14-token prompt."""
     cfg = dataclasses.replace(TPRESETS["tiny"], sliding_window=8)
-    gen = torch.Generator().manual_seed(5)
+    gen = torch.Generator(device="cpu").manual_seed(5)
     params = tdec.init_params(cfg, gen, torch.float32, "cpu")
     dtype = getattr(torch, kv)
     set_knobs(monkeypatch, route)

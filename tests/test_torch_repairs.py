@@ -12,6 +12,12 @@ either).
   scale after each group's exact dot instead of rounding code x scale to
   bf16. Held to 1e-5 x max |y| at N = 1, 8 and 16, and at N = 17, where
   both sides take the bf16 weight.
+
+And one device fault: the weight makers (``init_params``,
+``tensor_from_numpy``, ``params_from_numpy``) defaulted to the CPU where
+every other entry point of the port defaults to the card; they now put
+weights on the card unless the caller names the CPU, and raise without
+CUDA.
 """
 
 import dataclasses
@@ -24,6 +30,7 @@ import torch
 from ollama_operator_tpu.models import decoder as jdec
 from ollama_operator_tpu.models.config import PRESETS as JPRESETS
 from ollama_operator_tpu.ops import quant as jquant
+from ollama_operator_tpu_torch import convert
 from ollama_operator_tpu_torch.models import decoder as tdec
 from ollama_operator_tpu_torch.models.config import PRESETS as TPRESETS
 from ollama_operator_tpu_torch.ops import quant as tquant
@@ -77,3 +84,28 @@ def test_qmm_small_n_matches_xla_decode_form(N):
     assert t.dtype == torch.float32
     np.testing.assert_allclose(t.numpy(), j, rtol=0,
                                atol=1e-5 * np.abs(j).max())
+
+
+@pytest.mark.parametrize("maker", ["init_params", "tensor_from_numpy",
+                                   "params_from_numpy"])
+def test_weight_makers_default_to_the_card(maker, monkeypatch):
+    """With no device named, each weight maker asks for the card and
+    raises without CUDA (as every entry point does); with
+    ``device="cpu"`` it builds the weights on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TPRESETS["tiny"]
+    arr = np.arange(6, dtype=np.float32).reshape(2, 3)
+    make = {
+        "init_params": lambda **kw: tdec.init_params(
+            cfg, torch.Generator(device="cpu").manual_seed(0),
+            torch.float32, **kw)["layers"]["wq"],
+        "tensor_from_numpy": lambda **kw: convert.tensor_from_numpy(
+            arr, **kw),
+        "params_from_numpy": lambda **kw: convert.params_from_numpy(
+            {"a": {"b": arr}}, **kw)["a"]["b"]}[maker]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
+    t = make(device="cpu")
+    assert t.device.type == "cpu" and t.dtype == torch.float32
+    if maker != "init_params":
+        np.testing.assert_array_equal(t.numpy(), arr)

@@ -66,7 +66,8 @@ def _port_model(numpy_params, **kw):
                 decode_chunk=8)
     ecfg.update(kw)
     return LoadedModel(
-        "tiny", TPRESETS["tiny"], params_from_numpy(numpy_params),
+        "tiny", TPRESETS["tiny"],
+        params_from_numpy(numpy_params, device="cpu"),
         Tokenizer(model="llama", **BYTES), template=TPL, device="cpu",
         ecfg=EngineConfig(**ecfg))
 
@@ -213,7 +214,7 @@ def test_port_imports_no_jax():
 def test_entry_points_refuse_cpu_fallback(numpy_params, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = TPRESETS["tiny"]
-    params = params_from_numpy(numpy_params)
+    params = params_from_numpy(numpy_params, device="cpu")
     tok = Tokenizer(model="llama", **BYTES)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Engine(cfg, params, EngineConfig(paged=True, max_slots=2,

@@ -83,7 +83,7 @@ def test_tied_g3_int8_weights_match_jax_loaded_model(kv, monkeypatch):
         jlm.unload()
     mm = ModelManager(device="cpu")
     lm = mm.preload("tiny", dataclasses.replace(TPRESETS["tiny"], **G3),
-                    params_from_numpy(dense),
+                    params_from_numpy(dense, device="cpu"),
                     Tokenizer(model="llama", **BYTES), dtype="int8",
                     template=TPL, kv_dtype=kv,
                     ecfg=EngineConfig(cache_dtype=torch.float32, **ECFG))
@@ -112,13 +112,13 @@ def test_preload_resolves_weight_dtype(numpy_params):
     mm = ModelManager(device="cpu")
     try:
         lm = mm.preload("tiny", TPRESETS["tiny"],
-                        params_from_numpy(numpy_params),
+                        params_from_numpy(numpy_params, device="cpu"),
                         Tokenizer(model="llama", **BYTES), template=TPL,
                         ecfg=EngineConfig(**ECFG))
         assert lm.serving_dtype == "float32"
         assert lm.engine.params["layers"]["wq"].dtype == torch.float32
         lm = mm.preload("tiny4", TPRESETS["tiny"],
-                        params_from_numpy(numpy_params),
+                        params_from_numpy(numpy_params, device="cpu"),
                         Tokenizer(model="llama", **BYTES), dtype="int4",
                         template=TPL, ecfg=EngineConfig(**ECFG))
         assert set(lm.engine.params["layers"]["w_up"]) == {"q4", "s"}
