@@ -10,8 +10,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (one ``nvcc`` per source, all started together); print each library's
    tensor-core instruction count (``HMMA``/``HGMMA`` lines of
    ``cuobjdump -sass``), which must be above 0 for the flash-prefill,
-   qmm4, qmm and decode-attention libraries; the qmm and decode-attention
-   kernels must not spill registers.
+   qmm4, qmm, decode-attention and paged-decode (v3) libraries; the qmm,
+   decode-attention and paged-decode kernels must not spill registers, and
+   the paged v3 kernel must take its tensor-core path at the served head
+   dims (128 and 96).
 2. Kernel phases at the main paths' shapes, in bf16 on the card: each
    kernel against its plain PyTorch version on the same inputs, with the
    tolerance stated beside it (attention kernels: every query row or slot
@@ -23,19 +25,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    computing the same function where one exists, and the least time the
    card could take (bytes at 3.35 TB/s or bf16 operations at 989
    TFLOP/s, whichever is larger).
-   Kernels: flash prefill (also at phi3's MHA shape, hd 96, window 2047,
-   and at two ragged chunks, one with hd 80, a window and a softcap);
-   the three paged-decode kernels (K6 v3, K4 v2, K5 v4) over int8, int4
-   and bf16 pools, at phi3's G = 1, hd 96, and with nblk below the longest
-   slot's live pages; the GQA (K2) and MHA (K3) decode kernels over the
-   dense slot cache (K2 also at the serving lengths and at other head
-   dims, a full group and a softcap, and both at other sequence chunks
-   than their wrappers'); the int4 (qmm4, llama3.1 shapes) and int8
-   (qmm, llama3.2:3b shapes, N = 8 among them, where qmm takes the decode
-   form, and N = 17, the first past it; phi3's LM head, O = 32064, and a
-   second ragged O) dequant matmuls. Also the tied LM head's f32 product
-   (a bf16 GEMM with an f32 output) against the f32 product of the same
-   values.
+   Kernels: flash prefill (also at phi3's MHA shape, hd 96, window 2047, and
+   at two ragged chunks, one with hd 80, a window and a softcap); the three
+   paged-decode kernels (K6 v3, K4 v2, K5 v4) over int8, int4 and bf16
+   pools, at phi3's G = 1, hd 96, and with nblk below the longest slot's
+   live pages; K6 alone at a decode step of the serving paths (8 slots at
+   180..300 positions: int8 at H = 32 and 24, int4 at 24, phi3's G = 1), the
+   same step with every slot of the engine's table (64, phi3 32; the idle
+   ones at length 0), and at the chunks of 256 and 1024 positions beside its
+   512, each K6 row also checked bit-identical over two launches and read
+   for the wrapper's host time a call (with ``--baseline DIR``, a checkout
+   of another commit, that commit's K6 time and host time beside it); the
+   GQA (K2) and MHA (K3) decode kernels over the dense slot cache (K2 also
+   at the serving lengths and at other head dims, a full group and a
+   softcap, and both at other sequence chunks than their wrappers'); the
+   int4 (qmm4, llama3.1 shapes) and int8 (qmm, llama3.2:3b shapes, N = 8
+   among them, where qmm takes the decode form, and N = 17, the first past
+   it; phi3's LM head, O = 32064, and a second ragged O) dequant matmuls.
+   Also the tied LM head's f32 product (a bf16 GEMM with an f32 output)
+   against the f32 product of the same values.
 3. Serving, eight paths, each at full width and full depth behind the
    port's HTTP server on an ephemeral port, with random dense bf16 weights
    from a seed handed to ``ModelManager.preload``, which picks the weight
@@ -91,9 +99,13 @@ from unittest import mock
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 20261017
-TENSOR_CORE_KERNELS = ("flash_prefill", "qmm4", "qmm", "decode_attention")
+TENSOR_CORE_KERNELS = ("flash_prefill", "qmm4", "qmm", "decode_attention",
+                       "paged_decode")
 # libraries whose kernels must not spill registers (ptxas report)
-NO_SPILL_KERNELS = ("qmm", "decode_attention")
+NO_SPILL_KERNELS = ("qmm", "decode_attention", "paged_decode")
+# head dims of the served models (llama 128, phi3 96): the paged v3 kernel
+# must run each on its tensor-core path
+SERVED_HEAD_DIMS = (128, 96)
 
 
 def fail(msg: str) -> int:
@@ -168,7 +180,73 @@ class Timer:
         return took / iters * 1e6
 
 
-def kernel_phases(torch, timer, report):
+def paged_inputs(torch, g, B, ps, NBLK, H, KvH, hd, bits, max_len, window,
+                 serving=False, idle=0):
+    """Random inputs of the paged-decode kernels on the card, from the
+    generator ``g``: a two-layer pool (int8 or int4 codes with f32 scales,
+    or bf16) holding each slot's live pages in a random order, tables [B,
+    NBLK], lengths drawn over 1..max_len (``serving``: spread evenly over
+    180..max_len, and the last ``idle`` slots at 0, as the engine hands
+    its free slots), bf16 q. Returns the kernels' positional arguments
+    (q, k_pool, v_pool, layer 1, tables, lengths, scale, softcap 0,
+    window)."""
+    dev, L = "cuda", 2
+    if serving:
+        lengths = torch.linspace(180, max_len, B - idle,
+                                 device=dev).round().int()
+        lengths = torch.cat([lengths, torch.zeros(idle, dtype=torch.int32,
+                                                  device=dev)])
+    else:
+        lengths = torch.randint(1, max_len + 1, (B,), generator=g,
+                                device=dev, dtype=torch.int32)
+    live = (lengths.long() // ps + 1).clamp(max=NBLK)
+    P = int(live.sum().item()) + 1
+    perm = torch.randperm(P - 1, generator=g, device=dev).int() + 1
+    tables = torch.zeros((B, NBLK), dtype=torch.int32, device=dev)
+    off = 0
+    for b in range(B):
+        n = int(live[b])
+        tables[b, :n] = perm[off:off + n]
+        off += n
+
+    def pool():
+        scales = torch.rand((L, P, KvH, ps), generator=g, device=dev)
+        if bits == 8:
+            return {"q": torch.randint(-127, 128, (L, P, KvH, ps, hd),
+                                       generator=g, device=dev,
+                                       dtype=torch.int8),
+                    "s": scales * 0.02 + 1e-3}
+        if bits == 4:
+            return {"q4": torch.randint(0, 256, (L, P, KvH, ps // 2, hd),
+                                        generator=g, device=dev,
+                                        dtype=torch.uint8),
+                    "s": scales * 0.3 + 1e-2}
+        return torch.randn((L, P, KvH, ps, hd), generator=g,
+                           device=dev).to(torch.bfloat16)
+
+    kp, vp = pool(), pool()
+    qd = torch.randn((B, 1, H, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    return (qd, kp, vp, 1, tables, lengths, hd ** -0.5, 0.0, window)
+
+
+def load_baseline_paged(root: str):
+    """``ops/paged.py`` of the port in another checkout at ``root`` (its
+    own package name, build directory and launch counters), so a call can
+    time that commit's paged kernels beside this one's."""
+    import importlib
+    import importlib.util
+    pkg = os.path.join(os.path.abspath(root), "ollama_operator_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "baseline_port", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["baseline_port"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("baseline_port.ops.paged")
+
+
+def kernel_phases(torch, timer, report, baseline=None):
     import torch.nn.functional as F
     from ollama_operator_tpu_torch.ops import attention as A
     from ollama_operator_tpu_torch.ops import paged as PG
@@ -295,50 +373,46 @@ def kernel_phases(torch, timer, report):
          "ollama_operator_tpu/ops/pallas/paged.py:414"))
 
     def paged_case(B, ps, NBLK, H, KvH, hd, bits, max_len, window,
-                   main_routes, cut=False):
-        """``main_routes``: the routes whose main-path shape this is."""
-        L = 2
-        lengths = torch.randint(1, max_len + 1, (B,), generator=g,
-                                device=dev, dtype=torch.int32)
-        live = (lengths.long() // ps + 1)
-        P = int(live.sum().item()) + 1
-        perm = torch.randperm(P - 1, generator=g, device=dev).int() + 1
-        tables = torch.zeros((B, NBLK), dtype=torch.int32, device=dev)
-        off = 0
-        for b in range(B):
-            n = int(live[b])
-            tables[b, :n] = perm[off:off + n]
-            off += n
-        nblk = int(live.max().item())
+                   main_routes, cut=False, routes=("v3", "v2", "v4"),
+                   serving=False, chunk=None, idle=0):
+        """``main_routes``: the routes whose main-path shape this is.
+        ``serving``: lengths spread evenly over 180..max_len (a decode
+        step's slots at the serving paths' prompt lengths) instead of drawn
+        over 1..max_len, the last ``idle`` slots at 0. ``chunk``: the v3
+        chunk in positions (``PG.PAGED_CHUNK`` by default)."""
+        args = paged_inputs(torch, g, B, ps, NBLK, H, KvH, hd, bits,
+                            max_len, window, serving, idle)
+        qd, kp, _, _, _, lengths = args[:6]
+        nblk = int((lengths.long() // ps + 1).max().item())
         if cut:
             nblk //= 2
-
-        def pool():
-            scales = torch.rand((L, P, KvH, ps), generator=g, device=dev)
-            if bits == 8:
-                return {"q": torch.randint(-127, 128, (L, P, KvH, ps, hd),
-                                           generator=g, device=dev,
-                                           dtype=torch.int8),
-                        "s": scales * 0.02 + 1e-3}
-            if bits == 4:
-                return {"q4": torch.randint(0, 256, (L, P, KvH, ps // 2, hd),
-                                            generator=g, device=dev,
-                                            dtype=torch.uint8),
-                        "s": scales * 0.3 + 1e-2}
-            return randn(L, P, KvH, ps, hd)
-
-        kp, vp = pool(), pool()
-        qd = randn(B, 1, H, hd)
-        scale = hd ** -0.5
-        args = (qd, kp, vp, 1, tables, lengths, scale, 0.0, window)
         code_bytes = hd * pool_bits(kp) // 8 + (4 if bits < 16 else 0)
+        saved_chunk = PG.PAGED_CHUNK
+        PG.PAGED_CHUNK = chunk or saved_chunk
         for route, source, replaces in paged_kernels:
+            if route not in routes:
+                continue
             fn = getattr(PG, f"paged_decode_attention_{route}")
             out = fn(*args, nblk=nblk)
             ref = PG.paged_decode_attention_plain(*args, nblk=nblk,
                                                   route=route)
             check = rowwise(out, ref, B, lambda r: f"slot {r} (length "
                             f"{int(lengths[r])})")
+            extra = {}
+            if route == "v3":
+                # the split merges its chunks in a fixed order: a repeat
+                # gives the same bits
+                if not torch.equal(fn(*args, nblk=nblk), out):
+                    raise RuntimeError("two launches of the v3 kernel "
+                                       "differ")
+                extra["host_us"] = timer.host_us(lambda: fn(*args,
+                                                            nblk=nblk))
+                if baseline is not None:
+                    old = baseline.paged_decode_attention_v3
+                    extra["baseline"] = dict(
+                        ms=timer(lambda: old(*args, nblk=nblk)),
+                        host_us=timer.host_us(lambda: old(*args,
+                                                          nblk=nblk)))
             # the positions this route attends: keys 0..length (inside the
             # window), below nblk * ps for v2 and v4
             last = lengths.long() + 1
@@ -364,19 +438,46 @@ def kernel_phases(torch, timer, report):
                    None, *bound(nbytes, flops),
                    shape=f"B={B} H={H} KvH={KvH} hd={hd} ps={ps} "
                          f"{'bf16' if bits == 16 else f'int{bits}'}, "
-                         f"lengths 1..{max_len}"
+                         f"lengths {180 if serving else 1}..{max_len}"
+                         + (f" and {idle} idle slots at 0" if idle else "")
                          + (f" window {window}" if window else "")
                          + (f" nblk {nblk} < longest {nblk * 2}" if cut
                             else "")
-                         + f" ({n_pos} attended positions)",
-                   main=route in main_routes)
+                         + f" ({n_pos} attended positions)"
+                         + (f" chunk {PG.PAGED_CHUNK}" if route == "v3"
+                            else ""),
+                   main=route in main_routes and not chunk, **extra)
             del out, ref
+        PG.PAGED_CHUNK = saved_chunk
 
     for H, bits, main_routes in ((32, 8, ("v3", "v2")), (24, 8, ()),
                                  (24, 4, ("v3",)), (32, 16, ())):
         paged_case(64, 128, 32, H, 8, 128, bits, 2048, 0, main_routes)
     paged_case(32, 64, 64, 32, 32, 96, 8, 4095, 2047, ("v4",))
     paged_case(64, 128, 32, 32, 8, 128, 8, 2048, 0, (), cut=True)
+    # K6 alone at a decode step of the serving paths: 8 slots at 180..300
+    # positions (int8 pool at llama3.1's and llama3.2:3b's heads, int4 pool
+    # at llama3.2:3b's, phi3's G = 1 on its 64-position pages), and that
+    # step as the engine calls it, with every slot of its table (64 for
+    # llama, 32 for phi3; the idle ones at length 0); then the main shape,
+    # the serving lengths and phi3's shape at the neighbouring chunks of
+    # 256 and 1024 positions
+    for H, bits in ((32, 8), (24, 8), (24, 4)):
+        paged_case(8, 128, 32, H, 8, 128, bits, 300, 0, (), routes=("v3",),
+                   serving=True)
+    paged_case(8, 64, 64, 32, 32, 96, 8, 300, 2047, (), routes=("v3",),
+               serving=True)
+    paged_case(64, 128, 32, 32, 8, 128, 8, 300, 0, (), routes=("v3",),
+               serving=True, idle=56)
+    paged_case(32, 64, 64, 32, 32, 96, 8, 300, 2047, (), routes=("v3",),
+               serving=True, idle=24)
+    for chunk in (256, 1024):
+        paged_case(64, 128, 32, 32, 8, 128, 8, 2048, 0, (), routes=("v3",),
+                   chunk=chunk)
+        paged_case(8, 128, 32, 32, 8, 128, 8, 300, 0, (), routes=("v3",),
+                   serving=True, chunk=chunk)
+        paged_case(32, 64, 64, 32, 32, 96, 8, 4095, 2047, (),
+                   routes=("v3",), chunk=chunk)
     torch.cuda.empty_cache()
 
     # -- dense-cache decode, B=8 slots of S=4096 rows, lengths spread over
@@ -926,6 +1027,9 @@ def main() -> int:
                     help="directory for chip_smoke.json and ptxas.txt")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after building and checking the kernels")
+    ap.add_argument("--baseline", default=None, metavar="DIR",
+                    help="a checkout of another commit: also time its K6 "
+                         "(paged v3) wrapper at each K6 row")
     args = ap.parse_args()
     try:
         import torch
@@ -977,11 +1081,21 @@ def main() -> int:
                   r"(\d+) bytes spill (?:stores|loads)", line))]
     if spills:
         return fail(f"register spills: {spills}")
+    import ctypes
+    on_tc = cuda_build.function("paged_decode", "paged_decode_tensor_cores",
+                                [ctypes.c_int])
+    scalar = [hd for hd in SERVED_HEAD_DIMS if on_tc(hd) != 1]
+    print(f"paged v3 kernel on tensor cores at head dims {SERVED_HEAD_DIMS}: "
+          f"{'no: ' + str(scalar) if scalar else 'yes'}", flush=True)
+    if scalar:
+        return fail(f"the paged v3 kernel takes its scalar loop at the "
+                    f"served head dims {scalar}")
 
     rows, entries = [], {}
 
     def report(name, source, replaces, check, ms, plain_ms, library_ms,
-               bound_ms, bound_by, shape="", main=True, host_us=None):
+               bound_ms, bound_by, shape="", main=True, host_us=None,
+               baseline=None):
         """``check``: (error, tolerance) over the whole output, or
         (worst row's error, its tolerance, largest error, worst row, share
         of outputs not bit-equal) from a row-wise check."""
@@ -993,7 +1107,7 @@ def main() -> int:
                    tol=tol, worst=worst, bf16_not_bit_equal=differ, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by, ok=ok,
-                   host_us=host_us)
+                   host_us=host_us, baseline=baseline)
         rows.append(row)
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
         held = (f"max|err| {err:.3g} (tol {tol:g})" if worst is None else
@@ -1001,6 +1115,9 @@ def main() -> int:
                 f"max|err| of all rows {max_err:.3g}; bf16 outputs not "
                 f"bit-equal to the plain version: {differ:.4%}")
         host = "" if host_us is None else f"; host {host_us:.1f} us/call"
+        if baseline:
+            host += (f"; baseline commit: ms {baseline['ms']:.4f} host "
+                     f"{baseline['host_us']:.1f} us/call")
         print(f"kernel {name} [{shape}]: {held} "
               f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain {plain_ms:.4f} "
               f"library {lib} bound {bound_ms:.4f} ({bound_by}){host}",
@@ -1016,7 +1133,9 @@ def main() -> int:
 
     try:
         timer = Timer(torch)
-        kernel_phases(torch, timer, report)
+        baseline = (load_baseline_paged(args.baseline) if args.baseline
+                    else None)
+        kernel_phases(torch, timer, report, baseline)
         torch.cuda.synchronize()
     except Exception as e:  # noqa: BLE001 — every phase failure is fatal
         import traceback

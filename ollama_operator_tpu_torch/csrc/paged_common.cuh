@@ -26,9 +26,11 @@
 // [L, P, KvH, ps/2, hd] (int4, uint8) with the true head dim (no padding),
 // scales [L, P, KvH, ps] f32 unpadded; tables [B, NBLK] int32.
 //
-// The split kernels (v2, v4) store a partial state (m, l, acc) per run of
-// consecutive pages of one slot, and a second pass merges a slot's partials
-// in block order, so a repeat gives the same bits.
+// All three store a partial state (m, l, acc) per run of consecutive pages
+// of one slot, and a second pass merges a slot's partials in block order,
+// so a repeat gives the same bits (v2, v4: merge_partials below; v3, whose
+// scalar loop serves only head dims its tensor-core kernel does not take:
+// merge_chunks of split_decode.cuh).
 
 #pragma once
 
@@ -321,24 +323,6 @@ __device__ __forceinline__ void page_update(const Params& a, const Smem& sm,
       }
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) st.acc[g][c] = acc[g];
-    }
-  }
-}
-
-// out[b, 0, kvh * G + g, :] = acc / max(l, 1e-30) in bf16.
-__device__ __forceinline__ void store_out(const Params& a, const State& st,
-                                          int G, int b, int kvh) {
-#pragma unroll
-  for (int c = 0; c < MAX_NC; ++c) {
-    const int d = threadIdx.x + NTHREADS * c;
-    if (d >= a.hd) continue;
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g < G) {
-        const float o = st.acc[g][c] / fmaxf(st.l[g], 1e-30f);
-        a.out[((int64_t)b * a.H + kvh * G + g) * a.hd + d] =
-            __float2bfloat16(o);
-      }
     }
   }
 }

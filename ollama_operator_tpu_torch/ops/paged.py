@@ -151,6 +151,46 @@ def paged_decode_attention_plain(q, k_pool, v_pool, layer: int, tables,
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+# Positions a CTA of the v3 kernel takes: it splits each slot's table in
+# chunks of the whole pages within this many positions (at least one page),
+# folds a chunk's live rows into a partial softmax state and merges the
+# chunks in a second launch. A positive multiple of the kernel's
+# 32-position tile. 512 measured fastest on the H100 at the engine's
+# decode step (every slot of the table) and at the 64-slot main shape
+# (PERF.md section 6, hack/paged_v3_variants.py).
+PAGED_CHUNK = 512
+
+
+def paged_chunk_pages(ps: int, chunk: int = None) -> int:
+    """Table blocks a chunk of the v3 kernel holds at page size ``ps``: the
+    whole pages within ``chunk`` positions (default :data:`PAGED_CHUNK`),
+    at least one. Raises unless the chunk is a positive multiple of the
+    kernel's 32-position tile."""
+    chunk = PAGED_CHUNK if chunk is None else chunk
+    if chunk <= 0 or chunk % 32:
+        raise ValueError(f"paged_decode kernel splits a slot's pages in "
+                         f"chunks of a positive multiple of 32 positions; "
+                         f"the chunk is {chunk}")
+    return max(1, chunk // ps)
+
+
+def paged_chunk_blocks(length: int, NBLK: int, ps: int, window: int,
+                       chunk_pages: int):
+    """The table blocks each CTA of the v3 kernel walks for a slot whose
+    query sits at ``length``: one ``range`` per chunk z of
+    ``ceil(NBLK / chunk_pages)``, v3's live blocks (from the window's first
+    block to the block of ``length``, within the table's NBLK whatever
+    ``nblk`` is) inside [z * chunk_pages, (z + 1) * chunk_pages), empty for
+    a chunk past ``length`` or before the window (as ``csrc/paged_decode.cu``
+    computes them, in rows). The chunk count depends on NBLK and the chunk
+    only."""
+    last = min(length // ps + 1, NBLK)
+    first = max(0, (length - window + 1) // ps) if window > 0 else 0
+    return [range(max(first, z * chunk_pages),
+                  min(last, (z + 1) * chunk_pages))
+            for z in range(-(-NBLK // chunk_pages))]
+
+
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLT = ctypes.c_float
@@ -192,6 +232,13 @@ def _launch(route: str, q, k_pool, v_pool, layer: int, tables, lengths,
         if not t.is_contiguous():
             raise ValueError("paged_decode kernel needs contiguous pools, "
                              "tables and lengths")
+    chunk_pages = None
+    if route == "v3":
+        chunk_pages = paged_chunk_pages(ps)
+        if k_arr.data_ptr() % 16 or v_arr.data_ptr() % 16:
+            raise ValueError("paged_decode kernel copies pool rows in "
+                             "16-byte pieces: the pools must be 16-byte "
+                             "aligned")
     if quant:
         code_dtype = torch.uint8 if quant4 else torch.int8
         if (k_arr.dtype != code_dtype or v_arr.dtype != code_dtype
@@ -211,7 +258,16 @@ def _launch(route: str, q, k_pool, v_pool, layer: int, tables, lengths,
     args = [q.data_ptr(), k_arr.data_ptr(), ks, v_arr.data_ptr(), vs,
             tables.data_ptr(), lengths.data_ptr(), out.data_ptr()]
     types = [_PTR] * 8
-    if route != "v3":
+    if route == "v3":
+        # per (slot, chunk, kv head, group row): the partial softmax state,
+        # merged in chunk order by the kernel's second launch; acc [runs,
+        # KvH, G, hd] then (m, l) [runs, KvH, G, 2] in one allocation
+        runs = B * -(-NBLK // chunk_pages)
+        part = torch.empty(runs * H * (hd + 2), dtype=torch.float32,
+                           device=q.device)
+        args += [part.data_ptr(), part.data_ptr() + 4 * runs * H * hd]
+        types += [_PTR] * 2
+    else:
         # per (run of pages, kv head, group row): the partial softmax
         # state, merged per slot in block order by the kernel's second pass
         G = H // KvH
@@ -224,7 +280,10 @@ def _launch(route: str, q, k_pool, v_pool, layer: int, tables, lengths,
     args += [B, H, KvH, hd, P, ps, NBLK, nblk, int(layer), float(scale),
              float(softcap or 0.0), int(sliding_window)]
     types += [_INT] * 9 + [_FLT, _FLT, _INT]
-    if route == "v4":
+    if route == "v3":
+        args.append(chunk_pages)
+        types.append(_INT)
+    elif route == "v4":
         # a fixed number of CTAs per kv head, each walking an equal share
         # of the flat list of live pages (at most one page each per slot)
         args.append(max(1, min(B * nblk, 2048 // KvH)))
@@ -272,9 +331,12 @@ def paged_decode_attention_v3(q, k_pool, v_pool, layer: int, tables,
     → [B, 1, H, hd] (q.dtype).
 
     On the card this launches ``csrc/paged_decode.cu`` (bf16 q; int8,
-    int4 or bf16 pools; the limits of :func:`paged_shape_error`) and
-    raises on anything it does not take; on the CPU it runs
-    :func:`paged_decode_attention_plain` with v3's contract."""
+    int4 or bf16 pools; the limits of :func:`paged_shape_error`), which
+    splits each slot's table in chunks of :func:`paged_chunk_pages` pages
+    (:func:`paged_chunk_blocks`), folds each chunk's live rows on its own
+    CTA (on tensor cores when hd % 16 == 0) and merges the chunks in a
+    second launch, and raises on anything it does not take; on the CPU it
+    runs :func:`paged_decode_attention_plain` with v3's contract."""
     return _paged("v3", q, k_pool, v_pool, layer, tables, lengths, scale,
                   softcap, sliding_window, nblk)
 
