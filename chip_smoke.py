@@ -10,10 +10,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (one ``nvcc`` per source, all started together); print each library's
    tensor-core instruction count (``HMMA``/``HGMMA`` lines of
    ``cuobjdump -sass``), which must be above 0 for the flash-prefill,
-   qmm4, qmm, decode-attention and paged-decode (v3) libraries; the qmm,
-   decode-attention and paged-decode kernels must not spill registers, and
-   the paged v3 kernel must take its tensor-core path at the served head
-   dims (128 and 96).
+   qmm4, qmm, decode-attention and the three paged-decode (v3, v2, v4)
+   libraries; the qmm, decode-attention and paged-decode kernels must not
+   spill registers, and the paged kernels must take their tensor-core path
+   at the served head dims (128 and 96).
 2. Kernel phases at the main paths' shapes, in bf16 on the card: each
    kernel against its plain PyTorch version on the same inputs, with the
    tolerance stated beside it (attention kernels: every query row or slot
@@ -28,14 +28,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    Kernels: flash prefill (also at phi3's MHA shape, hd 96, window 2047, and
    at two ragged chunks, one with hd 80, a window and a softcap); the three
    paged-decode kernels (K6 v3, K4 v2, K5 v4) over int8, int4 and bf16
-   pools, at phi3's G = 1, hd 96, and with nblk below the longest slot's
-   live pages; K6 alone at a decode step of the serving paths (8 slots at
-   180..300 positions: int8 at H = 32 and 24, int4 at 24, phi3's G = 1), the
-   same step with every slot of the engine's table (64, phi3 32; the idle
-   ones at length 0), and at the chunks of 256 and 1024 positions beside its
-   512, each K6 row also checked bit-identical over two launches and read
-   for the wrapper's host time a call (with ``--baseline DIR``, a checkout
-   of another commit, that commit's K6 time and host time beside it); the
+   pools, at phi3's G = 1, hd 96 (int8 and bf16), and with nblk below the
+   longest slot's live pages; at a decode step of the serving paths (8
+   slots at 180..300 positions: K6 and K4 at H = 32, K6 at H = 24 and on
+   an int4 pool, K6 and K5 at phi3's G = 1), the same step with every slot
+   of the engine's table (64, phi3 32; the idle ones at length 0; K6 and
+   K4, K6 and K5); K6 at the chunks of 256 and 1024 positions beside its
+   512, K4 at one page a CTA, K5 at 2048 and 8192 CTAs beside its 4096.
+   Every paged row is checked bit-identical over two launches and read for
+   the wrapper's host time a call (with ``--baseline DIR``, a checkout of
+   another commit, that commit's kernel of the same route timed beside it,
+   and its K6 output required bit-equal to this one's); the
    GQA (K2) and MHA (K3) decode kernels over the dense slot cache (K2 also
    at the serving lengths and at other head dims, a full group and a
    softcap, and both at other sequence chunks than their wrappers'); the
@@ -100,11 +103,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 20261017
 TENSOR_CORE_KERNELS = ("flash_prefill", "qmm4", "qmm", "decode_attention",
-                       "paged_decode")
+                       "paged_decode", "paged_decode_v2", "paged_decode_v4")
 # libraries whose kernels must not spill registers (ptxas report)
-NO_SPILL_KERNELS = ("qmm", "decode_attention", "paged_decode")
-# head dims of the served models (llama 128, phi3 96): the paged v3 kernel
-# must run each on its tensor-core path
+NO_SPILL_KERNELS = ("qmm", "decode_attention", "paged_decode",
+                    "paged_decode_v2", "paged_decode_v4")
+# head dims of the served models (llama 128, phi3 96): the paged kernels
+# must run each on their tensor-core path
 SERVED_HEAD_DIMS = (128, 96)
 
 
@@ -372,47 +376,77 @@ def kernel_phases(torch, timer, report, baseline=None):
         ("v4", "csrc/paged_decode_v4.cu",
          "ollama_operator_tpu/ops/pallas/paged.py:414"))
 
+    inputs = {}
+
     def paged_case(B, ps, NBLK, H, KvH, hd, bits, max_len, window,
                    main_routes, cut=False, routes=("v3", "v2", "v4"),
-                   serving=False, chunk=None, idle=0):
+                   serving=False, chunk=None, idle=0, v4_ctas=None):
         """``main_routes``: the routes whose main-path shape this is.
         ``serving``: lengths spread evenly over 180..max_len (a decode
         step's slots at the serving paths' prompt lengths) instead of drawn
         over 1..max_len, the last ``idle`` slots at 0. ``chunk``: the v3
-        chunk in positions (``PG.PAGED_CHUNK`` by default)."""
-        args = paged_inputs(torch, g, B, ps, NBLK, H, KvH, hd, bits,
-                            max_len, window, serving, idle)
+        and v2 chunk in positions (``PG.PAGED_CHUNK`` by default);
+        ``v4_ctas``: the v4 kernel's CTAs a call (``PG.PAGED_V4_CTAS``).
+        Every row checks two launches bit-equal and reads the wrapper's
+        host time a call; where ``nblk`` covers every live page, v2 and
+        v4 must give v3's bits (their partials are v3's live chunks',
+        merged in the same order); with a baseline, times that commit's
+        kernel of the route beside it, and fails unless its v3 kernel
+        (K6) gives the same bits as this one."""
+        # the rows of one shape (a chunk or CTA count beside the default)
+        # share its inputs, drawn once in the order the shapes first come
+        key = (B, ps, NBLK, H, KvH, hd, bits, max_len, window, serving,
+               idle)
+        if key not in inputs:
+            inputs[key] = paged_inputs(torch, g, B, ps, NBLK, H, KvH, hd,
+                                       bits, max_len, window, serving, idle)
+        args = inputs[key]
         qd, kp, _, _, _, lengths = args[:6]
         nblk = int((lengths.long() // ps + 1).max().item())
         if cut:
             nblk //= 2
         code_bytes = hd * pool_bits(kp) // 8 + (4 if bits < 16 else 0)
-        saved_chunk = PG.PAGED_CHUNK
-        PG.PAGED_CHUNK = chunk or saved_chunk
+        knobs = (("PAGED_CHUNK", chunk), ("PAGED_V4_CTAS", v4_ctas))
+        saved = {k: getattr(PG, k) for k, _ in knobs}
+        saved_base_chunk = baseline and baseline.PAGED_CHUNK
+        for k, v in knobs:
+            if v:
+                setattr(PG, k, v)
+        if baseline is not None and chunk:
+            baseline.PAGED_CHUNK = chunk
+        out_v3 = None
         for route, source, replaces in paged_kernels:
             if route not in routes:
                 continue
             fn = getattr(PG, f"paged_decode_attention_{route}")
             out = fn(*args, nblk=nblk)
+            if route == "v3":
+                out_v3 = out
+            elif out_v3 is not None and not cut and not torch.equal(
+                    out, out_v3):
+                raise RuntimeError(f"the {route} kernel's output differs "
+                                   f"from the v3 kernel's on the same "
+                                   f"live pages")
             ref = PG.paged_decode_attention_plain(*args, nblk=nblk,
                                                   route=route)
             check = rowwise(out, ref, B, lambda r: f"slot {r} (length "
                             f"{int(lengths[r])})")
-            extra = {}
-            if route == "v3":
-                # the split merges its chunks in a fixed order: a repeat
-                # gives the same bits
-                if not torch.equal(fn(*args, nblk=nblk), out):
-                    raise RuntimeError("two launches of the v3 kernel "
-                                       "differ")
-                extra["host_us"] = timer.host_us(lambda: fn(*args,
-                                                            nblk=nblk))
-                if baseline is not None:
-                    old = baseline.paged_decode_attention_v3
-                    extra["baseline"] = dict(
-                        ms=timer(lambda: old(*args, nblk=nblk)),
-                        host_us=timer.host_us(lambda: old(*args,
-                                                          nblk=nblk)))
+            # each kernel merges its partials in a fixed order: a repeat
+            # gives the same bits
+            if not torch.equal(fn(*args, nblk=nblk), out):
+                raise RuntimeError(f"two launches of the {route} kernel "
+                                   f"differ")
+            extra = {"host_us": timer.host_us(lambda: fn(*args, nblk=nblk))}
+            if baseline is not None:
+                old = getattr(baseline, f"paged_decode_attention_{route}")
+                same = torch.equal(old(*args, nblk=nblk), out)
+                extra["baseline"] = dict(
+                    ms=timer(lambda: old(*args, nblk=nblk)),
+                    host_us=timer.host_us(lambda: old(*args, nblk=nblk)),
+                    bit_equal=same)
+                if route == "v3" and not same:
+                    raise RuntimeError("the v3 kernel's output differs from "
+                                       "the baseline commit's")
             # the positions this route attends: keys 0..length (inside the
             # window), below nblk * ps for v2 and v4
             last = lengths.long() + 1
@@ -427,6 +461,8 @@ def kernel_phases(torch, timer, report, baseline=None):
             nbytes = (2 * 2 * qd.numel() + 2 * KvH * n_pos * code_bytes
                       + 4 * B * NBLK + 4 * B)
             flops = 4 * H * hd * n_pos
+            v4_chunks = PG.paged_v4_chunks(
+                B, KvH, -(-nblk // PG.paged_chunk_pages(ps)))
             name = ("paged_decode" if route == "v3" else
                     f"paged_decode_{route}")
             if route == "v3" and bits == 4:
@@ -444,33 +480,45 @@ def kernel_phases(torch, timer, report, baseline=None):
                          + (f" nblk {nblk} < longest {nblk * 2}" if cut
                             else "")
                          + f" ({n_pos} attended positions)"
-                         + (f" chunk {PG.PAGED_CHUNK}" if route == "v3"
+                         + f" chunk {PG.PAGED_CHUNK}"
+                         + (f" CTAs {KvH * v4_chunks}" if route == "v4"
                             else ""),
-                   main=route in main_routes and not chunk, **extra)
-            del out, ref
-        PG.PAGED_CHUNK = saved_chunk
+                   main=route in main_routes and not (chunk or v4_ctas),
+                   **extra)
+            del ref
+        del out, out_v3
+        for k, v in saved.items():
+            setattr(PG, k, v)
+        if baseline is not None and chunk:
+            baseline.PAGED_CHUNK = saved_base_chunk
 
     for H, bits, main_routes in ((32, 8, ("v3", "v2")), (24, 8, ()),
                                  (24, 4, ("v3",)), (32, 16, ())):
         paged_case(64, 128, 32, H, 8, 128, bits, 2048, 0, main_routes)
     paged_case(32, 64, 64, 32, 32, 96, 8, 4095, 2047, ("v4",))
+    paged_case(32, 64, 64, 32, 32, 96, 16, 4095, 2047, ())
     paged_case(64, 128, 32, 32, 8, 128, 8, 2048, 0, (), cut=True)
-    # K6 alone at a decode step of the serving paths: 8 slots at 180..300
-    # positions (int8 pool at llama3.1's and llama3.2:3b's heads, int4 pool
-    # at llama3.2:3b's, phi3's G = 1 on its 64-position pages), and that
-    # step as the engine calls it, with every slot of its table (64 for
-    # llama, 32 for phi3; the idle ones at length 0); then the main shape,
-    # the serving lengths and phi3's shape at the neighbouring chunks of
-    # 256 and 1024 positions
-    for H, bits in ((32, 8), (24, 8), (24, 4)):
+    # a decode step of the serving paths: 8 slots at 180..300 positions
+    # (int8 pool at llama3.1's heads through K6 and K4 (path 7), and at
+    # llama3.2:3b's, int4 pool at llama3.2:3b's, phi3's G = 1 on its
+    # 64-position pages through K6 and K5 (path 8)), and that step as the
+    # engine calls it, with every slot of its table (64 for llama, 32 for
+    # phi3; the idle ones at length 0); then the main shape, the serving
+    # lengths and phi3's shape at the neighbouring chunks of 256 and 1024
+    # positions (K6), K4 at one page a CTA (128 positions: the TPU's (slot,
+    # block) grid) and K5 at half and twice its CTAs (at the main shape: at
+    # the engine's step its count is capped by the units there can be)
+    paged_case(8, 128, 32, 32, 8, 128, 8, 300, 0, (), routes=("v3", "v2"),
+               serving=True)
+    for H, bits in ((24, 8), (24, 4)):
         paged_case(8, 128, 32, H, 8, 128, bits, 300, 0, (), routes=("v3",),
                    serving=True)
-    paged_case(8, 64, 64, 32, 32, 96, 8, 300, 2047, (), routes=("v3",),
+    paged_case(8, 64, 64, 32, 32, 96, 8, 300, 2047, (), routes=("v3", "v4"),
                serving=True)
-    paged_case(64, 128, 32, 32, 8, 128, 8, 300, 0, (), routes=("v3",),
+    paged_case(64, 128, 32, 32, 8, 128, 8, 300, 0, (), routes=("v3", "v2"),
                serving=True, idle=56)
-    paged_case(32, 64, 64, 32, 32, 96, 8, 300, 2047, (), routes=("v3",),
-               serving=True, idle=24)
+    paged_case(32, 64, 64, 32, 32, 96, 8, 300, 2047, (),
+               routes=("v3", "v4"), serving=True, idle=24)
     for chunk in (256, 1024):
         paged_case(64, 128, 32, 32, 8, 128, 8, 2048, 0, (), routes=("v3",),
                    chunk=chunk)
@@ -478,6 +526,14 @@ def kernel_phases(torch, timer, report, baseline=None):
                    serving=True, chunk=chunk)
         paged_case(32, 64, 64, 32, 32, 96, 8, 4095, 2047, (),
                    routes=("v3",), chunk=chunk)
+    paged_case(64, 128, 32, 32, 8, 128, 8, 2048, 0, (), routes=("v2",),
+               chunk=128)
+    paged_case(64, 128, 32, 32, 8, 128, 8, 300, 0, (), routes=("v2",),
+               serving=True, idle=56, chunk=128)
+    for ctas in (2048, 8192):
+        paged_case(32, 64, 64, 32, 32, 96, 8, 4095, 2047, (),
+                   routes=("v4",), v4_ctas=ctas)
+    inputs.clear()
     torch.cuda.empty_cache()
 
     # -- dense-cache decode, B=8 slots of S=4096 rows, lengths spread over
@@ -1028,8 +1084,9 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after building and checking the kernels")
     ap.add_argument("--baseline", default=None, metavar="DIR",
-                    help="a checkout of another commit: also time its K6 "
-                         "(paged v3) wrapper at each K6 row")
+                    help="a checkout of another commit: also time its "
+                         "paged-decode wrappers (K6, K4, K5) at each paged "
+                         "row, and fail unless its K6 gives the same bits")
     args = ap.parse_args()
     try:
         import torch
@@ -1082,14 +1139,15 @@ def main() -> int:
     if spills:
         return fail(f"register spills: {spills}")
     import ctypes
-    on_tc = cuda_build.function("paged_decode", "paged_decode_tensor_cores",
-                                [ctypes.c_int])
-    scalar = [hd for hd in SERVED_HEAD_DIMS if on_tc(hd) != 1]
-    print(f"paged v3 kernel on tensor cores at head dims {SERVED_HEAD_DIMS}: "
-          f"{'no: ' + str(scalar) if scalar else 'yes'}", flush=True)
-    if scalar:
-        return fail(f"the paged v3 kernel takes its scalar loop at the "
-                    f"served head dims {scalar}")
+    for lib in ("paged_decode", "paged_decode_v2", "paged_decode_v4"):
+        on_tc = cuda_build.function(lib, f"{lib}_tensor_cores",
+                                    [ctypes.c_int])
+        scalar = [hd for hd in SERVED_HEAD_DIMS if on_tc(hd) != 1]
+        print(f"{lib} on tensor cores at head dims {SERVED_HEAD_DIMS}: "
+              f"{'no: ' + str(scalar) if scalar else 'yes'}", flush=True)
+        if scalar:
+            return fail(f"{lib} takes its scalar loop at the served head "
+                        f"dims {scalar}")
 
     rows, entries = [], {}
 
@@ -1117,7 +1175,8 @@ def main() -> int:
         host = "" if host_us is None else f"; host {host_us:.1f} us/call"
         if baseline:
             host += (f"; baseline commit: ms {baseline['ms']:.4f} host "
-                     f"{baseline['host_us']:.1f} us/call")
+                     f"{baseline['host_us']:.1f} us/call, outputs "
+                     f"{'bit-equal' if baseline['bit_equal'] else 'differ'}")
         print(f"kernel {name} [{shape}]: {held} "
               f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain {plain_ms:.4f} "
               f"library {lib} bound {bound_ms:.4f} ({bound_by}){host}",

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time design variants of the torch port's paged v3 decode kernel
-(``ollama_operator_tpu_torch/csrc/paged_decode.cu``, K6) on one H100.
+(``ollama_operator_tpu_torch/csrc/paged_decode.cu``, K6, whose tile loop
+and split launch are ``csrc/paged_tiles.cuh``) on one H100.
 
 Run from the repository root on a machine with the card and ``nvcc``:
 
@@ -207,7 +208,7 @@ def strided(S):
   int lo, hi;
   if (!chunk_rows(a, a.lengths[b], cp, blockIdx.z, lo, hi)) {""",
          """  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int nchunk = (a.NBLK + cp - 1) / cp;
+  const int nchunk = (a.nblk + cp - 1) / cp;
   for (int z = blockIdx.z; z < nchunk; z += gridDim.z) {
   const int64_t run_e = (((int64_t)b * nchunk + z) * a.KvH + kvh) * G;
 
@@ -223,13 +224,11 @@ def strided(S):
     continue;
   }
   const int T0 = lo & ~(TILE - 1);"""),
-        ("""      part_ml[(run_e + gg) * 2 + 1] = L;
-    }
-  }
+        ("""  fold_tiles<MAXHD, POOL>(a, b, kvh, lo, hi, T0, (hi - T0) / TILE + 1,
+                          run_e, part_acc, part_ml, smem);
 }
-""", """      part_ml[(run_e + gg) * 2 + 1] = L;
-    }
-  }
+""", """  fold_tiles<MAXHD, POOL>(a, b, kvh, lo, hi, T0, (hi - T0) / TILE + 1,
+                          run_e, part_acc, part_ml, smem);
   __syncthreads();
   }
 }
@@ -267,15 +266,17 @@ SHAPES = [
 
 
 def make_variant(name, reps):
-    """A copy of the package with the variant's paged_decode.cu, imported
-    as ``var_<name>``; returns its ops.paged and ops.cuda_build."""
+    """A copy of the package with the variant's paged_tiles.cuh (the v3
+    kernel's tile loop and split launch, which the v2 and v4 kernels
+    share), imported as ``var_<name>``; returns its ops.paged and
+    ops.cuda_build."""
     root = os.path.join(ROOT, "_variants", name)
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(ROOT, "ollama_operator_tpu_torch"),
                     os.path.join(root, "ollama_operator_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     src = os.path.join(root, "ollama_operator_tpu_torch", "csrc",
-                       "paged_decode.cu")
+                       "paged_tiles.cuh")
     text = open(src).read()
     for old, new in reps:
         if text.count(old) != 1:

@@ -26,11 +26,11 @@
 // [L, P, KvH, ps/2, hd] (int4, uint8) with the true head dim (no padding),
 // scales [L, P, KvH, ps] f32 unpadded; tables [B, NBLK] int32.
 //
-// All three store a partial state (m, l, acc) per run of consecutive pages
-// of one slot, and a second pass merges a slot's partials in block order,
-// so a repeat gives the same bits (v2, v4: merge_partials below; v3, whose
-// scalar loop serves only head dims its tensor-core kernel does not take:
-// merge_chunks of split_decode.cuh).
+// All three store a partial state (m, l, acc) per run of consecutive rows
+// of one slot, and a second pass merges a slot's partials in a fixed order,
+// so a repeat gives the same bits (split_decode.cuh merge_run). Their
+// tensor-core tile loop is in paged_tiles.cuh; the scalar page loop below
+// (page_update) serves only the head dims it does not take.
 
 #pragma once
 
@@ -350,80 +350,6 @@ __device__ __forceinline__ void store_partial(const Params& a,
         part_ml[(base + g) * 2 + 1] = st.l[g];
       }
     }
-  }
-}
-
-// The slot list of the flat kernel, in shared memory: first[b] the first
-// block slot b walks (the window's first block), ends[b] the inclusive
-// prefix sum of the pages each slot walks, min(len / ps + 1, nblk) - first
-// (none below 0). Every thread returns after it is built.
-__device__ __forceinline__ void build_slot_list(const Params& a, int* first,
-                                                int* ends) {
-  for (int b = threadIdx.x; b < a.B; b += NTHREADS) {
-    const int qp = a.lengths[b];
-    int last = qp / a.ps + 1;
-    if (last > a.nblk) last = a.nblk;
-    int f = 0;
-    if (a.window > 0) {
-      const int lo = (qp - a.window + 1) / a.ps;
-      if (lo > 0) f = lo;
-    }
-    first[b] = f;
-    ends[b] = last > f ? last - f : 0;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int b = 1; b < a.B; ++b) ends[b] += ends[b - 1];
-  }
-  __syncthreads();
-}
-
-// Second pass of the split kernels: one CTA per (kv head, slot) merges the
-// slot's partials in run order: M = max m, out = sum w * acc / sum w * l with
-// w = exp(m - M); a run with m at NEG_INF (a dead block) weighs 0 and its
-// acc is never read. A slot with no live run writes 0.
-//   FLAT = false (v2): run b * nblk + i for block i < nblk.
-//   FLAT = true (v4): runs start at the slot's first flat index and at every
-//   multiple of ``chunk`` (each CTA's share of the flat list) inside it.
-template <bool FLAT>
-__global__ void __launch_bounds__(NTHREADS)
-merge_partials(Params a, int chunks, const float* __restrict__ part_acc,
-               const float* __restrict__ part_ml) {
-  extern __shared__ int list[];  // FLAT: first[B], ends[B]
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int G = a.H / a.KvH;
-  int n0, n1, chunk = 1;
-  if (FLAT) {
-    build_slot_list(a, list, list + a.B);
-    const int* ends = list + a.B;
-    const int total = ends[a.B - 1];
-    chunk = (total + chunks - 1) / chunks;
-    n0 = b ? ends[b - 1] : 0;
-    n1 = ends[b];
-  } else {
-    n0 = b * a.nblk;
-    n1 = n0 + a.nblk;
-  }
-  for (int idx = threadIdx.x; idx < G * a.hd; idx += NTHREADS) {
-    const int g = idx / a.hd, d = idx - g * a.hd;
-    float M = NEG_INF;
-    for (int r = n0; r < n1; r = FLAT ? min(n1, (r / chunk + 1) * chunk)
-                                      : r + 1)
-      M = fmaxf(M, part_ml[(((int64_t)r * a.KvH + kvh) * G + g) * 2]);
-    float num = 0.f, den = 0.f;
-    if (M > NEG_INF * 0.5f) {
-      for (int r = n0; r < n1; r = FLAT ? min(n1, (r / chunk + 1) * chunk)
-                                        : r + 1) {
-        const int64_t e = ((int64_t)r * a.KvH + kvh) * G + g;
-        const float m = part_ml[e * 2];
-        if (m <= NEG_INF * 0.5f) continue;
-        const float w = expf(m - M);
-        num = fmaf(w, part_acc[e * a.hd + d], num);
-        den = fmaf(w, part_ml[e * 2 + 1], den);
-      }
-    }
-    a.out[((int64_t)b * a.H + kvh * G + g) * a.hd + d] =
-        __float2bfloat16(num / fmaxf(den, 1e-30f));
   }
 }
 

@@ -1,12 +1,14 @@
 // Helpers shared by the split single-token attention kernels for Hopper
 // (sm_90a): the dense-cache GQA/MHA kernels (decode_attention.cu) and the
-// paged v3 kernel (paged_decode.cu).
+// paged kernels (paged_tiles.cuh; merge_run also merges the v4 kernel's
+// runs, paged_decode_v4.cu).
 //
 // - 16-byte (and 4-byte) cp.async copies, zero-filling when src_bytes is 0;
 // - ldmatrix and mma.sync (m16n8k16, bf16 in, f32 accumulate) fragments;
-// - merge_chunks, the second launch of a split call: a CTA of each
-//   (kv head, slot, query row of the group) merges that row's partials
-//   (m, l, acc) in chunk order, so a repeat gives the same bits.
+// - merge_run, the merge of one query row's partials (m, l, acc) in a
+//   fixed order, so a repeat gives the same bits, and merge_chunks, the
+//   second launch of a split call: a CTA of each (kv head, slot, query row
+//   of the group) merges that row's partials in chunk order.
 //
 // Partials layout: part_ml [B, nchunk, KvH, G, 2] (m, l) and part_acc
 // [B, nchunk, KvH, G, hd], f32; a chunk with no live row stores m = -1e30,
@@ -88,34 +90,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Second launch of the split kernels: one CTA per (kv head, slot, query
-// row of the group) merges that row's nchunk partials in chunk order, as
-// merge_partials in paged_common.cuh does (M = max m, out = sum w acc /
-// max(sum w l, 1e-30), w = exp(m - M), a chunk with m at NEG_INF weighing 0
-// and its acc never read), with the (m, l) of every chunk staged in shared
-// memory by one pass, and the live chunks (a contiguous run: those that
-// hold a row of [lo, hi]) walked without a branch, so each output's loads
-// of acc are independent of one another.
-__global__ void __launch_bounds__(128)
-merge_chunks(const float* __restrict__ part_acc,
-             const float* __restrict__ part_ml,
-             __nv_bfloat16* __restrict__ out,
-             int H, int KvH, int hd, int nchunk) {
-  extern __shared__ float ml[];  // [nchunk][2] (m, l); then w over m
+// Merge one query row's nz partials, entries e0 + z * z_step (z < nz) of
+// part_acc [.., hd] and part_ml [.., 2], in z order into out_row [hd]:
+// M = max m, out = sum w acc / max(sum w l, 1e-30), w = exp(m - M), a
+// partial with m at NEG_INF weighing 0 and its acc never read; the (m, l)
+// of every partial are staged in ``ml`` [nz][2] (shared memory) by one
+// pass, and the live ones (a contiguous run: those that hold a row) walked
+// without a branch, so each output's loads of acc are independent of one
+// another. Every thread of the CTA calls it.
+__device__ __forceinline__ void merge_run(const float* __restrict__ part_acc,
+                                          const float* __restrict__ part_ml,
+                                          __nv_bfloat16* __restrict__ out_row,
+                                          int64_t e0, int64_t z_step, int nz,
+                                          int hd, float* ml) {
   __shared__ float Ls;
   __shared__ int live[2];
-  const int kvh = blockIdx.x, b = blockIdx.y, g = blockIdx.z;
-  const int G = H / KvH;
-  // partial of chunk z: (b * nchunk + z) * KvH * G + kvh * G + g
-  const int64_t e0 = ((int64_t)b * nchunk * KvH + kvh) * G + g;
-  const int64_t z_step = (int64_t)KvH * G;
-  for (int i = threadIdx.x; i < nchunk * 2; i += blockDim.x)
+  for (int i = threadIdx.x; i < nz * 2; i += blockDim.x)
     ml[i] = part_ml[(e0 + (i >> 1) * z_step) * 2 + (i & 1)];
   __syncthreads();
   if (threadIdx.x == 0) {
-    int z0 = nchunk, z1 = -1;
+    int z0 = nz, z1 = -1;
     float M = NEG_INF;
-    for (int z = 0; z < nchunk; ++z) {
+    for (int z = 0; z < nz; ++z) {
       if (ml[2 * z] > NEG_INF * 0.5f) {
         z0 = min(z0, z);
         z1 = z;
@@ -141,9 +137,25 @@ merge_chunks(const float* __restrict__ part_acc,
 #pragma unroll 8
     for (int z = z0; z <= z1; ++z)
       num = fmaf(ml[2 * z], a[z * z_step * hd], num);
-    out[((int64_t)b * H + kvh * G + g) * hd + d] =
-        __float2bfloat16(num / den);
+    out_row[d] = __float2bfloat16(num / den);
   }
+}
+
+// Second launch of the split kernels: one CTA per (kv head, slot, query
+// row of the group) merges that row's nchunk partials in chunk order
+// (merge_run).
+__global__ void __launch_bounds__(128)
+merge_chunks(const float* __restrict__ part_acc,
+             const float* __restrict__ part_ml,
+             __nv_bfloat16* __restrict__ out,
+             int H, int KvH, int hd, int nchunk) {
+  extern __shared__ float ml[];  // [nchunk][2] (m, l); then w over m
+  const int kvh = blockIdx.x, b = blockIdx.y, g = blockIdx.z;
+  const int G = H / KvH;
+  // partial of chunk z: (b * nchunk + z) * KvH * G + kvh * G + g
+  merge_run(part_acc, part_ml, out + ((int64_t)b * H + kvh * G + g) * hd,
+            ((int64_t)b * nchunk * KvH + kvh) * G + g, (int64_t)KvH * G,
+            nchunk, hd, ml);
 }
 
 // Second launch of a call: merge_chunks over (kv head, slot, query

@@ -27,7 +27,13 @@ its two knobs at the call (:func:`paged_route`): ``TPU_PAGED_V4=1`` to
 (``csrc/paged_decode.cu``). The three kernels take the same shapes, so the
 knobs alone decide the route. Each wrapper launches its kernel for tensors
 on the card and runs :func:`paged_decode_attention_plain` for tensors on
-the CPU.
+the CPU. On the card all three run 32-position tiles on the tensor cores
+(``csrc/paged_tiles.cuh``): v3 and v2 split each slot's table in chunks
+of :func:`paged_chunk_pages` pages, one CTA a chunk (v2 over the first
+``nblk`` blocks only); v4 spreads a fixed number of CTAs a kv head over a
+flat list of every slot's live chunks built on the card
+(:func:`paged_v4_plan`). A slot's bits depend on its own length only, and
+v2 and v4 give v3's bits when ``nblk`` covers every live page.
 
 The routes differ in one thing, which keys ``nblk`` lets through: v2 and
 v4 attend the first ``nblk`` blocks of a slot's table and ignore keys at
@@ -39,6 +45,7 @@ so serving never sees the difference.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import os
 
 import torch
@@ -174,21 +181,58 @@ def paged_chunk_pages(ps: int, chunk: int = None) -> int:
     return max(1, chunk // ps)
 
 
-def paged_chunk_blocks(length: int, NBLK: int, ps: int, window: int,
+def paged_chunk_blocks(length: int, width: int, ps: int, window: int,
                        chunk_pages: int):
-    """The table blocks each CTA of the v3 kernel walks for a slot whose
-    query sits at ``length``: one ``range`` per chunk z of
-    ``ceil(NBLK / chunk_pages)``, v3's live blocks (from the window's first
-    block to the block of ``length``, within the table's NBLK whatever
-    ``nblk`` is) inside [z * chunk_pages, (z + 1) * chunk_pages), empty for
-    a chunk past ``length`` or before the window (as ``csrc/paged_decode.cu``
-    computes them, in rows). The chunk count depends on NBLK and the chunk
-    only."""
-    last = min(length // ps + 1, NBLK)
+    """The table blocks each CTA of the split kernels walks for a slot
+    whose query sits at ``length``: one ``range`` per chunk z of
+    ``ceil(width / chunk_pages)``, the live blocks (from the window's first
+    block to the block of ``length``, within the attended ``width``: the
+    table's NBLK for v3, whatever ``nblk`` is, and ``nblk`` for v2) inside
+    [z * chunk_pages, (z + 1) * chunk_pages), empty for a chunk past
+    ``length`` or before the window (as ``csrc/paged_tiles.cuh``
+    ``chunk_rows`` computes them, in rows). The chunk count depends on the
+    width and the chunk only."""
+    last = min(length // ps + 1, width)
     first = max(0, (length - window + 1) // ps) if window > 0 else 0
     return [range(max(first, z * chunk_pages),
                   min(last, (z + 1) * chunk_pages))
-            for z in range(-(-NBLK // chunk_pages))]
+            for z in range(-(-width // chunk_pages))]
+
+
+# CTAs a call of the v4 kernel spreads over each kv head's flat list of
+# live units (each slot's live chunks of :func:`paged_chunk_pages` blocks):
+# PAGED_V4_CTAS // KvH of them a kv head, at least one and at most the
+# units there can be, each taking an equal share of the list. Fixed by the
+# shapes, never by the lengths, so the call needs no host sync.
+PAGED_V4_CTAS = 4096
+
+
+def paged_v4_chunks(B: int, KvH: int, nunit: int) -> int:
+    """CTAs per kv head of a v4 kernel call over ``B`` slots of at most
+    ``nunit`` units each: ``PAGED_V4_CTAS // KvH``, at least 1 and at most
+    ``B * nunit``."""
+    return max(1, min(PAGED_V4_CTAS // KvH, B * nunit))
+
+
+def paged_v4_plan(lengths, nblk: int, ps: int, window: int, chunk_pages: int,
+                  chunks: int):
+    """The v4 kernel's flat list and its CTAs' shares, as
+    ``csrc/paged_decode_v4.cu`` builds them on the device for one kv head.
+
+    Slot b's units are its live chunks of ``chunk_pages`` blocks within the
+    first ``nblk`` (:func:`paged_chunk_blocks` with width ``nblk``), slot by
+    slot in chunk order; unit n's partial is run n. CTA c folds units
+    [c * share, (c + 1) * share), share = ceil(total / chunks), each whole.
+    Returns (units, share, runs): units[n] = (b, the unit's blocks as a
+    ``range``); runs[b] = (the slot's first run, its run count), which the
+    merge walks in order."""
+    units = [(b, r) for b, length in enumerate(int(x) for x in lengths)
+             for r in paged_chunk_blocks(length, nblk, ps, window,
+                                         chunk_pages) if len(r)]
+    counts = [sum(1 for u in units if u[0] == b) for b in range(len(lengths))]
+    runs = [(start - n, n) for start, n in
+            zip(itertools.accumulate(counts), counts)]
+    return units, -(-len(units) // chunks), runs
 
 
 _PTR = ctypes.c_void_p
@@ -232,13 +276,14 @@ def _launch(route: str, q, k_pool, v_pool, layer: int, tables, lengths,
         if not t.is_contiguous():
             raise ValueError("paged_decode kernel needs contiguous pools, "
                              "tables and lengths")
-    chunk_pages = None
-    if route == "v3":
-        chunk_pages = paged_chunk_pages(ps)
-        if k_arr.data_ptr() % 16 or v_arr.data_ptr() % 16:
-            raise ValueError("paged_decode kernel copies pool rows in "
-                             "16-byte pieces: the pools must be 16-byte "
-                             "aligned")
+    # the chunk of the split (v3 over the whole table, v2 over its first
+    # nblk blocks) and of v4's units
+    chunk_pages = paged_chunk_pages(ps)
+    nunit = -(-(NBLK if route == "v3" else nblk) // chunk_pages)
+    if k_arr.data_ptr() % 16 or v_arr.data_ptr() % 16:
+        raise ValueError("paged_decode kernel copies pool rows in "
+                         "16-byte pieces: the pools must be 16-byte "
+                         "aligned")
     if quant:
         code_dtype = torch.uint8 if quant4 else torch.int8
         if (k_arr.dtype != code_dtype or v_arr.dtype != code_dtype
@@ -258,35 +303,20 @@ def _launch(route: str, q, k_pool, v_pool, layer: int, tables, lengths,
     args = [q.data_ptr(), k_arr.data_ptr(), ks, v_arr.data_ptr(), vs,
             tables.data_ptr(), lengths.data_ptr(), out.data_ptr()]
     types = [_PTR] * 8
-    if route == "v3":
-        # per (slot, chunk, kv head, group row): the partial softmax state,
-        # merged in chunk order by the kernel's second launch; acc [runs,
-        # KvH, G, hd] then (m, l) [runs, KvH, G, 2] in one allocation
-        runs = B * -(-NBLK // chunk_pages)
-        part = torch.empty(runs * H * (hd + 2), dtype=torch.float32,
-                           device=q.device)
-        args += [part.data_ptr(), part.data_ptr() + 4 * runs * H * hd]
-        types += [_PTR] * 2
-    else:
-        # per (run of pages, kv head, group row): the partial softmax
-        # state, merged per slot in block order by the kernel's second pass
-        G = H // KvH
-        part_acc = torch.empty((B * nblk, KvH, G, hd), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((B * nblk, KvH, G, 2), dtype=torch.float32,
-                              device=q.device)
-        args += [part_acc.data_ptr(), part_ml.data_ptr()]
-        types += [_PTR] * 2
-    args += [B, H, KvH, hd, P, ps, NBLK, nblk, int(layer), float(scale),
-             float(softcap or 0.0), int(sliding_window)]
-    types += [_INT] * 9 + [_FLT, _FLT, _INT]
-    if route == "v3":
-        args.append(chunk_pages)
-        types.append(_INT)
-    elif route == "v4":
-        # a fixed number of CTAs per kv head, each walking an equal share
-        # of the flat list of live pages (at most one page each per slot)
-        args.append(max(1, min(B * nblk, 2048 // KvH)))
+    # per (run, kv head, group row): the partial softmax state, merged by
+    # the kernel's second launch; acc [runs, KvH, G, hd] then (m, l)
+    # [runs, KvH, G, 2] in one allocation, a run per (slot, chunk) (v4:
+    # at most that many, one a live unit, then each slot's first run and
+    # run count as int32)
+    runs = B * nunit
+    part = torch.empty(runs * H * (hd + 2) + (2 * B if route == "v4" else 0),
+                       dtype=torch.float32, device=q.device)
+    args += [part.data_ptr(), part.data_ptr() + 4 * runs * H * hd,
+             B, H, KvH, hd, P, ps, NBLK, nblk, int(layer), float(scale),
+             float(softcap or 0.0), int(sliding_window), chunk_pages]
+    types += [_PTR] * 2 + [_INT] * 9 + [_FLT, _FLT, _INT, _INT]
+    if route == "v4":
+        args.append(paged_v4_chunks(B, KvH, nunit))
         types.append(_INT)
     lib = {"v2": "paged_decode_v2", "v3": "paged_decode",
            "v4": "paged_decode_v4"}[route]
@@ -346,8 +376,10 @@ def paged_decode_attention_v2(q, k_pool, v_pool, layer: int, tables,
                               sliding_window: int = 0, *, nblk: int):
     """:func:`paged_decode_attention_v3`'s arguments, with the TPU v2 grid
     kernel's contract (keys in the first ``nblk`` blocks only): on the
-    card ``csrc/paged_decode_v2.cu`` (one CTA per kv head, block and slot,
-    then a merge pass), on the CPU the plain version with route "v2"."""
+    card ``csrc/paged_decode_v2.cu`` (the v3 kernel's split over the first
+    ``nblk`` blocks: chunks of :func:`paged_chunk_pages` pages, each on its
+    own CTA, merged in a second launch), on the CPU the plain version with
+    route "v2"."""
     return _paged("v2", q, k_pool, v_pool, layer, tables, lengths, scale,
                   softcap, sliding_window, nblk)
 
@@ -357,9 +389,10 @@ def paged_decode_attention_v4(q, k_pool, v_pool, layer: int, tables,
                               sliding_window: int = 0, *, nblk: int):
     """:func:`paged_decode_attention_v3`'s arguments, with the TPU v4 flat
     grid kernel's contract (keys in the first ``nblk`` blocks only): on
-    the card ``csrc/paged_decode_v4.cu`` (CTAs walking equal shares of
-    the flat list of live pages, then a merge pass), on the CPU the plain
-    version with route "v4"."""
+    the card ``csrc/paged_decode_v4.cu`` (:func:`paged_v4_chunks` CTAs a
+    kv head folding equal shares of the flat list of every slot's live
+    chunks, :func:`paged_v4_plan`, then a merge in list order; at most 1024
+    slots), on the CPU the plain version with route "v4"."""
     return _paged("v4", q, k_pool, v_pool, layer, tables, lengths, scale,
                   softcap, sliding_window, nblk)
 

@@ -140,6 +140,11 @@ class Scheduler:
     def n_active(self) -> int:
         return sum(r is not None for r in self._running)
 
+    @property
+    def has_pending(self) -> bool:
+        """True while a request waits or runs."""
+        return bool(self._waiting) or self.n_active > 0
+
     def shutdown(self):
         self._stop = True
         self._wake.set()

@@ -161,17 +161,36 @@ class LoadedModel:
         self.scheduler = Scheduler(self.engine)
 
     def render_prompt(self, prompt: str, system: Optional[str] = None,
-                      template: Optional[str] = None) -> str:
+                      template: Optional[str] = None,
+                      suffix: Optional[str] = None) -> str:
+        """``suffix`` enables fill-in-middle (code models): it renders
+        through the template's ``.Suffix``; a template without a suffix
+        section cannot insert, which is a client error (the reference
+        answers the same way)."""
         tpl = Template(template) if template else self.template
-        return tpl.render(prompt=prompt,
-                          system=system if system is not None else
-                          (self.system or ""))
+        system = system if system is not None else (self.system or "")
+        if suffix:
+            if ".Suffix" not in tpl.src:
+                raise BadRequest(
+                    f"model {self.name} does not support insert (its "
+                    f"template has no .Suffix section)")
+            return tpl.render(prompt=prompt, suffix=suffix, system=system)
+        return tpl.render(prompt=prompt, system=system)
 
     def generate_stream(self, prompt_text: str,
                         options: Optional[Dict] = None,
-                        context: Optional[List[int]] = None
+                        context: Optional[List[int]] = None,
+                        images: Optional[List] = None,
+                        format: Optional[object] = None
                         ) -> Iterator[Tuple[str, Optional[GenerateResult]]]:
         """Yields (text_piece, None)… then ("", final GenerateResult).
+
+        ``images`` (the request's list): every model of the port is
+        text-only, so any image is refused, as the reference refuses one
+        for a model without a vision projector. ``format``: None or ""
+        asks for free text; "json" or a JSON-schema dict asks for
+        constrained decoding, which is not ported yet and is refused;
+        any other value is refused as the reference refuses it.
 
         Options, tokenization and submission run at call time, so bad
         requests and a full queue raise before the caller commits a
@@ -183,11 +202,23 @@ class LoadedModel:
             prompt_text, add_bos=(not ids) and self.tokenizer.add_bos)
         if not ids:
             raise BadRequest("the prompt encodes to no tokens")
+        if images:
+            raise BadRequest(
+                f"model {self.name} has no vision projector; it cannot "
+                f"accept images")
         max_new = min(num_predict, self.engine.max_seq - len(ids) - 1)
         if max_new < 1:
             raise BadRequest(
                 f"prompt of {len(ids)} tokens leaves no room to generate "
                 f"within the {self.engine.max_seq}-token context")
+        if format is not None and format != "":
+            if format == "json" or isinstance(format, dict):
+                raise BadRequest(
+                    f"format {format!r} asks for constrained decoding, "
+                    f"which is not ported yet")
+            raise BadRequest(
+                f"unsupported format {format!r}; expected \"json\" or "
+                f"a JSON schema object")
         req = self.scheduler.submit(ids, so, max_new,
                                     eog_ids=frozenset(self.tokenizer.eog_ids))
         return self._stream(req, stops, ids, max_new, t0)
@@ -236,3 +267,11 @@ class LoadedModel:
 
     def unload(self):
         self.scheduler.shutdown()
+
+    def unload_when_idle(self, poll_s: float = 0.05):
+        """Unload once the scheduler has no request left (at once when it
+        has none), so that a stop does not cut other clients' streams
+        short."""
+        while self.scheduler.has_pending and self.scheduler.broken is None:
+            time.sleep(poll_s)
+        self.unload()

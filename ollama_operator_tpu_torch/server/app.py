@@ -6,7 +6,12 @@ slice serves:
   GET  /                  liveness banner
   GET  /api/version
   GET  /api/tags          the resident models
-  POST /api/generate      generation, streamed (NDJSON) or not
+  POST /api/generate      generation, streamed (NDJSON) or not; ``suffix``
+                          (fill-in-middle) as the reference renders it,
+                          ``images`` and ``format`` refused with 400 until
+                          vision and grammars are ported, ``keep_alive``
+                          parsed as the reference does (an empty prompt
+                          with 0 unloads the model; no idle timer yet)
 
 The manager holds models built in-process (``ModelManager.preload`` from
 dense params, with the weight dtype resolved per model as the JAX loader
@@ -17,6 +22,8 @@ waits for a later slice.
 from __future__ import annotations
 
 import json
+import math
+import re
 import threading
 from datetime import datetime, timezone
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -42,6 +49,43 @@ class ApiError(Exception):
     def __init__(self, status: int, message: str):
         super().__init__(message)
         self.status = status
+
+
+def parse_keep_alive(v) -> Optional[float]:
+    """Ollama keep_alive → seconds (None = keep forever).
+
+    Accepts numbers (seconds; negative = forever) and Go-style duration
+    strings ("5m", "1h30m", "300ms", "-1"). 0 means "unload as soon as
+    idle"; anything else raises :class:`BadRequest`."""
+    if v is None:
+        raise BadRequest("keep_alive is None")
+    if isinstance(v, bool):
+        raise BadRequest(f"bad keep_alive {v!r}")
+    if isinstance(v, (int, float)):
+        if not math.isfinite(v):
+            raise BadRequest(f"bad keep_alive {v!r}")
+        return None if v < 0 else float(v)
+    s = str(v).strip()
+    if not s:
+        raise BadRequest("empty keep_alive")
+    try:
+        n = float(s)
+        if not math.isfinite(n):
+            raise ValueError
+        return None if n < 0 else n
+    except ValueError:
+        pass
+    m = re.fullmatch(r"(-?)((?:\d+(?:\.\d+)?(?:ns|us|µs|ms|s|m|h))+)", s)
+    if not m:
+        raise BadRequest(f"bad keep_alive {v!r}")
+    if m.group(1):
+        return None
+    unit_s = {"ns": 1e-9, "us": 1e-6, "µs": 1e-6, "ms": 1e-3,
+              "s": 1.0, "m": 60.0, "h": 3600.0}
+    total = 0.0
+    for num, unit in re.findall(r"(\d+(?:\.\d+)?)(ns|us|µs|ms|s|m|h)", s):
+        total += float(num) * unit_s[unit]
+    return total
 
 
 def apply_engine_dtype(params: Dict[str, Any], engine_dtype: str,
@@ -115,13 +159,42 @@ class ModelManager:
             old.unload()
         return lm
 
-    def require_loaded(self, name: str) -> LoadedModel:
+    def _find(self, name: str) -> Optional[LoadedModel]:
         with self._lock:
-            lm = self._models.get(name) or self._models.get(
+            return self._models.get(name) or self._models.get(
                 name.split(":")[0])
+
+    def require_loaded(self, name: str, keep_alive=None) -> LoadedModel:
+        """The resident model ``name`` (404 if none). A ``keep_alive``
+        that :func:`parse_keep_alive` refuses is a 400; a valid one is
+        accepted and changes nothing (the manager has no idle timer)."""
+        if keep_alive is not None:
+            try:
+                parse_keep_alive(keep_alive)
+            except ValueError:
+                raise ApiError(400, f"invalid keep_alive "
+                                    f"{keep_alive!r}") from None
+        lm = self._find(name)
         if lm is None:
             raise ApiError(404, f"model {name!r} not found")
         return lm
+
+    def stop(self, name: str) -> None:
+        """keep_alive 0 with an empty prompt (``ollama stop``): take the
+        model out of the manager, so that later requests for it are 404s,
+        and unload it once the requests it is serving have finished (a
+        name that is not resident is left as it is)."""
+        lm = self._find(name)
+        if lm is None:
+            return
+        with self._lock:
+            if self._models.get(lm.name) is lm:
+                del self._models[lm.name]
+        if lm.scheduler.has_pending:
+            threading.Thread(target=lm.unload_when_idle, daemon=True,
+                             name=f"unload-{lm.name}").start()
+        else:
+            lm.unload()
 
     def list_models(self) -> List[Dict]:
         with self._lock:
@@ -220,19 +293,31 @@ class Handler(BaseHTTPRequestHandler):
         model = body.get("model") or body.get("name")
         if not model:
             raise ApiError(400, "missing 'model'")
-        lm = self.manager.require_loaded(model)
         prompt = body.get("prompt", "")
+        ka = body.get("keep_alive")
         if not prompt and not body.get("context"):
+            if ka is not None and parse_keep_alive(ka) == 0.0:
+                # empty prompt + keep_alive 0 = `ollama stop`
+                self.manager.stop(model)
+                self._send_json({"model": model, "created_at": _now_iso(),
+                                 "response": "", "done": True,
+                                 "done_reason": "unload"})
+                return
+            # empty generate is Ollama's "load the model" ping
+            self.manager.require_loaded(model, keep_alive=ka)
             self._send_json({"model": model, "created_at": _now_iso(),
                              "response": "", "done": True,
                              "done_reason": "load"})
             return
+        lm = self.manager.require_loaded(model, keep_alive=ka)
         raw = bool(body.get("raw", False))
         text = prompt if raw else lm.render_prompt(
             prompt, system=body.get("system"),
-            template=body.get("template"))
+            template=body.get("template"), suffix=body.get("suffix"))
         gen = lm.generate_stream(text, options=body.get("options"),
-                                 context=body.get("context"))
+                                 context=body.get("context"),
+                                 images=body.get("images"),
+                                 format=body.get("format"))
         if body.get("stream", True):
             self.send_response(200)
             self.send_header("Content-Type", "application/x-ndjson")
