@@ -3,7 +3,9 @@
 Counterpart of ``ollama_operator_tpu/models/decoder.py`` for the paged
 and the dense slot-cache serving paths: ``init_params``,
 ``prefill_chunk``, ``paged_insert``, and ``forward_with_cache_paged`` and
-``forward_with_cache`` at T=1. The params tree keeps the JAX
+``forward_with_cache``: decode steps at T=1, prefix-cache and
+chunked-prefill extends (a B=1 tail over a prior cache) at T>1. The
+params tree keeps the JAX
 package's layout (plain dicts of tensors, layer leaves stacked on a
 leading ``n_layers`` axis, weights ``[K, O]``, quantized leaves as
 ``{"q4", "s"}`` / ``{"q", "s"}`` dicts):
@@ -22,7 +24,10 @@ flash-prefill kernel, paged decode attention the paged-decode kernel (int8,
 int4 or bf16 pool) and dense-cache decode attention the GQA or MHA decode
 kernel (bf16 cache; an int8 dense cache attends through the plain
 ``attend_hf_q``, as the JAX package attends it in XLA; ``ops/``); on the
-CPU the same calls run their plain versions. A tied LM
+CPU the same calls run their plain versions. An extend tail (T>1)
+attends through the gather + einsum path (``attend_hf`` /
+``attend_hf_q`` / ``attend_hf_q4``), which the JAX package runs in XLA
+too, so no kernel of its own. A tied LM
 head (``tok_emb.T``) stays a bf16 ``torch.matmul``, as the JAX package
 leaves it outside any Pallas kernel.
 
@@ -43,9 +48,10 @@ from ..device import resolve_device
 from ..ops import quant as Q
 from ..ops.attention import NEG_INF, cached_attention, chunk_attention
 from ..ops.norms import rms_norm
-from ..ops.paged import paged_decode_attention
-from ..ops.quant_cache import (INT4_BIAS, attend_hf_q, pack_kv4, pool_codes,
-                               quantize_kv, quantize_kv4)
+from ..ops.attention import attend_hf
+from ..ops.paged import _gather_pages, paged_decode_attention
+from ..ops.quant_cache import (INT4_BIAS, attend_hf_q, attend_hf_q4, pack_kv4,
+                               pool_codes, quantize_kv, quantize_kv4)
 from ..ops.rope import apply_rope, rope_angles_cfg
 from .config import ModelConfig
 
@@ -298,9 +304,11 @@ def _scatter4(pool4: torch.Tensor, codes: torch.Tensor, pg, off):
     pool [P, KvH, ps/2, hd] at byte row off // 2: a read-modify-write, one
     offset parity at a time (two even offsets never share a byte, so a
     pass has no conflicting writes, and the odd pass reads the even
-    pass's bytes). Entries of the other parity are sent to the trash
-    page, whose contents are never attended (the JAX package drops them
-    with an out-of-bounds write). In place."""
+    pass's bytes). An extend tail starting at an odd offset shares its
+    first byte with the prefix's last code; the read-modify-write keeps
+    that nibble. Entries of the other parity are sent to the trash page,
+    whose contents are never attended (the JAX package drops them with an
+    out-of-bounds write). In place."""
     hx = torch.arange(codes.shape[1], device=codes.device)[None, :, None]
     nib = (codes.to(torch.int16) + INT4_BIAS).to(torch.uint8) & 0xF
     for parity, keep, put in ((0, 0xF0, nib), (1, 0x0F, nib << 4)):
@@ -333,26 +341,63 @@ def _scatter_kv_pools(kp, vp, i: int, k, v, pg_w, off_w):
         vp[i][idx] = v.to(vp.dtype)
 
 
+def _window_mask(positions, S: int, window: int):
+    """Additive [B, 1, T, S] f32 mask: query t of row b at absolute
+    position positions[b, t] sees keys j <= it (within ``window``)."""
+    k_pos = torch.arange(S, device=positions.device)[None, None, :]
+    q_pos = positions[:, :, None]
+    ok = k_pos <= q_pos
+    if window:
+        ok = ok & (k_pos > q_pos - window)
+    zero = torch.zeros((), dtype=torch.float32, device=positions.device)
+    return torch.where(ok, zero, NEG_INF)[:, None]
+
+
+def _paged_gather_attend(cfg: ModelConfig, q, kp, vp, i: int, tbl, mask,
+                         scale: float):
+    """An extend tail's attention over the paged pool: gather layer
+    ``i``'s pages ``tbl`` [B, NA] into a contiguous view and attend it
+    with the masked einsum of the pool's kind (the JAX package's
+    ``_paged_attend`` gather path; its pools pad hd to 128 lanes and slice
+    the pad back, the port's pools are not padded)."""
+    if not isinstance(kp, dict):
+        return attend_hf(q, _gather_pages(kp, i, tbl),
+                         _gather_pages(vp, i, tbl), mask, scale,
+                         cfg.attn_softcap)
+    key = "q4" if "q4" in kp else "q"
+    kw, vw = ({key: _gather_pages(p[key], i, tbl),
+               "s": _gather_pages(p["s"], i, tbl)} for p in (kp, vp))
+    attend = attend_hf_q4 if key == "q4" else attend_hf_q
+    return attend(q, kw, vw, mask, scale, cfg.attn_softcap)
+
+
 def forward_with_cache_paged(params: Params, cfg: ModelConfig,
                              tokens: torch.Tensor, k_pool, v_pool,
                              tables: torch.Tensor, lengths: torch.Tensor,
-                             attn_blocks: int):
-    """One decode step (T=1) against the paged pool.
+                             attn_blocks: int, hidden: bool = False):
+    """Extend rows that have ``lengths`` cached tokens in the paged pool.
 
-    tokens [B, 1]; tables [B, NBLK] int32 physical page per logical
-    block; lengths [B] int32 cached tokens per row — the new token of row
-    b is written at position lengths[b] (page tables[b, lengths[b]//ps],
-    the trash page past the table) before attention, and attention
-    includes it. ``attn_blocks`` bounds the attended width in blocks.
-    Returns (logits [B, 1, V] f32, k_pool, v_pool), pools updated in
+    tokens [B, T]: T=1 is the decode step, T>1 an extend tail (B=1 in the
+    engine: a prefix-cache continuation or a chunked-prefill piece);
+    tables [B, NBLK] int32 physical page per logical block; lengths [B]
+    int32 cached tokens per row. New token t of row b sits at position
+    lengths[b] + t, which rope takes, and is written to page
+    tables[b, (lengths[b] + t) // ps] before attention (the trash page
+    for blocks past the table, never the row's last live page, which may
+    hold a shared prefix), and attention includes it. ``attn_blocks``
+    bounds the attended width in blocks: at T=1 the paged-decode kernel
+    of the route, at T>1 a gather of the first ``attn_blocks`` pages and
+    the masked einsum. Returns (logits [B, T, V] f32, or the final hidden
+    states [B, T, D] with ``hidden``, k_pool, v_pool), pools updated in
     place."""
     B, T = tokens.shape
-    if T != 1:
-        raise NotImplementedError("paged forward runs decode steps (T=1); "
-                                  "prefix extends wait for a later slice")
     L, P, KvH, ps, hd = _pool_dims(k_pool)
     scale = _attn_scale(cfg)
     positions = lengths.long()[:, None]                     # [B, 1]
+    if T > 1:
+        positions = positions + torch.arange(T, device=tokens.device)
+        mask = _window_mask(positions, attn_blocks * ps, cfg.sliding_window)
+        tbl = tables[:, :attn_blocks].long()
     cos, sin = rope_angles_cfg(positions, cfg)
     NBLK = tables.shape[1]
     blk = positions // ps
@@ -367,11 +412,15 @@ def forward_with_cache_paged(params: Params, cfg: ModelConfig,
         q, k, v = _qkv(cfg, lp, h, cos, sin)
         _scatter_kv_pools(k_pool, v_pool, i, k.transpose(1, 2),
                           v.transpose(1, 2), pg_w, off_w)
-        attn = paged_decode_attention(
-            q, k_pool, v_pool, i, tables, lengths, scale, cfg.attn_softcap,
-            cfg.sliding_window, nblk=attn_blocks)
+        if T == 1:
+            attn = paged_decode_attention(
+                q, k_pool, v_pool, i, tables, lengths, scale,
+                cfg.attn_softcap, cfg.sliding_window, nblk=attn_blocks)
+        else:
+            attn = _paged_gather_attend(cfg, q, k_pool, v_pool, i, tbl,
+                                        mask, scale)
         x = _residual(cfg, lp, x, Q.matmul(attn.reshape(B, T, -1), lp["wo"]))
-    return _unembed(cfg, params, x), k_pool, v_pool
+    return (x if hidden else _unembed(cfg, params, x)), k_pool, v_pool
 
 
 # --------------------------------------------------------------------------
@@ -408,47 +457,45 @@ def _dense_write(cache, i: int, x, bx, hx, pos_w, keep):
 
 def forward_with_cache(params: Params, cfg: ModelConfig,
                        tokens: torch.Tensor, k_cache, v_cache,
-                       lengths: torch.Tensor, attn_len=None):
-    """One decode step (T=1) against the dense slot cache.
+                       lengths: torch.Tensor, attn_len=None,
+                       hidden: bool = False):
+    """Extend rows that have ``lengths`` cached tokens in the dense slot
+    cache.
 
-    tokens [B, 1]; k_cache/v_cache [L, B, KvH, S, hd] (bf16/f32) or int8
-    dicts; lengths [B] int32 cached tokens per row. As in the JAX package,
-    each layer first writes the new token's K/V at position lengths[b]
-    (dropped past S), then attends keys 0 .. lengths[b] within the window,
-    read from cache positions [0, attn_len) (``attn_len`` None = S; it
-    must cover max(lengths) + 1): bf16/f32 caches through
-    :func:`cached_attention`, int8 caches through :func:`attend_hf_q`.
-    Returns (logits [B, 1, V] f32, k_cache, v_cache), the caches updated
-    in place."""
+    tokens [B, T]: T=1 is the decode step, T>1 an extend tail (B=1 in the
+    engine, over a view of the slot's rows); k_cache/v_cache [L, B, KvH,
+    S, hd] (bf16/f32) or int8 dicts; lengths [B] int32 cached tokens per
+    row. As in the JAX package, each layer first writes the new tokens'
+    K/V at positions lengths[b] + t (dropped past S), then attends keys
+    0 .. lengths[b] + t within the window, read from cache positions
+    [0, attn_len) (``attn_len`` None = S; it must cover max(lengths) + T):
+    bf16/f32 caches through :func:`cached_attention` (the decode kernels
+    at T=1, the masked einsum at T>1), int8 caches through
+    :func:`attend_hf_q`. Returns (logits [B, T, V] f32, or the final
+    hidden states [B, T, D] with ``hidden``, k_cache, v_cache), the caches
+    updated in place."""
     B, T = tokens.shape
-    if T != 1:
-        raise NotImplementedError("the dense forward runs decode steps "
-                                  "(T=1); prefix extends wait for a later "
-                                  "slice")
     quant = isinstance(k_cache, dict)
     L, _, KvH, S, hd = (k_cache["q"] if quant else k_cache).shape
     A = S if attn_len is None else min(attn_len, S)
     scale = _attn_scale(cfg)
     dev = tokens.device
     q_pos = lengths[:, None]                                # [B, 1] int32
+    if T > 1:
+        q_pos = q_pos + torch.arange(T, device=dev, dtype=q_pos.dtype)
     positions = q_pos.long()
     cos, sin = rope_angles_cfg(positions, cfg)
-    k_pos = torch.arange(A, device=dev)[None, None, :]
-    ok = k_pos <= positions[:, :, None]
-    if cfg.sliding_window:
-        ok = ok & (k_pos > positions[:, :, None] - cfg.sliding_window)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    mask = torch.where(ok, zero, NEG_INF)[:, None]          # [B, 1, 1, A]
+    mask = _window_mask(positions, A, cfg.sliding_window)  # [B, 1, T, A]
     bx = torch.arange(B, device=dev)[:, None, None]
     hx = torch.arange(KvH, device=dev)[None, :, None]
-    pos_w = positions.clamp(max=S - 1)[:, None, :]          # [B, 1, 1]
+    pos_w = positions.clamp(max=S - 1)[:, None, :]          # [B, 1, T]
     keep = (positions < S)[:, None, :]
     x = _embed(cfg, params, tokens)
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         h = _norm(cfg, x, lp["attn_norm_w"])
         q, k, v = _qkv(cfg, lp, h, cos, sin)
-        k = k.transpose(1, 2)                              # [B, KvH, 1, hd]
+        k = k.transpose(1, 2)                              # [B, KvH, T, hd]
         v = v.transpose(1, 2)
         if quant:
             for cache, val in ((k_cache, k), (v_cache, v)):
@@ -465,4 +512,4 @@ def forward_with_cache(params: Params, cfg: ModelConfig,
             attn = cached_attention(cfg, q, k_cache[i], v_cache[i], mask,
                                     q_pos, scale, attn_len=A)
         x = _residual(cfg, lp, x, Q.matmul(attn.reshape(B, T, -1), lp["wo"]))
-    return _unembed(cfg, params, x), k_cache, v_cache
+    return (x if hidden else _unembed(cfg, params, x)), k_cache, v_cache

@@ -118,3 +118,13 @@ def unpack_kv4(packed: torch.Tensor, axis: int = -2) -> torch.Tensor:
     out = torch.stack([lo, hi], dim=-1).flatten(-2)
     return out.movedim(-1, axis)
 
+
+def attend_hf_q4(q, kc: Dict, vc: Dict, mask, scale: float,
+                 softcap: float = 0.0):
+    """:func:`attend_hf_q` over an int4 pool view: the nibble codes are
+    unpacked back to per-position int8 codes, then the same scaled-dot
+    path runs. kc/vc {"q4" [B, KvH, S//2, hd] uint8, "s" [B, KvH, S]}; q
+    [B, T, H, hd]; mask [B, 1, T, S] additive."""
+    kc8 = {"q": unpack_kv4(kc["q4"]), "s": kc["s"]}
+    vc8 = {"q": unpack_kv4(vc["q4"]), "s": vc["s"]}
+    return attend_hf_q(q, kc8, vc8, mask, scale, softcap)

@@ -8,15 +8,22 @@ owns its rows of a head-first ``[L, B, KvH, S, hd]`` cache (bf16/f32, or
 int8 codes with per-(position, head) f32 scales). Admissions prefill one
 prompt in a power-of-two bucket and insert its K/V into the slot's pages
 or rows, and every decode dispatch advances all slots ``decode_chunk``
-steps. The surface the scheduler drives is the JAX engine's: ``admit``,
-``decode_n_launch`` → ``DecodeHandle.wait``, ``prepare_decode``,
-``release``, ``can_admit``, ``admissible``, ``free_slots``,
-``bucket_for``.
+steps. ``extend`` prefills only the tail of a prompt whose first
+``start`` tokens already sit in the slot's cache: a parked conversation,
+a prefix stitched from the radix tree, or the pieces of a chunked
+prefill. On the paged pool the radix prefix cache (``runtime/radix.py``,
+on unless ``TPU_PREFIX_CACHE`` is 0) takes finished prefixes
+(``donate_prefix``) and maps them into later slots (``prefix_probe``,
+``stitch``: full pages shared read-only, a partly matched boundary page
+copied first). The surface the scheduler drives is the JAX engine's:
+``admit``, ``extend``, ``decode_n_launch`` → ``DecodeHandle.wait``,
+``prepare_decode``, ``release`` (``park``), ``can_admit``,
+``admissible``, ``free_slots``, ``bucket_for``, and the radix calls.
 
 PyTorch runs eagerly, so there is nothing to compile: a decode dispatch is
 the host loop that enqueues ``n`` steps on the device, and its handle
 waits on a CUDA event recorded after the last step (on the CPU the work is
-done by the time the launch returns). The radix prefix cache, extend,
+done by the time the launch returns). The host arena of the prefix cache,
 speculative decoding, grammars, mirostat and multi-device meshes are not
 ported yet.
 """
@@ -36,6 +43,7 @@ from ..models.config import ModelConfig
 from ..ops import sampling
 from ..ops.paged import paged_route, paged_shape_error
 from .paged import PageTable, PagesExhausted
+from .radix import RadixCache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,6 +269,23 @@ class DenseCache:
     def grow(self, slot: int, n_tokens: int) -> bool:
         return True
 
+    def claim_extend(self, slot: int, n_total: int, ahead: int):
+        pass
+
+    def extend_hidden(self, params, cfg, tokens, slot: int, start,
+                      attn_len: int):
+        """An extend tail over the slot's first ``attn_len`` rows (a view:
+        the writes land in the cache) → final hidden states."""
+        def rows(c):
+            return c[:, slot:slot + 1, :, :attn_len]
+        k = ({n: rows(t) for n, t in self.k.items()}
+             if isinstance(self.k, dict) else rows(self.k))
+        v = ({n: rows(t) for n, t in self.v.items()}
+             if isinstance(self.v, dict) else rows(self.v))
+        x, _, _ = decoder.forward_with_cache(params, cfg, tokens, k, v,
+                                             start, hidden=True)
+        return x
+
     def stepper(self, attn_len: int):
         """One decode step over the first ``attn_len`` rows."""
         def step(params, cfg, tokens, lengths):
@@ -332,6 +357,38 @@ class PagedCache:
     def grow(self, slot: int, n_tokens: int) -> bool:
         return self.pt.grow(slot, n_tokens)
 
+    def claim_extend(self, slot: int, n_total: int, ahead: int):
+        """Grow the slot's pages (its prefix kept) to cover an
+        ``n_total``-token prompt, keeping ``ahead`` rows of headroom free;
+        on a dry pool the slot's pages are released before
+        :class:`PagesExhausted` is raised (nothing would reuse or evict
+        them once the caller has taken the slot)."""
+        pt = self.pt
+        deficit = pt.blocks_for(ahead) - pt.owned_blocks(slot)
+        if deficit > pt.free_for(slot) or not pt.grow(slot, n_total):
+            pt.release(slot)
+            raise PagesExhausted(
+                f"extend to {n_total} tokens (+1 chunk headroom): "
+                f"{pt.n_free} pages free")
+
+    def extend_hidden(self, params, cfg, tokens, slot: int, start,
+                      attn_len: int):
+        """An extend tail over the pages covering the slot's first
+        ``attn_len`` rows → final hidden states."""
+        row = torch.from_numpy(self.pt.tables[slot]).to(self.dev)
+        x, _, _ = decoder.forward_with_cache_paged(
+            params, cfg, tokens, self.k, self.v, row[None], start,
+            self.pt.blocks_for(attn_len), hidden=True)
+        return x
+
+    def copy_page(self, src: int, dst: int):
+        """Copy-on-write: physical page ``src`` → ``dst`` in every layer
+        and every leaf of both pools (codes, int8 scales, int4 packed
+        rows; the page axis is axis 1 in each)."""
+        for pool in (self.k, self.v):
+            for t in (pool.values() if isinstance(pool, dict) else (pool,)):
+                t[:, dst] = t[:, src]
+
     def stepper(self, attn_len: int):
         """One decode step over the pages covering ``attn_len`` rows."""
         nblk = self.pt.blocks_for(attn_len)
@@ -377,6 +434,12 @@ class Engine:
         self.kv = (PagedCache(cfg, B, S, ecfg.page_size, ecfg.n_pages,
                               cache_dtype, dev) if self.paged
                    else DenseCache(cfg, B, S, cache_dtype, dev))
+        # radix prefix cache (paged only): finished prefixes are donated
+        # to a page-granular tree that any later request can stitch;
+        # TPU_PREFIX_CACHE=0 falls back to the scheduler's parked slots
+        self._radix = (RadixCache(ecfg.page_size) if self.paged and
+                       os.environ.get("TPU_PREFIX_CACHE", "1").lower()
+                       not in ("0", "false") else None)
         W = max(1, ecfg.repeat_last_n)
         self._W = W
         # device slot state. counts carries one sentinel column (index V)
@@ -473,9 +536,67 @@ class Engine:
                              f"{self.max_seq}")
         bucket = self.bucket_for(n)
         self.kv.claim(slot, n, self._ahead(n))
-        cfg, dev, V = self.cfg, self.device, self.cfg.vocab_size
         tokens = np.zeros((1, bucket), np.int64)
         tokens[0, :n] = prompt
+        x, ks, vs = decoder.prefill_hidden(
+            self.params, self.cfg, torch.from_numpy(tokens).to(self.device))
+        tok = self._sample_install(slot, prompt, x[:, n - 1], opts)
+        self.kv.insert(self.cfg, ks, vs, slot, n)
+        return tok
+
+    def extend(self, slot: int, full_ids: np.ndarray, start: int,
+               opts: SlotOptions = SlotOptions()) -> int:
+        """Admit ``full_ids`` into ``slot`` reusing its cached first
+        ``start`` positions (a parked conversation, a stitched radix
+        prefix, or the pieces a chunked prefill has written); prefills
+        only the tail and returns the first sampled token. It runs on
+        every cache the port has (the paged pool: int8, int4, bf16/f32;
+        the dense slot cache: bf16/f32, int8). The caller guarantees the slot's cache holds K/V for ``full_ids[:start]``;
+        stale entries at positions >= start are never attended (masking
+        is by position) and the tail overwrites them.
+
+        The tail runs in bucket ``bucket_for(n_new)`` and attends the
+        first ``bucket_for(start + bucket)`` positions (whole pages on the
+        paged pool), so its cost scales with the conversation, not
+        max_seq_len. The penalty window is rebuilt on the host over the
+        full prompt. Paged: the slot grows to the prompt plus one decode
+        chunk of headroom, and a dry pool releases the slot's pages
+        before :class:`PagesExhausted` is raised."""
+        if self.active[slot]:
+            raise RuntimeError(f"slot {slot} busy")
+        full_ids = np.asarray(full_ids, np.int64)
+        n_total = int(full_ids.shape[0])
+        n_new = n_total - start
+        if not 0 < n_new:
+            raise ValueError(f"nothing to prefill (start={start}, "
+                             f"{n_total} tokens)")
+        if n_total >= self.max_seq:
+            raise ValueError(f"prompt of {n_total} tokens: need n < "
+                             f"{self.max_seq}")
+        bucket = self.bucket_for(n_new)
+        if start + bucket > self.max_seq:
+            # the tail's padding positions run to start + bucket
+            raise ValueError(f"tail bucket {bucket} does not fit above "
+                             f"{start}")
+        attn_len = self.bucket_for(start + bucket)
+        self.kv.claim_extend(slot, n_total, self._ahead(n_total))
+        tokens = np.zeros((1, bucket), np.int64)
+        tokens[0, :n_new] = full_ids[start:]
+        dev = self.device
+        x = self.kv.extend_hidden(
+            self.params, self.cfg, torch.from_numpy(tokens).to(dev), slot,
+            torch.tensor([start], dtype=torch.int32, device=dev), attn_len)
+        return self._sample_install(slot, full_ids, x[:, n_new - 1], opts)
+
+    def _sample_install(self, slot: int, prompt: np.ndarray, x_last,
+                        opts: SlotOptions) -> int:
+        """Shared admission tail of ``admit`` and ``extend``: the penalty
+        window over the last ``rln`` prompt tokens, the slot's seed
+        (from the slot and the full prompt length), the first token
+        sampled from the last prompt row's hidden state ``x_last`` [1, D]
+        and pushed through the window, and the slot state installed."""
+        cfg, dev, V = self.cfg, self.device, self.cfg.vocab_size
+        n = int(prompt.shape[0])
         rln = self._resolve_rln(opts)
         # penalty window of the last rln prompt tokens: absolute position
         # p lands in ring slot p % rln (sentinel V elsewhere)
@@ -492,21 +613,17 @@ class Engine:
                             if opts.temperature > 0 else None)
         row = sampling.SamplingParams.from_rows([dataclasses.asdict(opts)],
                                                 dev)
-        x, ks, vs = decoder.prefill_hidden(
-            self.params, cfg, torch.from_numpy(tokens).to(dev))
-        logits = decoder._unembed(cfg, self.params, x[:, n - 1])
+        logits = decoder._unembed(cfg, self.params, x_last)
         counts_dev = torch.from_numpy(counts).to(dev)
         tok = int(sampling.sample(logits, counts_dev[None, :V], row,
                                   [self._generator(slot, n - 1)])[0])
-        self.kv.insert(cfg, ks, vs, slot, n)
         # the first token enters the window at its own position n
         if rln > 0:
             counts[ring[n % rmod]] -= 1
             ring[n % rmod] = tok
             counts[tok] += 1
         self.lengths[slot] = n
-        self.counts[slot] = torch.from_numpy(counts).to(dev,
-                                                        torch.int32)
+        self.counts[slot] = torch.from_numpy(counts).to(dev, torch.int32)
         self.pring[slot] = torch.from_numpy(ring).to(dev)
         self.last_tokens[slot] = tok
         self.active[slot] = True
@@ -594,13 +711,19 @@ class Engine:
         epoch = self.kv.advance_epoch()
         return DecodeHandle(toks, event, epoch)
 
-    def release(self, slot: int):
+    def release(self, slot: int, park: bool = False):
         """Free ``slot``: its pages return to the pool and its device
         state resets (a dense slot's rows stay as they are, masked until
-        the next admission overwrites them)."""
+        the next admission overwrites them). With ``park`` the cache,
+        pages and lengths stay, so that a later ``extend`` can reuse the
+        prefix: the slot goes inactive (decode dispatches skip it) and
+        counts as free, and any admission may overwrite it."""
         self.active[slot] = False
         self._opts.pop(slot, None)
         self._gens[slot] = None
+        if park:
+            self._rebuild_slot_tensors()
+            return
         self.kv.release(slot)
         self._host_lengths[slot] = 0
         self._repeat_n[slot] = self._W
@@ -609,6 +732,107 @@ class Engine:
         self.pring[slot] = self.cfg.vocab_size
         self.last_tokens[slot] = 0
         self._rebuild_slot_tensors()
+
+    def free_slot_pages(self, slot: int):
+        """Drop a parked (inactive) slot's pages back to the pool: the
+        scheduler evicts parked prefixes with this under pool pressure."""
+        if self.active[slot]:
+            raise RuntimeError(f"slot {slot} is active")
+        self.kv.release(slot)
+
+    # ------------------------------------------------------------------
+    # radix prefix cache (paged)
+    # ------------------------------------------------------------------
+    @property
+    def radix_enabled(self) -> bool:
+        return self._radix is not None
+
+    @property
+    def radix_pages(self) -> int:
+        """Physical pages pinned by the radix tree."""
+        return self._radix.n_pages if self._radix is not None else 0
+
+    def prefix_probe(self, full_ids) -> int:
+        """How many leading tokens of ``full_ids`` the radix tree could
+        serve (full pages and one partly matched boundary page), capped
+        at len - 1 so one tail token remains to prefill; LRU stamps are
+        left alone. 0 when the cache is off or cold."""
+        if self._radix is None:
+            return 0
+        ids = np.asarray(full_ids)
+        full, _, q = self._radix.match(ids, int(ids.shape[0]) - 1,
+                                       bump=False)
+        return len(full) * self.ecfg.page_size + q
+
+    def stitch(self, slot: int, full_ids, max_reuse: int) -> int:
+        """Map the radix tree's longest prefix of ``full_ids`` (at most
+        ``max_reuse`` tokens) into ``slot``'s block table ahead of an
+        ``extend``: whole-page hits are shared read-only (a refcount, no
+        copy); a partly matched boundary page is copied into a private
+        page first (copy-on-write), since the tail writes the rest of
+        that page. Any pages the slot still held are dropped first.
+        Returns the reuse length stitched (0 = cold). Raises
+        :class:`PagesExhausted` when the boundary page finds no free page,
+        leaving the slot with no pages, so the caller can fall back to a
+        cold admission."""
+        if self._radix is None:
+            raise RuntimeError("the radix prefix cache is off")
+        if self.active[slot]:
+            raise RuntimeError(f"slot {slot} busy")
+        pt = self._pt
+        pt.release(slot)
+        ids = np.asarray(full_ids)
+        cap = min(int(max_reuse), int(ids.shape[0]) - 1)
+        if cap <= 0:
+            return 0
+        full, part, q = self._radix.match(ids, cap, bump=True)
+        if not full and q == 0:
+            return 0
+        pt.map_shared(slot, [n.page for n in full])
+        reuse = len(full) * self.ecfg.page_size
+        if part is not None and q > 0:
+            if pt.n_free < 1:
+                self.radix_evict(1)
+            if not pt.grow(slot, reuse + q):
+                pt.release(slot)
+                raise PagesExhausted(f"no page for the copy-on-write "
+                                     f"boundary ({pt.n_free} free)")
+            self.kv.copy_page(part.page, pt.slot_pages(slot)[-1])
+            reuse += q
+        return reuse
+
+    def donate_prefix(self, slot: int, token_ids) -> int:
+        """Give ``slot``'s full-page prefix of ``token_ids`` to the radix
+        tree, then release the slot. Chunks the tree did not hold adopt
+        the slot's pages (pinned: they survive the release); chunks it
+        held keep the tree's page, and the slot's copy goes back to the
+        pool. Returns the tokens donated (0, and a plain release, when the
+        cache is off)."""
+        if self._radix is None:
+            self.release(slot)
+            return 0
+        ids = np.asarray(token_ids)
+        ps = self.ecfg.page_size
+        k = min(int(ids.shape[0]) // ps, self._pt.owned_blocks(slot))
+        if k > 0:
+            for node in self._radix.insert(ids[:k * ps],
+                                           self._pt.slot_pages(slot)[:k]):
+                self._pt.pin(node.page)
+        self.release(slot)
+        return k * ps
+
+    def radix_evict(self, n_pages: int = 1) -> int:
+        """Evict up to ``n_pages`` least-recently-used radix leaves whose
+        pages no slot maps, page by page (children before parents); their
+        pages go back to the pool through the epoch fence. Returns the
+        pages freed."""
+        if self._radix is None:
+            return 0
+        pages = self._radix.evict(
+            n_pages, lambda pg: self._pt.shared_refs(pg) == 0)
+        for pg in pages:
+            self._pt.unpin(pg)
+        return len(pages)
 
     def retire(self, epoch: int):
         """The dispatch stamped ``epoch`` (and every earlier one) has been

@@ -35,6 +35,8 @@ class GenerateResult:
     total_s: float = 0.0
     done_reason: str = "stop"
     context: List[int] = dataclasses.field(default_factory=list)
+    # prompt tokens whose K/V came from a cached prefix (no prefill)
+    reused_tokens: int = 0
 
 
 def merge_options(defaults: Dict, request: Optional[Dict]
@@ -251,6 +253,7 @@ class LoadedModel:
         st = req.stats
         result.generated_tokens = st.n_generated
         result.ttft_s = st.ttft_s
+        result.reused_tokens = st.n_reused
         result.total_s = time.monotonic() - t0
         result.done_reason = ("stop" if sm.hit or st.n_generated < max_new
                               else "length")

@@ -139,7 +139,9 @@ def test_preemption_keeps_greedy_streams(numpy_params):
             outs.append(_concurrent(lm, prompts, opts))
             preempted = lm.scheduler.n_preempted
             lm.engine._pt.check()              # no page leaked or doubled
-            assert lm.engine._pt.n_free == lm.engine._pt.data_pages
+            # every page is free or held by the radix prefix cache
+            assert lm.engine._pt.n_free == (lm.engine._pt.data_pages
+                                            - lm.engine.radix_pages)
         finally:
             lm.unload()
     assert preempted > 0
@@ -204,6 +206,7 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "ollama_operator_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    assert ROOT / "ollama_operator_tpu_torch/runtime/radix.py" in files
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
