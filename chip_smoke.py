@@ -47,10 +47,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    it; phi3's LM head, O = 32064, and a second ragged O) dequant matmuls.
    Also the tied LM head's f32 product (a bf16 GEMM with an f32 output)
    against the f32 product of the same values.
-3. Serving, eight paths, each at full width and full depth behind the
-   port's HTTP server on an ephemeral port, with random dense bf16 weights
-   from a seed handed to ``ModelManager.preload``, which picks the weight
-   dtype itself (int4 for llama3.1, int8 for llama3.2:3b and phi3), and
+3. Serving, eight paths, each at full width behind the port's HTTP
+   server on an ephemeral port (path 1 at full depth, paths 2-8 cut to 8
+   layers, ``SERVING_LAYERS``: path 9 serves path 2's model and cache at
+   full depth), with random dense bf16 weights from a seed handed to
+   ``ModelManager.preload``, which picks the weight dtype itself (int4
+   for llama3.1, int8 for llama3.2:3b and phi3; a cut path is given the
+   dtype its full depth resolves to), and
    the serving defaults for the cache kind it is told (``SERVING``):
    paged (GQA: 64 slots, page size 128, 768 pages; phi3: 32 slots, page
    size 64, 512 pages) — llama3.1 on an int8 pool, llama3.2:3b on an int8
@@ -97,12 +100,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
    attends the pool's rounded K/V, with a prefill over exact K/V: gates
    on the int8 and bf16 pools, reported on the int4 pool.
 
+7. Path 9, a model pulled into the blob store from a GGUF file and served
+   by the port's own processes (``gguf_phase``): llama3.2:3b at full width
+   and depth written as a GGUF from the seed, one tensor at a time (Q4_0
+   layer weights, a Q8_0 ``token_embd`` that is also the tied head, F32
+   norms, llama3 rope scaling as a ``rope_freqs`` tensor, a 128256-piece
+   ``llama`` vocabulary with byte fallback); a loopback registry of this
+   script's own serves its manifest and streams the blob from disk;
+   ``python -m ollama_operator_tpu_torch.server --store-only`` and the
+   pull CLI (``python -m ollama_operator_tpu_torch.server.pull`` against
+   ``$OLLAMA_HOST``) pull it into a store; ``python -m
+   ollama_operator_tpu_torch.server --preload`` reads, dequantizes and
+   transcodes it (cached under ``--cache``) and serves it with int8
+   weights resolved per model (K7) on an int8 paged pool (K6) with K1;
+   8 concurrent greedy requests, the kernels' launch counts read from the
+   server's ``/api/ps`` just before and just after them (flash_prefill,
+   paged_decode and qmm above 0, the others 0). Then the model server is
+   started again and loads from the transcode cache (the cache file must
+   not be rewritten), and its greedy streams for the 8 prompts, one at a
+   time, must equal those of ``ModelManager.preload`` in this process of
+   the tree the port's ``load_model`` gives for the same blob and cache,
+   at int8 with the server's engine settings. The time to pull, to start
+   and load with the transcode and from the cache, the server's host
+   memory and bytes on the card after each load, TTFT and tok/s are
+   printed beside the card's name and power limit.
+
 Then it prints one JSON line ``{"kernels": [...]}`` (``launches`` summed
 over the serving paths, per path in ``launches_by_path``), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``. With ``--out DIR`` the details (``chip_smoke.json``) and the
 compiler's register report (``ptxas.txt``) are written to DIR;
-``--kernels-only`` stops after phase 2.
+``--kernels-only`` stops after phase 2; ``--gguf-only`` runs phase 1 and
+then phase 7 alone (both exit 4 by design: no result line).
 """
 
 from __future__ import annotations
@@ -113,8 +142,11 @@ import dataclasses
 import json
 import os
 import re
+import resource
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -785,40 +817,54 @@ SERVING = (
      + DENSE_COUNTERS))
 
 
+# the depth of each serving path (None: full depth). Path 1 stays at full
+# depth (phase 5 runs on it); paths 2-8 are cut to 8 layers to keep the
+# run inside its time limit now that path 9 serves llama3.2:3b, path 2's
+# model and cache, at full depth from a GGUF
+SERVING_LAYERS = (None, 8, 8, 8, 8, 8, 8, 8)
+
+
 def serving_phase(torch, details, model: str, kv_dtype: str, paged: bool,
-                  route, expect, absent, keep: bool = False):
+                  route, expect, absent, keep: bool = False, layers=None):
     """Serve ``model`` at full width behind the HTTP server: dense bf16
     weights from the seed go through ``ModelManager.preload``, which
     resolves the weight dtype itself (int4 at 4e9 parameters or more, int8
     below), on a ``kv_dtype`` page pool (``paged``) or dense slot cache at
-    the serving defaults. Eight concurrent greedy requests, then two
-    repeats of one. Returns the launch counts of the eight requests (and,
-    with ``keep``, the path's record, model manager, server and model,
-    still serving, for :func:`close_serving`)."""
+    the serving defaults. With ``layers`` the model is cut to that depth
+    and served in the weight dtype its full depth resolves to. Eight
+    concurrent greedy requests, then two repeats of one. Returns the
+    launch counts of the eight requests (and, with ``keep``, the path's
+    record, model manager, server and model, still serving, for
+    :func:`close_serving`)."""
     from ollama_operator_tpu_torch.models.config import get_config
     from ollama_operator_tpu_torch.ops import cuda_build
     from ollama_operator_tpu_torch.ops.paged import paged_route
     from ollama_operator_tpu_torch.runtime.engine import resolve_engine_dtype
     from ollama_operator_tpu_torch.server.app import ModelManager, serve
-    cfg = get_config(model)
+    full = get_config(model)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
     if paged and paged_route() != route:
         raise RuntimeError(f"paged route {paged_route()}, expected {route}")
     t0 = time.perf_counter()
     params = dense_params(torch, cfg)
     mm = ModelManager()            # the card: no device argument
     lm = mm.preload(model, cfg, params, byte_tokenizer(cfg.vocab_size),
+                    dtype=(None if layers is None
+                           else resolve_engine_dtype(full, "cuda")),
                     template="{{ .Prompt }}", kv_dtype=kv_dtype, paged=paged)
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t_build = time.perf_counter() - t0
-    if lm.serving_dtype != resolve_engine_dtype(cfg, "cuda"):
+    if lm.serving_dtype != resolve_engine_dtype(full, "cuda"):
         raise RuntimeError(f"{model} serves {lm.serving_dtype}")
     e = lm.ecfg
     if lm.engine.paged != paged:
         raise RuntimeError(f"{model} resolved paged={lm.engine.paged}")
     tag = (f"{model} {lm.serving_dtype} weights, {kv_dtype} "
-           f"{f'paged ({route}) ' if paged else 'dense '}KV")
+           f"{f'paged ({route}) ' if paged else 'dense '}KV, "
+           f"{cfg.n_layers} layers")
     print(f"serving {tag}: slots={e.max_slots} page_size={e.page_size} "
           f"pages={e.n_pages} max_seq={e.max_seq_len} "
           f"chunk={e.decode_chunk} kv={e.cache_dtype} "
@@ -890,7 +936,8 @@ def serving_phase(torch, details, model: str, kv_dtype: str, paged: bool,
                                f"serving {tag}: {stray} ({launches})")
         n_tok = sum(r["eval_count"] for r in results)
         ttft = sorted(r["prompt_eval_duration"] / 1e6 for r in results)
-        out = {"model": model, "weights": lm.serving_dtype, "kv": kv_dtype,
+        out = {"model": model, "layers": cfg.n_layers,
+               "weights": lm.serving_dtype, "kv": kv_dtype,
                "paged": paged, "route": route, "requests": len(results),
                "wall_s": wall,
                "generated_tokens": n_tok, "aggregate_tok_s": n_tok / wall,
@@ -1480,6 +1527,488 @@ def prefix_cross_check(torch, details, model: str, bits: int,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 7. Path 9: a GGUF model pulled into the blob store and served by the
+# port's own processes
+# ---------------------------------------------------------------------------
+
+GGUF_MODEL = "llama3.2:3b"
+GGUF_PATH = "llama3.2:3b GGUF, pulled: int8 paged (v3) KV"
+GGUF_REPO = ("library", "llama3.2", "3b")
+GGUF_WORDS = ("paged attention over quantized weights on one card serves "
+              "many slots at once").split()
+GGUF_TOKEN_COUNTERS = ("flash_prefill", "paged_decode", "qmm")
+GGUF_ABSENT = ("qmm4", "paged_decode_int4", "paged_decode_v2",
+               "paged_decode_v4", "decode_attention", "mha_decode")
+
+
+def gguf_vocab(n: int):
+    """A ``llama`` (SentencePiece) vocabulary of ``n`` pieces: control
+    pieces, the 256 byte-fallback pieces, "▁" and single characters, every
+    prefix of each prompt word (so the merges reach whole words), then
+    fillers. No end-of-generation id: every request runs to num_predict."""
+    pieces = ["<unk>", "<s>", "</s>"] + [f"<0x{i:02X}>" for i in range(256)]
+    types = [2, 3, 3] + [6] * 256
+    normal = ["▁"] + [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    for w in sorted(set(GGUF_WORDS)):
+        s = "▁" + w
+        normal += [s[:k] for k in range(2, len(s) + 1)]
+    normal = list(dict.fromkeys(normal))
+    pieces += normal
+    scores = [0.0] * len(types) + [float(len(p)) for p in normal]
+    types += [1] * len(normal)
+    fill = n - len(pieces)
+    pieces += [f"▁f{i}" for i in range(fill)]
+    scores += [0.0] * fill
+    types += [1] * fill
+    return pieces, scores, types
+
+
+def write_gguf_model(path: str, cfg) -> dict:
+    """Write ``cfg`` (llama3.2:3b, full width and depth) as a GGUF file
+    from the seed, one tensor at a time: Q4_0 blocks for every 2-D layer
+    weight, Q8_0 for ``token_embd`` (the tied head: no ``output.weight``),
+    F32 norms, llama3 rope scaling as a ``rope_freqs`` tensor, and a
+    128256-piece ``llama`` vocabulary with byte fallback. The blocks are
+    drawn directly (random codes, f16 scales giving weights of std ~0.02),
+    so no f32 weight tree is ever built."""
+    import numpy as np
+
+    from ollama_operator_tpu_torch.gguf import reader as R
+    from ollama_operator_tpu_torch.gguf.writer import GGUFWriter
+    from ollama_operator_tpu_torch.ops.rope import scaled_inv_freq
+    rng = np.random.default_rng(SEED)
+    w = GGUFWriter(path)
+    for k, v in (("general.architecture", "llama"),
+                 ("general.name", "llama3.2 3b (random weights)"),
+                 ("general.file_type", 2),
+                 ("general.parameter_count", int(cfg.n_params)),
+                 ("llama.block_count", cfg.n_layers),
+                 ("llama.context_length", cfg.max_seq_len),
+                 ("llama.embedding_length", cfg.dim),
+                 ("llama.feed_forward_length", cfg.ffn_dim),
+                 ("llama.attention.head_count", cfg.n_heads),
+                 ("llama.attention.head_count_kv", cfg.n_kv_heads),
+                 ("llama.attention.key_length", cfg.head_dim),
+                 ("llama.attention.value_length", cfg.head_dim),
+                 ("llama.attention.layer_norm_rms_epsilon", cfg.norm_eps),
+                 ("llama.rope.freq_base", cfg.rope_theta),
+                 ("llama.rope.dimension_count", cfg.head_dim),
+                 ("llama.vocab_size", cfg.vocab_size)):
+        w.add_meta(k, v)
+    tokens, scores, types = gguf_vocab(cfg.vocab_size)
+    w.add_meta("tokenizer.ggml.model", "llama")
+    w.add_meta("tokenizer.ggml.tokens", tokens)
+    w.add_meta("tokenizer.ggml.scores", scores)
+    w.add_meta("tokenizer.ggml.token_type", types)
+    w.add_meta("tokenizer.ggml.bos_token_id", 1)
+    w.add_meta("tokenizer.ggml.unknown_token_id", 0)
+
+    def q4_0(name, shape):   # codes uniform 0..15: (q - 8) d, std ~4.6 d
+        nb = shape[0] * shape[1] // 32
+        blocks = np.frombuffer(rng.bytes(nb * 18), np.uint8).reshape(nb, 18)
+        blocks = blocks.copy()
+        d = (0.02 / 4.6 * (0.5 + rng.random(nb))).astype(np.float16)
+        blocks[:, :2] = d.view(np.uint8).reshape(nb, 2)
+        w.add_tensor_raw(name, shape, R.GGML_Q4_0, blocks.tobytes())
+
+    def q8_0(name, shape):   # codes uniform -64..64: std ~37 d
+        nb = shape[0] * shape[1] // 32
+        q = rng.integers(-64, 65, (nb, 32), dtype=np.int8)
+        d = (0.02 / 37 * (0.5 + rng.random(nb))).astype(np.float16)
+        blocks = np.concatenate([d.view(np.uint8).reshape(nb, 2),
+                                 q.view(np.uint8)], axis=1)
+        w.add_tensor_raw(name, shape, R.GGML_Q8_0, blocks.tobytes())
+
+    D, F, V = cfg.dim, cfg.ffn_dim, cfg.vocab_size
+    QD, KVD = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    q8_0("token_embd.weight", (V, D))
+    w.add_tensor_f32("output_norm.weight", np.ones(D, np.float32))
+    base, _ = scaled_inv_freq(cfg.head_dim, cfg.rope_theta)
+    l3, _ = scaled_inv_freq(
+        cfg.head_dim, cfg.rope_theta, scaling_type=cfg.rope_scaling_type,
+        factor=cfg.rope_scaling, orig_ctx=cfg.rope_orig_ctx,
+        low_freq_factor=cfg.rope_low_freq_factor,
+        high_freq_factor=cfg.rope_high_freq_factor)
+    w.add_tensor_f32("rope_freqs.weight",
+                     (np.asarray(base) / np.asarray(l3)).astype(np.float32))
+    for i in range(cfg.n_layers):
+        for leaf, shape in (("attn_q", (QD, D)), ("attn_k", (KVD, D)),
+                            ("attn_v", (KVD, D)), ("attn_output", (D, QD)),
+                            ("ffn_gate", (F, D)), ("ffn_up", (F, D)),
+                            ("ffn_down", (D, F))):
+            q4_0(f"blk.{i}.{leaf}.weight", shape)
+        for leaf in ("attn_norm", "ffn_norm"):
+            w.add_tensor_f32(f"blk.{i}.{leaf}.weight",
+                             np.ones(D, np.float32))
+    w.write()
+    del w
+    return {"path": path, "bytes": os.path.getsize(path)}
+
+
+def sha256_file(path: str) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(8 << 20):
+            h.update(chunk)
+    return "sha256:" + h.hexdigest()
+
+
+def start_registry(repo, layers):
+    """A loopback registry serving one model: its manifest, and its blobs
+    streamed from disk (``layers``: (media type, path) pairs)."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    blobs, entries = {}, []
+    for mt, path in layers:
+        digest = sha256_file(path)
+        blobs[digest] = path
+        entries.append({"mediaType": mt, "digest": digest,
+                        "size": os.path.getsize(path)})
+    manifest = json.dumps({
+        "schemaVersion": 2,
+        "mediaType": "application/vnd.docker.distribution.manifest.v2+json",
+        "config": entries[-1] | {
+            "mediaType": "application/vnd.docker.container.image.v1+json"},
+        "layers": entries[:-1]}).encode()
+    ns, name, tag = repo
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            parts = self.path.split("?")[0].strip("/").split("/")
+            if parts == ["v2", ns, name, "manifests", tag]:
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(manifest)))
+                self.end_headers()
+                self.wfile.write(manifest)
+                return
+            path = (blobs.get(parts[-1]) if parts[:4] == ["v2", ns, name,
+                                                          "blobs"] else None)
+            if path is None:
+                self.send_response(404)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            self.send_response(200)
+            self.send_header("Content-Length", str(os.path.getsize(path)))
+            self.end_headers()
+            with open(path, "rb") as f:
+                while chunk := f.read(8 << 20):
+                    self.wfile.write(chunk)
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    httpd.daemon_threads = True
+    threading.Thread(target=httpd.serve_forever, daemon=True,
+                     name="registry").start()
+    return httpd, {e["mediaType"]: e["digest"] for e in entries}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def child_env() -> dict:
+    """The environment of the port's processes: this one's, without proxy
+    settings (every address is the loopback)."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.lower().endswith("_proxy")}
+    env["PYTHONUNBUFFERED"] = "1"
+    return env
+
+
+class PortServer:
+    """``python -m ollama_operator_tpu_torch.server`` in a subprocess, its
+    output in a log file; ``start`` returns once it answers ``GET /``."""
+
+    def __init__(self, args, log_path: str):
+        self.port = free_port()
+        self.log = open(log_path, "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ollama_operator_tpu_torch.server",
+             "--host", "127.0.0.1", "--port", str(self.port)] + args,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=child_env(), stdout=self.log, stderr=subprocess.STDOUT)
+
+    def wait_ready(self, timeout: float = 600) -> float:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            if self.proc.poll() is not None:
+                raise RuntimeError(f"server exited {self.proc.returncode}: "
+                                   f"{self.tail()}")
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{self.port}/", timeout=5) as r:
+                    if r.status == 200:
+                        return time.perf_counter() - t0
+            except OSError:
+                time.sleep(0.25)
+        raise RuntimeError(f"server not up in {timeout} s: {self.tail()}")
+
+    def tail(self, n: int = 3000) -> str:
+        self.log.flush()
+        self.log.seek(0)
+        return self.log.read()[-n:]
+
+    def get(self, path: str) -> dict:
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.port}{path}",
+                                    timeout=60) as r:
+            return json.loads(r.read())
+
+    def memory(self) -> dict:
+        """Host memory the server process holds now (``VmRSS`` of /proc,
+        None where the kernel gives none) and the bytes its torch
+        allocator holds on the card (``size_vram`` of /api/ps)."""
+        out = {"rss": None}
+        with open(f"/proc/{self.proc.pid}/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    out["rss"] = int(line.split()[1]) * 1024
+        ps = self.get("/api/ps")["models"]
+        out["size_vram"] = ps[0]["size_vram"] if ps else 0
+        return out
+
+    def launches(self) -> dict:
+        return self.get("/api/ps")["models"][0]["kernel_launches"]
+
+    def stop(self) -> int:
+        if self.proc.poll() is None:
+            self.proc.send_signal(2)     # SIGINT: the server's clean stop
+            try:
+                self.proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        return self.proc.returncode
+
+
+def gguf_phase(torch, details, card: str, workdir: str) -> dict:
+    """Path 9: write llama3.2:3b (full width and depth) as a GGUF from the
+    seed, serve it from a loopback registry, pull it with the port's
+    store server (``--store-only``) and pull CLI, load it with the port's
+    model server (``--preload``: read, dequantized, transcoded and cached,
+    then int8 weights, an int8 paged pool), serve 8 concurrent greedy
+    requests, restart the server to load from the transcode cache, and
+    hold its greedy streams against ``ModelManager.preload`` of the same
+    ``load_model`` tree in this process. Returns the launch counts of the
+    8 requests, read from the server's /api/ps just before and just after
+    them."""
+    from ollama_operator_tpu_torch.convert import params_from_numpy
+    from ollama_operator_tpu_torch.gguf.transcode import load_model
+    from ollama_operator_tpu_torch.models.config import get_config
+    from ollama_operator_tpu_torch.ops import cuda_build
+    from ollama_operator_tpu_torch.runtime.engine import (
+        EngineConfig, resolve_kv_dtype_default, resolve_serving_defaults)
+    from ollama_operator_tpu_torch.server.app import (ModelManager,
+                                                      transcode_dtype)
+    from ollama_operator_tpu_torch.server.registry import (MT_MODEL,
+                                                           MT_PARAMS,
+                                                           MT_TEMPLATE)
+    from ollama_operator_tpu_torch.tokenizer import Tokenizer
+    cfg = get_config(GGUF_MODEL)
+    out = {"model": GGUF_MODEL, "card": card}
+    os.makedirs(workdir, exist_ok=True)
+    t0 = time.perf_counter()
+    g = write_gguf_model(os.path.join(workdir, "model.gguf"), cfg)
+    out["gguf_bytes"] = g["bytes"]
+    out["write_gguf_s"] = time.perf_counter() - t0
+    for name, text in (("template", "{{ .Prompt }}"),
+                       ("params", json.dumps({"temperature": 0})),
+                       ("config", json.dumps({"model_format": "gguf"}))):
+        with open(os.path.join(workdir, name), "w") as f:
+            f.write(text)
+    t0 = time.perf_counter()
+    registry, digests = start_registry(GGUF_REPO, [
+        (MT_MODEL, g["path"]),
+        (MT_TEMPLATE, os.path.join(workdir, "template")),
+        (MT_PARAMS, os.path.join(workdir, "params")),
+        ("config", os.path.join(workdir, "config"))])
+    out["registry_digest_s"] = time.perf_counter() - t0
+    ref = (f"http://127.0.0.1:{registry.server_address[1]}/"
+           f"{GGUF_REPO[0]}/{GGUF_REPO[1]}:{GGUF_REPO[2]}")
+    store, cache = os.path.join(workdir, "store"), os.path.join(workdir,
+                                                                "cache")
+    print(f"path 9: wrote {g['bytes'] / 1e9:.3f} GB GGUF in "
+          f"{out['write_gguf_s']:.1f} s; registry at {ref}", flush=True)
+    servers = []
+    try:
+        # the store pod: --store-only, then the puller's CLI against it
+        st = PortServer(["--store-only", "--store", store],
+                        os.path.join(workdir, "store.log"))
+        servers.append(st)
+        st.wait_ready()
+        env = child_env()
+        env["OLLAMA_HOST"] = f"127.0.0.1:{st.port}"
+        t0 = time.perf_counter()
+        pull = subprocess.run(
+            [sys.executable, "-m", "ollama_operator_tpu_torch.server.pull",
+             ref], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            capture_output=True, text=True, timeout=900)
+        out["pull_s"] = time.perf_counter() - t0
+        if pull.returncode != 0 or '"success"' not in pull.stdout:
+            raise RuntimeError(f"pull failed ({pull.returncode}): "
+                               f"{pull.stderr[-2000:]}")
+        if st.stop() != 0:
+            raise RuntimeError(f"store server stopped badly: {st.tail()}")
+        blob = os.path.join(store, "blobs",
+                            digests[MT_MODEL].replace(":", "-"))
+        if os.path.getsize(blob) != g["bytes"]:
+            raise RuntimeError("the pulled blob is not the GGUF")
+        print(f"path 9: pulled through the store server in "
+              f"{out['pull_s']:.1f} s", flush=True)
+
+        # the model pod: --preload reads, dequantizes and transcodes
+        args = ["--store", store, "--cache", cache, "--preload", ref]
+        ms = PortServer(args, os.path.join(workdir, "model1.log"))
+        servers.append(ms)
+        out["load_transcode_s"] = ms.wait_ready()
+        out["memory_after_transcode_load"] = ms.memory()
+        log = ms.tail(20000)
+        if "serving dtype for" not in log or "int8" not in log:
+            raise RuntimeError(f"the server did not resolve int8: {log}")
+        ps = ms.get("/api/ps")["models"][0]
+        if (ps["details"]["serving_dtype"], ps["details"]["paged"]) != (
+                "int8", True):
+            raise RuntimeError(f"path 9 serves {ps['details']}")
+        prompts = [" ".join(GGUF_WORDS[(i + j) % len(GGUF_WORDS)]
+                            for j in range(12 + 4 * i))[:240]
+                   for i in range(8)]
+        opts = {"temperature": 0, "num_predict": 32}
+        post(ms.port, {"model": ref, "prompt": "warm up",
+                           "stream": False, "options": opts})
+        before = ms.launches()
+        results, errors = [None] * len(prompts), []
+
+        def run(i):
+            try:
+                results[i] = post(ms.port, {"model": ref,
+                                                "prompt": prompts[i],
+                                                "options": opts})
+            except Exception as ex:  # noqa: BLE001 — reported below
+                errors.append(f"request {i}: {ex!r}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        after = ms.launches()
+        launches = {k: after[k] - before[k] for k in after}
+        if errors or any(t.is_alive() for t in threads):
+            raise RuntimeError(f"path 9 requests failed: {errors}")
+        for i, r in enumerate(results):
+            if not r.get("done") or r.get("eval_count") != 32:
+                raise RuntimeError(f"path 9 request {i} ended {r}")
+        missing = [k for k in GGUF_TOKEN_COUNTERS if launches[k] <= 0]
+        stray = [k for k in GGUF_ABSENT if launches[k] != 0]
+        if missing or stray:
+            raise RuntimeError(f"path 9 launches {launches}: not launched "
+                               f"{missing}, of another path {stray}")
+        n_tok = sum(r["eval_count"] for r in results)
+        ttft = sorted(r["prompt_eval_duration"] / 1e6 for r in results)
+        out.update(requests=len(results), wall_s=wall,
+                   generated_tokens=n_tok, aggregate_tok_s=n_tok / wall,
+                   ttft_ms=ttft, launches=launches,
+                   prompt_tokens=[r["prompt_eval_count"] for r in results],
+                   serving=ps["details"])
+        if ms.stop() != 0:
+            raise RuntimeError(f"model server stopped badly: {ms.tail()}")
+        # the peak resident memory of the processes reaped so far: the
+        # store server, the pull and this model server, whose transcode
+        # is the largest (Linux reports ru_maxrss in KiB)
+        out["peak_rss_through_transcode"] = resource.getrusage(
+            resource.RUSAGE_CHILDREN).ru_maxrss * 1024
+
+        # the restart: a second load comes from the transcode cache
+        entries = os.listdir(cache)
+        stamp = {e: os.path.getmtime(os.path.join(cache, e, "weights.bin"))
+                 for e in entries}
+        ms2 = PortServer(args, os.path.join(workdir, "model2.log"))
+        servers.append(ms2)
+        out["load_from_cache_s"] = ms2.wait_ready()
+        out["memory_after_cache_load"] = ms2.memory()
+        if {e: os.path.getmtime(os.path.join(cache, e, "weights.bin"))
+                for e in os.listdir(cache)} != stamp:
+            raise RuntimeError("the restart transcoded again")
+        out["cache_entries"] = entries
+        served = [post(ms2.port, {"model": ref, "prompt": p,
+                                      "stream": False, "options": opts})
+                  for p in prompts]
+        if ms2.stop() != 0:
+            raise RuntimeError(f"model server stopped badly: {ms2.tail()}")
+    finally:
+        for s in servers:
+            s.stop()
+            s.log.close()
+        registry.shutdown()
+        registry.server_close()
+
+    # the gate: the port's own load_model tree through preload, at int8
+    # with the server's engine settings, gives the server's greedy streams
+    t0 = time.perf_counter()
+    gcfg, params, tok_md = load_model(
+        blob, cache_dir=cache, dtype=transcode_dtype("int8", "cuda"),
+        digest=digests[MT_MODEL].replace("sha256:", "")[:24])
+    ecfg = resolve_serving_defaults(EngineConfig(
+        max_slots=0, max_seq_len=4096, decode_chunk=0, page_size=0,
+        paged=None, n_pages=None,
+        cache_dtype=resolve_kv_dtype_default("cuda")), gcfg, "cuda")
+    mm = ModelManager()
+    lm = mm.preload(GGUF_MODEL, gcfg, params_from_numpy(params, "cuda"),
+                    Tokenizer.from_gguf_metadata(tok_md), dtype="int8",
+                    template="{{ .Prompt }}", ecfg=ecfg)
+    del params
+    out["preload_s"] = time.perf_counter() - t0
+    try:
+        if (lm.ecfg != ecfg or gcfg.n_params != cfg.n_params
+                or lm.serving_dtype != "int8"):
+            raise RuntimeError("the in-process model is not the server's")
+        for name in cuda_build.launches:
+            cuda_build.launches[name] = 0
+        mine = [lm.generate(lm.render_prompt(p), opts) for p in prompts]
+        equal = [a.context == b["context"] for a, b in zip(mine, served)]
+        out["gate_streams_equal"] = f"{sum(equal)}/{len(equal)}"
+        out["gate_launches_in_process"] = dict(cuda_build.launches)
+    finally:
+        mm.shutdown()
+        del lm
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not all(equal):
+        raise RuntimeError(f"path 9: the HTTP server's greedy streams differ "
+                           f"from preload of the same tree: {equal}")
+    m1, m2 = out["memory_after_transcode_load"], out["memory_after_cache_load"]
+
+    def gb(n):
+        return "not measured" if not n else f"{n / 1e9:.2f} GB"
+    print(f"path 9 [{card}]: {GGUF_MODEL} GGUF {out['gguf_bytes'] / 1e9:.3f}"
+          f" GB written in {out['write_gguf_s']:.1f} s; pull "
+          f"{out['pull_s']:.1f} s; server start + load with the transcode "
+          f"{out['load_transcode_s']:.1f} s; start + load from the cache "
+          f"{out['load_from_cache_s']:.1f} s; host RSS after load "
+          f"{gb(m1['rss'])} / from the cache {gb(m2['rss'])}, peak through "
+          f"the transcode {gb(out['peak_rss_through_transcode'])}; on the "
+          f"card after load {gb(m1['size_vram'])} / {gb(m2['size_vram'])}",
+          flush=True)
+    print(f"path 9 [{card}]: {len(prompts)} requests x 32 tokens in "
+          f"{out['wall_s']:.3f} s: {out['aggregate_tok_s']:.1f} tok/s "
+          f"aggregate; TTFT ms min {ttft[0]:.1f} median "
+          f"{ttft[len(ttft) // 2]:.1f} max {ttft[-1]:.1f}; launches "
+          f"{launches}; HTTP streams equal to preload of the same tree: "
+          f"{out['gate_streams_equal']}", flush=True)
+    details["gguf_path"] = out
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -1490,6 +2019,9 @@ def main() -> int:
                     help="a checkout of another commit: also time its "
                          "paged-decode wrappers (K6, K4, K5) at each paged "
                          "row, and fail unless its K6 gives the same bits")
+    ap.add_argument("--gguf-only", action="store_true",
+                    help="build the kernels, then run path 9 (the pulled "
+                         "GGUF model) alone; no result line")
     args = ap.parse_args()
     try:
         import torch
@@ -1593,6 +2125,19 @@ def main() -> int:
             e.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=library_ms, shape=shape)
 
+    if args.gguf_only:
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_gguf_")
+        try:
+            gguf_phase(torch, details, card, workdir)
+        except Exception as e:  # noqa: BLE001 — the phase's failure
+            import traceback
+            traceback.print_exc()
+            return fail(f"path 9: {e!r}")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        write_details(out_dir, details)
+        print("gguf-only run: no kernel rows; no result", flush=True)
+        return 4
     try:
         timer = Timer(torch)
         baseline = (load_baseline_paged(args.baseline) if args.baseline
@@ -1618,11 +2163,14 @@ def main() -> int:
     try:
         for i, (model, kv, paged, env, route, expect,
                 absent) in enumerate(SERVING):
+            layers = SERVING_LAYERS[i]
             path = (f"{model} {kv} "
-                    f"{f'paged ({route})' if paged else 'dense'} KV")
+                    f"{f'paged ({route})' if paged else 'dense'} KV"
+                    + (f", {layers} layers" if layers else ""))
             with mock.patch.dict(os.environ, env):
                 got = serving_phase(torch, details, model, kv, paged, route,
-                                    expect, absent, keep=i == 0)
+                                    expect, absent, keep=i == 0,
+                                    layers=layers)
             if i == 0:
                 # path 1 stays loaded for the prefix-and-chunk phase
                 got, kept = got
@@ -1653,6 +2201,14 @@ def main() -> int:
             cross_check(torch, details, "llama3.1", 4, "int8")
         with mock.patch.dict(os.environ, {"TPU_PAGED_V4": "1"}):
             cross_check(torch, details, "phi3", 8, "int8")
+        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        # 7. path 9: the pulled GGUF model, served by the port's processes
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_gguf_")
+        try:
+            launches_by_path[GGUF_PATH] = gguf_phase(torch, details, card,
+                                                     workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
     except Exception as e:  # noqa: BLE001 — every phase failure is fatal
         import traceback

@@ -95,14 +95,22 @@ def resolve_serving_defaults(ecfg: EngineConfig, cfg: ModelConfig,
     slots and page size 128, anything else 32 slots and page size 64;
     with auto slots and no explicit pool size the pool holds the dense-24
     (64 slots) or dense-8 (32 slots) byte ceiling (768 pages for llama3.1
-    at max_seq_len 4096). Dense: 8 slots and no page pool."""
+    at max_seq_len 4096). Dense: 8 slots and no page pool.
+    ``TPU_MIN_PREFILL_BUCKET``, when set, replaces the prefill-bucket
+    floor."""
     on_card = torch.device(device).type == "cuda"
     gqa = cfg.n_kv_heads < cfg.n_heads
     chunk = ecfg.decode_chunk or (32 if on_card else 8)
+    # the prefill-bucket floor: TPU_MIN_PREFILL_BUCKET when set (finer
+    # chunked-prefill pieces on small-context models), as the JAX
+    # resolver reads it
+    minb = (int(os.environ.get("TPU_MIN_PREFILL_BUCKET", "0") or 0)
+            or ecfg.min_prefill_bucket)
     if ecfg.paged is not None and ecfg.max_slots != 0:
         ps = ecfg.page_size or (128 if on_card and ecfg.paged and gqa
                                 else 64)
-        return dataclasses.replace(ecfg, decode_chunk=chunk, page_size=ps)
+        return dataclasses.replace(ecfg, decode_chunk=chunk, page_size=ps,
+                                   min_prefill_bucket=minb)
     paged = (resolve_paged_default(cfg, device) if ecfg.paged is None
              else ecfg.paged)
     ps = ecfg.page_size or (128 if on_card and paged and gqa else 64)
@@ -115,7 +123,7 @@ def resolve_serving_defaults(ecfg: EngineConfig, cfg: ModelConfig,
         n_pages = max(1, ceil_slots * serve_seq // ps)
     return dataclasses.replace(ecfg, paged=paged, max_slots=slots,
                                n_pages=n_pages, decode_chunk=chunk,
-                               page_size=ps)
+                               page_size=ps, min_prefill_bucket=minb)
 
 
 def resolve_engine_dtype(cfg: ModelConfig, device) -> str:

@@ -146,6 +146,9 @@ class LoadedModel:
         # the weight dtype the model manager resolved (None when built
         # directly from an already-converted tree)
         self.serving_dtype: Optional[str] = None
+        # the blob digest of a model the manager loaded from its store
+        # (None for one built in-process)
+        self.digest: Optional[str] = None
         if ecfg is None:
             ecfg = resolve_serving_defaults(EngineConfig(
                 max_slots=0, decode_chunk=0, page_size=0, paged=paged,

@@ -203,15 +203,30 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
+    """Nothing in the port or ``chip_smoke.py`` imports JAX, ``ml_dtypes``
+    (the card's machine has neither) or the JAX package; ``chip_smoke.py``
+    imports nothing from ``tests/`` either."""
     files = sorted((ROOT / "ollama_operator_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
-    assert ROOT / "ollama_operator_tpu_torch/runtime/radix.py" in files
+    for mod in ("runtime/radix.py", "gguf/reader.py", "gguf/dequant.py",
+                "gguf/writer.py", "gguf/store.py", "gguf/transcode.py",
+                "server/names.py", "server/registry.py",
+                "server/modelfile.py", "server/pull.py",
+                "server/__main__.py"):
+        assert ROOT / "ollama_operator_tpu_torch" / mod in files, mod
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "ollama_operator_tpu"), (
+            assert top not in ("jax", "jaxlib", "ml_dtypes",
+                               "ollama_operator_tpu"), (
                 f"{f.relative_to(ROOT)} imports {name}")
+    test_modules = {p.stem for p in (ROOT / "tests").rglob("*.py")}
+    assert "fake_registry" in test_modules
+    for name in _imports(ROOT / "chip_smoke.py"):
+        top = name.split(".")[0]
+        assert top not in test_modules | {"tests"}, (
+            f"chip_smoke.py imports {name} from tests/")
 
 
 def test_entry_points_refuse_cpu_fallback(numpy_params, monkeypatch):
