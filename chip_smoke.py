@@ -125,13 +125,46 @@ Phases, each of which fails the run (non-zero exit, no result line):
    memory and bytes on the card after each load, TTFT and tok/s are
    printed beside the card's name and power limit.
 
+8. Path 10, chat and structured output, on path 9's restarted server
+   before it stops (``chat_phase``; the GGUF carries a llama3-style
+   chat template layer with ``.Messages`` and ``.Tools``, which renders
+   /api/generate's bare prompt as it is): (a) 8 concurrent streamed
+   /api/chat conversations on a shared 420-word system message, two
+   turns each (the second carries the first's answer), 64 greedy tokens;
+   each turn's streamed round is timed (TTFT, tok/s, the prompt tokens
+   reused and prefilled from ``/api/ps``), then a non-streamed, a
+   one-token and a streamed twin of each request, which extend the same
+   cached prefix: the streamed twin's text must equal the non-streamed
+   one's, its first frame the one-token twin's text, and no response may
+   take more than ceil(eval_count / 16) + 2 frames; (b)
+   /v1/chat/completions not streamed (its ``usage`` equal to /api/chat's
+   counts) and streamed (SSE ending ``data: [DONE]``), /v1/completions,
+   /v1/models; (c) ``format: "json"`` and a schema (a string, an integer,
+   an enum, an array) on /api/generate, json on /api/chat,
+   ``response_format`` json_object and json_schema, each alone and beside
+   7 unconstrained requests: every output a prefix the port's automaton or
+   schema machine accepts, and a complete JSON value of the schema where
+   it stopped; (d) ``tools`` on /api/chat and /v1/chat/completions with a
+   schema that forces an invocation (``tool_calls``; ``finish_reason``
+   "tool_calls"), streamed and not, and without one. Path 10's K1, K6 and
+   K7 counts, read from ``/api/ps`` before and after, must be above 0.
+   Then in this process (``grammar_cross_check``): llama3.2:3b at full
+   width and two layers, int8 weights, the GGUF's tokenizer, on the paged
+   int8 pool and the dense bf16 cache: greedy ``format: "json"`` streams
+   with the device grammar table at 64 and at 4 states must equal those
+   with host masks (``TPU_GRAMMAR_DEVICE=0``), and the 4-state table
+   must be left at least once; the token-table and grammar-table build
+   times on this host are printed. Path 1's decode step
+   (``step_breakdown``) is also taken with slot 0 on a device-table JSON
+   grammar.
+
 Then it prints one JSON line ``{"kernels": [...]}`` (``launches`` summed
 over the serving paths, per path in ``launches_by_path``), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``. With ``--out DIR`` the details (``chip_smoke.json``) and the
 compiler's register report (``ptxas.txt``) are written to DIR;
 ``--kernels-only`` stops after phase 2; ``--gguf-only`` runs phase 1 and
-then phase 7 alone (both exit 4 by design: no result line).
+then phases 7 and 8 alone (both exit 4 by design: no result line).
 """
 
 from __future__ import annotations
@@ -770,17 +803,58 @@ def dense_params(torch, cfg):
     return params
 
 
-def post(port: int, body: dict) -> dict:
+def http(port: int, path: str, body=None, timeout: float = 600):
+    """One request: (status, frames, arrival seconds of each frame). The
+    frames are the NDJSON lines or SSE events of the body, parsed (an SSE
+    ``[DONE]`` kept as the string); an error frame raises."""
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/api/generate",
-        data=json.dumps(body).encode(),
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
         headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=600) as r:
-        frames = [json.loads(x) for x in r.read().decode().splitlines()
-                  if x.strip()]
-    if any("error" in f for f in frames):
-        raise RuntimeError(f"server error: {frames[-1]}")
-    return frames[-1]
+    frames, times = [], []
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        status = r.status
+        for line in r:
+            line = line.decode().strip()
+            if not line:
+                continue
+            if line.startswith("data: "):
+                line = line[len("data: "):]
+            frames.append(line if line == "[DONE]" else json.loads(line))
+            times.append(time.perf_counter() - t0)
+    bad = [f for f in frames if isinstance(f, dict) and "error" in f]
+    if bad:
+        raise RuntimeError(f"{path}: server error {bad[0]}")
+    return status, frames, times
+
+
+def concurrent(calls):
+    """Run the thunks ``calls`` at once; their results in order, and the
+    wall time."""
+    out, errors = [None] * len(calls), []
+
+    def run(i):
+        try:
+            out[i] = calls[i]()
+        except Exception as ex:  # noqa: BLE001 — reported below
+            errors.append(f"call {i}: {ex!r}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(calls))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"concurrent calls failed: {errors}")
+    return out, time.perf_counter() - t0
+
+
+def post(port: int, body: dict) -> dict:
+    """The last frame of one /api/generate request."""
+    return http(port, "/api/generate", body)[1][-1]
 
 
 # (model preset, KV cache dtype, paged pool or dense slot cache, environment
@@ -885,28 +959,10 @@ def serving_phase(torch, details, model: str, kv_dtype: str, paged: bool,
                     "stream": False, "options": opts})
         for name in cuda_build.launches:
             cuda_build.launches[name] = 0
-        results = [None] * len(prompts)
-        errors = []
-
-        def run(i):
-            try:
-                results[i] = post(port, {"model": model,
-                                         "prompt": prompts[i],
-                                         "options": opts})
-            except Exception as ex:  # noqa: BLE001 — reported below
-                errors.append(f"request {i}: {ex!r}")
-
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=run, args=(i,))
-                   for i in range(len(prompts))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        wall = time.perf_counter() - t0
+        results, wall = concurrent([
+            lambda p=p: post(port, {"model": model, "prompt": p,
+                                    "options": opts}) for p in prompts])
         launches = dict(cuda_build.launches)
-        if errors or any(t.is_alive() for t in threads):
-            raise RuntimeError(f"requests failed: {errors}")
         for i, r in enumerate(results):
             if not r.get("done") or r.get("eval_count") != 32:
                 raise RuntimeError(f"request {i} ended {r}")
@@ -963,28 +1019,34 @@ def serving_phase(torch, details, model: str, kv_dtype: str, paged: bool,
     return launches
 
 
-def close_serving(torch, details, out, mm, httpd, lm):
+def close_serving(torch, details, out, mm, httpd, lm, grammar=False):
     """Stop a serving path's server and model manager; with ``out``, time
-    a decode step on its engine and record the path."""
+    a decode step on its engine (``grammar``: also with one slot on a
+    device-table JSON grammar) and record the path."""
     import gc
     httpd.shutdown()
     httpd.server_close()
     mm.shutdown()
     if out is not None:
         # the scheduler has stopped: drive its engine directly
-        out["step"] = step_breakdown(torch, lm.engine)
+        out["step"] = step_breakdown(
+            torch, lm.engine, tokenizer=lm.tokenizer if grammar else None)
         details.setdefault("serving", []).append(out)
     del lm
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def step_breakdown(torch, engine, n_slots: int = 8, n: int = 16) -> dict:
+def step_breakdown(torch, engine, n_slots: int = 8, n: int = 16,
+                   tokenizer=None) -> dict:
     """One decode dispatch of ``n`` steps for ``n_slots`` greedy slots
     (200-token prompts), straight on the engine after its scheduler has
     stopped: the host clock for enqueueing it and for finishing it, and
     the device's busy time from ``torch.profiler`` (the kernels' own
-    times; "not measured" when the profiler records none)."""
+    times; "not measured" when the profiler records none). With
+    ``tokenizer``, the same dispatch again with slot 0 on a device-table
+    JSON grammar (an 8-state ``GrammarTable`` of the tokenizer, the slot
+    at its start state): its kernels a step and busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     from ollama_operator_tpu_torch.runtime.engine import SlotOptions
@@ -1000,20 +1062,48 @@ def step_breakdown(torch, engine, n_slots: int = 8, n: int = 16) -> dict:
     t_enqueue = time.perf_counter() - t0
     handle.wait()
     t_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine.decode_n_launch(n).wait()
     cuda = getattr(torch.autograd.DeviceType, "CUDA", None)
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == cuda]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
+
+    def profiled():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.decode_n_launch(n).wait()
+        return [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == cuda]
+
+    kernels = profiled()
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
     by_name = collections.Counter()
     for e in kernels:    # names cut to 100 characters, their times summed
         by_name[e.key[:100]] += dev_us(e) / 1e3 / n
+    grammar = None
+    if tokenizer is not None:
+        from ollama_operator_tpu_torch.ops.constrain import (GrammarTable,
+                                                             TokenTable)
+        gt = GrammarTable.for_table(TokenTable.for_tokenizer(tokenizer),
+                                    cap=8)
+        if not engine.install_grammar(("step", id(gt)), gt.mask, gt.trans):
+            raise RuntimeError("the engine refused the grammar table")
+        engine.set_mask(0, gt.mask[0], gid=0)
+        engine.decode_n_launch(4).wait()
+        engine.set_mask(0, gt.mask[0], gid=0)
+        t0 = time.perf_counter()
+        handle = engine.decode_n_launch(n)
+        g_enqueue = time.perf_counter() - t0
+        handle.wait()
+        g_wall = time.perf_counter() - t0
+        engine.set_mask(0, gt.mask[0], gid=0)
+        gk = profiled()
+        g_ms = sum(dev_us(e) for e in gk) / 1e3 / n
+        grammar = {"kernel_launches_per_step": (
+            sum(e.count for e in gk) / n if gk else "not measured"),
+            "device_busy_ms_per_step": g_ms if gk else "not measured",
+            "host_enqueue_ms_per_step": g_enqueue * 1e3 / n,
+            "wall_ms_per_step": g_wall * 1e3 / n}
     for slot in range(n_slots):
         engine.release(slot)
     out = {"slots": n_slots, "steps": n,
@@ -1024,12 +1114,19 @@ def step_breakdown(torch, engine, n_slots: int = 8, n: int = 16) -> dict:
                                  if kernels else "not measured"),
            "kernel_launches_per_step": (sum(e.count for e in kernels) / n
                                         if kernels else "not measured"),
-           "top_kernels_ms_per_step": dict(by_name.most_common(8))}
+           "top_kernels_ms_per_step": dict(by_name.most_common(8)),
+           "one_slot_on_a_json_grammar": grammar}
     print(f"decode step ({n_slots} slots, {n} steps): host enqueue "
           f"{out['host_enqueue_ms_per_step']:.2f} ms/step, wall "
           f"{out['wall_ms_per_step']:.2f} ms/step, device busy "
           f"{out['device_busy_ms_per_step']} ms/step, launches/step "
-          f"{out['kernel_launches_per_step']}", flush=True)
+          f"{out['kernel_launches_per_step']}"
+          + (f"; with slot 0 on a device-table json grammar: launches/step "
+             f"{grammar['kernel_launches_per_step']}, device busy "
+             f"{grammar['device_busy_ms_per_step']} ms/step, host enqueue "
+             f"{grammar['host_enqueue_ms_per_step']:.2f} ms/step, wall "
+             f"{grammar['wall_ms_per_step']:.2f} ms/step"
+             if grammar else ""), flush=True)
     return out
 
 
@@ -1214,23 +1311,6 @@ def prefix_phase(torch, details, lm) -> dict:
             res = r if r is not None else res
         return res
 
-    def concurrent(fns):
-        outs, errors = [None] * len(fns), []
-
-        def go(i):
-            try:
-                outs[i] = fns[i]()
-            except Exception as ex:  # noqa: BLE001 — reported below
-                errors.append(f"request {i}: {ex!r}")
-        ts = [threading.Thread(target=go, args=(i,)) for i in range(len(fns))]
-        for t in ts:
-            t.start()
-        for t in ts:
-            t.join(timeout=900)
-        if errors or any(t.is_alive() for t in ts):
-            raise RuntimeError(f"requests failed: {errors}")
-        return outs
-
     out = {}
     # (a) shared prefix
     prefix = ids(1000)
@@ -1241,7 +1321,7 @@ def prefix_phase(torch, details, lm) -> dict:
     tails = [24, 49, 74, 99, 124, 149, 174, 200]
     prompts = [prefix + ids(n) for n in tails]
     t0 = time.perf_counter()
-    shared = concurrent([lambda p=p: run(p, 32) for p in prompts])
+    shared, _ = concurrent([lambda p=p: run(p, 32) for p in prompts])
     wall = time.perf_counter() - t0
     bad = [(i, r.reused_tokens, r.generated_tokens)
            for i, r in enumerate(shared)
@@ -1787,7 +1867,7 @@ class PortServer:
         return self.proc.returncode
 
 
-def gguf_phase(torch, details, card: str, workdir: str) -> dict:
+def gguf_phase(torch, details, card: str, workdir: str):
     """Path 9: write llama3.2:3b (full width and depth) as a GGUF from the
     seed, serve it from a loopback registry, pull it with the port's
     store server (``--store-only``) and pull CLI, load it with the port's
@@ -1795,9 +1875,10 @@ def gguf_phase(torch, details, card: str, workdir: str) -> dict:
     then int8 weights, an int8 paged pool), serve 8 concurrent greedy
     requests, restart the server to load from the transcode cache, and
     hold its greedy streams against ``ModelManager.preload`` of the same
-    ``load_model`` tree in this process. Returns the launch counts of the
-    8 requests, read from the server's /api/ps just before and just after
-    them."""
+    ``load_model`` tree in this process; path 10 (``chat_phase``) runs on
+    the restarted server before it stops. Returns the launch counts of
+    path 9's 8 requests and of path 10, each read from the server's
+    /api/ps just before and just after them, and the GGUF's tokenizer."""
     from ollama_operator_tpu_torch.convert import params_from_numpy
     from ollama_operator_tpu_torch.gguf.transcode import load_model
     from ollama_operator_tpu_torch.models.config import get_config
@@ -1817,7 +1898,7 @@ def gguf_phase(torch, details, card: str, workdir: str) -> dict:
     g = write_gguf_model(os.path.join(workdir, "model.gguf"), cfg)
     out["gguf_bytes"] = g["bytes"]
     out["write_gguf_s"] = time.perf_counter() - t0
-    for name, text in (("template", "{{ .Prompt }}"),
+    for name, text in (("template", CHAT_TEMPLATE),
                        ("params", json.dumps({"temperature": 0})),
                        ("config", json.dumps({"model_format": "gguf"}))):
         with open(os.path.join(workdir, name), "w") as f:
@@ -1882,28 +1963,11 @@ def gguf_phase(torch, details, card: str, workdir: str) -> dict:
         post(ms.port, {"model": ref, "prompt": "warm up",
                            "stream": False, "options": opts})
         before = ms.launches()
-        results, errors = [None] * len(prompts), []
-
-        def run(i):
-            try:
-                results[i] = post(ms.port, {"model": ref,
-                                                "prompt": prompts[i],
-                                                "options": opts})
-            except Exception as ex:  # noqa: BLE001 — reported below
-                errors.append(f"request {i}: {ex!r}")
-
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=run, args=(i,))
-                   for i in range(len(prompts))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        wall = time.perf_counter() - t0
+        results, wall = concurrent([
+            lambda p=p: post(ms.port, {"model": ref, "prompt": p,
+                                       "options": opts}) for p in prompts])
         after = ms.launches()
         launches = {k: after[k] - before[k] for k in after}
-        if errors or any(t.is_alive() for t in threads):
-            raise RuntimeError(f"path 9 requests failed: {errors}")
         for i, r in enumerate(results):
             if not r.get("done") or r.get("eval_count") != 32:
                 raise RuntimeError(f"path 9 request {i} ended {r}")
@@ -1942,6 +2006,8 @@ def gguf_phase(torch, details, card: str, workdir: str) -> dict:
         served = [post(ms2.port, {"model": ref, "prompt": p,
                                       "stream": False, "options": opts})
                   for p in prompts]
+        # path 10 on the same server
+        chat = chat_phase(card, ms2, ref)
         if ms2.stop() != 0:
             raise RuntimeError(f"model server stopped badly: {ms2.tail()}")
     finally:
@@ -1962,9 +2028,10 @@ def gguf_phase(torch, details, card: str, workdir: str) -> dict:
         paged=None, n_pages=None,
         cache_dtype=resolve_kv_dtype_default("cuda")), gcfg, "cuda")
     mm = ModelManager()
+    tokenizer = Tokenizer.from_gguf_metadata(tok_md)
     lm = mm.preload(GGUF_MODEL, gcfg, params_from_numpy(params, "cuda"),
-                    Tokenizer.from_gguf_metadata(tok_md), dtype="int8",
-                    template="{{ .Prompt }}", ecfg=ecfg)
+                    tokenizer, dtype="int8", template=CHAT_TEMPLATE,
+                    ecfg=ecfg)
     del params
     out["preload_s"] = time.perf_counter() - t0
     try:
@@ -2006,7 +2073,506 @@ def gguf_phase(torch, details, card: str, workdir: str) -> dict:
           f"{launches}; HTTP streams equal to preload of the same tree: "
           f"{out['gate_streams_equal']}", flush=True)
     details["gguf_path"] = out
-    return launches
+    details["chat_path"] = chat
+    return launches, chat["launches"], tokenizer
+
+
+# ---------------------------------------------------------------------------
+# 8. Path 10: chat, the OpenAI routes, tools and structured output on path
+# 9's server, then the grammar cross-check in this process
+# ---------------------------------------------------------------------------
+
+CHAT_PATH = "llama3.2:3b GGUF, chat and structured output: int8 paged (v3) KV"
+# a llama3-style template: the chat turns and the tools when the request
+# carries messages, the bare prompt otherwise (path 9's /api/generate)
+CHAT_TEMPLATE = (
+    "{{ if .Messages }}"
+    "{{ if .Tools }}<|start_header_id|>system<|end_header_id|>\n\n"
+    "You may call one of these tools. To call one, answer with a JSON "
+    "object {\"name\": <the tool>, \"arguments\": {...}}.\n"
+    "{{ range .Tools }}{{ json .Function }}\n{{ end }}<|eot_id|>{{ end }}"
+    "{{ range .Messages }}<|start_header_id|>{{ .Role }}<|end_header_id|>"
+    "\n\n{{ .Content }}{{ if .ToolCalls }}{{ range .ToolCalls }}"
+    "{{ json .Function }}{{ end }}{{ end }}<|eot_id|>{{ end }}"
+    "<|start_header_id|>assistant<|end_header_id|>\n\n"
+    "{{ else }}{{ .Prompt }}{{ end }}")
+# an object with a string, an integer, an enum and an array: inside the
+# subset ops/schema.py compiles
+PERSON_SCHEMA = {"type": "object", "properties": {
+    "name": {"type": "string"}, "age": {"type": "integer"},
+    "kind": {"enum": ["cat", "dog", "bird"]},
+    "tags": {"type": "array", "items": {"type": "string"}}}}
+TOOLS = [{"type": "function", "function": {
+    "name": name, "description": f"the {what} in a city",
+    "parameters": {"type": "object", "properties": {
+        "city": {"type": "string"}}, "required": ["city"]}}}
+    for name, what in (("get_weather", "weather"), ("get_time", "time"))]
+# forces an invocation of one of TOOLS: the reply must parse as tool_calls
+CALL_SCHEMA = {"type": "object", "properties": {
+    "name": {"enum": ["get_weather", "get_time"]},
+    "arguments": {"type": "object", "properties": {
+        "city": {"enum": ["paris", "tokyo", "lima"]}}}}}
+CHAT_COUNTERS = ("flash_prefill", "paged_decode", "qmm")
+
+
+def json_prefix_ok(text: str, schema=None) -> bool:
+    """Is ``text`` a prefix the port's JSON automaton (or, with
+    ``schema``, its schema machine) accepts?"""
+    from ollama_operator_tpu_torch.ops import constrain as C
+    from ollama_operator_tpu_torch.ops import schema as S
+    data = text.encode()
+    if schema is None:
+        return C.advance_bytes(C.INITIAL_STATE, data) is not None
+    sch = S.compile_schema(schema)
+    st = S.machine_init(sch.root)
+    for b in data:
+        st = S.machine_advance(sch.root, st, b)
+        if st is None:
+            return False
+    return True
+
+
+def person_ok(obj) -> bool:
+    return (isinstance(obj, dict)
+            and list(obj) == ["name", "age", "kind", "tags"]
+            and isinstance(obj["name"], str)
+            and isinstance(obj["age"], int)
+            and obj["kind"] in ("cat", "dog", "bird")
+            and all(isinstance(t, str) for t in obj["tags"]))
+
+
+def chat_phase(card: str, ms, ref: str) -> dict:
+    """Path 10 on path 9's model server ``ms`` (llama3.2:3b at full width
+    and depth, int8 weights, int8 paged pool, the GGUF's 128256-piece
+    vocabulary, the chat template layer): (a) 8 concurrent streamed chats
+    on a shared system message, two turns each; (b) the OpenAI routes;
+    (c) structured output (format json and a schema, response_format);
+    (d) tools. Returns the record; its ``launches`` are read from the
+    server's /api/ps just before and just after the phase."""
+    out = {"model": GGUF_MODEL, "card": card}
+    port = ms.port
+    words = GGUF_WORDS
+    system = " ".join(words[(7 * i) % len(words)] for i in range(420))
+    before = ms.launches()
+    t_phase = time.perf_counter()
+
+    def chat(messages, stream, **kw):
+        body = {"model": ref, "messages": messages, "stream": stream,
+                "options": dict({"temperature": 0, "num_predict": 64},
+                                **kw.pop("options", {}))}
+        body.update(kw)
+        return lambda: http(port, "/api/chat", body)
+
+    def ps_prefix():
+        return ms.get("/api/ps")["models"][0]["prefix_cache"]
+
+    # (a) 8 conversations, two turns. A turn: the measured streamed round;
+    # then a non-streamed twin of each request, a one-token twin, and a
+    # streamed twin, which all extend the same cached prefix (the whole
+    # prompt but its last token) and so run the same computation: the
+    # streamed twin's text must equal the non-streamed one's, and its
+    # first frame must be the first token's text alone
+    chat([{"role": "system", "content": system},
+          {"role": "user", "content": "warm up"}], False,
+         options={"num_predict": 4})()
+    convs = [[{"role": "system", "content": system},
+              {"role": "user", "content": " ".join(
+                  words[(i + j) % len(words)] for j in range(6 + 3 * i))}]
+             for i in range(8)]
+    turns = []
+    for turn in range(2):
+        hits0 = ps_prefix()
+        rounds, wall = concurrent([chat(c, True) for c in convs])
+        hits1 = ps_prefix()
+        twins, _ = concurrent([chat(c, False) for c in convs])
+        ones, _ = concurrent([chat(c, False, options={"num_predict": 1})
+                              for c in convs])
+        again, _ = concurrent([chat(c, True) for c in convs])
+        rec = {"ttft_ms": [], "frames": [], "eval_count": [],
+               "prompt_tokens": [], "wall_s": wall}
+        for i in range(8):
+            _, frames, times = rounds[i]
+            fin = frames[-1]
+            n = fin["eval_count"]
+            if not fin["done"] or n != 64:
+                raise RuntimeError(f"chat {i} turn {turn} ended {fin}")
+            for fr in (frames, again[i][1]):
+                if len(fr) - 1 > -(-fr[-1]["eval_count"] // 16) + 2:
+                    raise RuntimeError(f"chat {i}: {len(fr) - 1} frames "
+                                       f"for {fr[-1]['eval_count']} tokens")
+            text = "".join(f["message"]["content"] for f in again[i][1][:-1])
+            want = twins[i][1][0]["message"]["content"]
+            if text != want:
+                raise RuntimeError(f"chat {i} turn {turn}: the stream's text "
+                                   f"differs from the same request not "
+                                   f"streamed")
+            first = ones[i][1][0]["message"]["content"]
+            if ("\ufffd" not in first
+                    and again[i][1][0]["message"]["content"] != first):
+                raise RuntimeError(f"chat {i} turn {turn}: the first frame "
+                                   f"is not the first token alone")
+            rec["ttft_ms"].append(times[0] * 1e3)
+            rec["frames"].append(len(frames) - 1)
+            rec["eval_count"].append(n)
+            rec["prompt_tokens"].append(fin["prompt_eval_count"])
+        rec["tok_s"] = sum(rec["eval_count"]) / wall
+        rec["reused_tokens"] = hits1["hit_tokens"] - hits0["hit_tokens"]
+        rec["prefilled_tokens"] = hits1["miss_tokens"] - hits0["miss_tokens"]
+        rec["stream_equals_twin"] = "8/8"
+        turns.append(rec)
+        convs = [c + [{"role": "assistant",
+                       "content": twins[i][1][0]["message"]["content"]},
+                      {"role": "user", "content": "and then what"}]
+                 for i, c in enumerate(convs)]
+        t = sorted(rec["ttft_ms"])
+        print(f"path 10 (a) [{card}] turn {turn + 1}: 8 streamed chats x 64 "
+              f"tokens in {wall:.3f} s: {rec['tok_s']:.1f} tok/s; TTFT ms "
+              f"min {t[0]:.1f} median {t[4]:.1f} max {t[-1]:.1f}; prompt "
+              f"tokens {rec['prompt_tokens']}; reused "
+              f"{rec['reused_tokens']} / prefilled "
+              f"{rec['prefilled_tokens']} prompt tokens; frames a response "
+              f"{rec['frames']}", flush=True)
+    out["chat"] = turns
+
+    # (b) the OpenAI routes
+    msgs = convs[0][:2]
+    _, oai, _ = http(port, "/v1/chat/completions", {
+        "model": ref, "messages": msgs, "temperature": 0, "max_tokens": 32})
+    _, ol, _ = http(port, "/api/chat", {
+        "model": ref, "messages": msgs, "stream": False,
+        "options": {"temperature": 0, "num_predict": 32}})
+    usage = oai[0]["usage"]
+    if (usage["prompt_tokens"], usage["completion_tokens"],
+            usage["total_tokens"]) != (
+            ol[0]["prompt_eval_count"], ol[0]["eval_count"],
+            ol[0]["prompt_eval_count"] + ol[0]["eval_count"]):
+        raise RuntimeError(f"usage {usage} is not the Ollama counts {ol[0]}")
+    _, sse, _ = http(port, "/v1/chat/completions", {
+        "model": ref, "messages": msgs, "temperature": 0, "max_tokens": 32,
+        "stream": True})
+    if (sse[-1] != "[DONE]" or sse[0]["choices"][0]["delta"]["role"]
+            != "assistant"
+            or sse[-2]["choices"][0]["finish_reason"] != "length"):
+        raise RuntimeError(f"SSE stream malformed: {sse[:2]} {sse[-2:]}")
+    _, cmpl, _ = http(port, "/v1/completions", {
+        "model": ref, "prompt": "paged attention", "max_tokens": 16,
+        "temperature": 0})
+    if (cmpl[0]["usage"]["completion_tokens"] != 16
+            or cmpl[0]["choices"][0]["finish_reason"] != "length"):
+        raise RuntimeError(f"/v1/completions answered {cmpl[0]}")
+    _, models, _ = http(port, "/v1/models")
+    ids = [m["id"] for m in models[0]["data"]]
+    if not any(GGUF_REPO[1] in i for i in ids):
+        raise RuntimeError(f"/v1/models lists {ids}")
+    out["openai"] = {"usage": usage, "sse_frames": len(sse),
+                     "models": ids}
+    print(f"path 10 (b) [{card}]: /v1/chat/completions usage {usage} equals "
+          f"/api/chat's counts; SSE {len(sse)} events ending [DONE]; "
+          f"/v1/completions {cmpl[0]['usage']}; /v1/models {ids}",
+          flush=True)
+
+    # (c) structured output, greedy
+    def gen(prompt, fmt, n=96):
+        return lambda: http(port, "/api/generate", {
+            "model": ref, "prompt": prompt, "format": fmt, "stream": False,
+            "options": {"temperature": 0, "num_predict": n}})
+
+    def tok_s(fin):
+        return fin["eval_count"] / max(fin["eval_duration"] / 1e9, 1e-9)
+
+    structured = {}
+    outputs = []
+    for label, call in (
+            ("json first", gen("a json object about cats", "json")),
+            ("json repeat", gen("a json object about cats", "json")),
+            ("schema first", gen("a person as json", PERSON_SCHEMA)),
+            ("schema repeat", gen("a person as json", PERSON_SCHEMA))):
+        t0 = time.perf_counter()
+        fin = call()[1][-1]
+        structured[label] = {
+            "ttft_ms": fin["prompt_eval_duration"] / 1e6,
+            "total_s": time.perf_counter() - t0, "tok_s": tok_s(fin),
+            "done_reason": fin["done_reason"], "eval_count":
+            fin["eval_count"]}
+        outputs.append((label, fin["response"], fin["done_reason"],
+                        None if label.startswith("json") else PERSON_SCHEMA))
+    # most greedy json outputs of these weights stop after a few tokens,
+    # inside one dispatch: find a prompt whose output runs to num_predict
+    # for the json tok/s alone and beside 7 free requests
+    json_prompt = None
+    for i in range(16):
+        prompt = " ".join(words[(3 * i + j) % len(words)]
+                          for j in range(4 + i % 9))
+        fin = gen(prompt, "json")()[1][-1]
+        outputs.append((f"json {prompt!r}", fin["response"],
+                        fin["done_reason"], None))
+        if fin["done_reason"] == "length":
+            json_prompt = prompt
+            structured["json to num_predict"] = {
+                "prompt": prompt, "tok_s": tok_s(fin),
+                "eval_count": fin["eval_count"]}
+            break
+    _, fr, _ = chat([{"role": "user", "content": "answer in json"}], False,
+                    format="json")()
+    outputs.append(("chat json", fr[0]["message"]["content"],
+                    fr[0]["done_reason"], None))
+    for label, rf, schema in (
+            ("openai json_object", {"type": "json_object"}, None),
+            ("openai json_schema", {"type": "json_schema", "json_schema": {
+                "name": "person", "schema": PERSON_SCHEMA}}, PERSON_SCHEMA)):
+        _, o, _ = http(port, "/v1/chat/completions", {
+            "model": ref, "temperature": 0, "max_tokens": 96,
+            "response_format": rf,
+            "messages": [{"role": "user", "content": "a person please"}]})
+        ch = o[0]["choices"][0]
+        outputs.append((label, ch["message"]["content"], ch["finish_reason"],
+                        schema))
+    # beside 7 unconstrained requests: the constrained one streams a
+    # frame a piece, so its tokens delivered while the 7 run are counted
+    for label, fmt in (("json", "json"), ("schema", PERSON_SCHEMA)):
+        t0 = time.perf_counter()
+
+        def timed(call):
+            def run():
+                r = call()
+                return r, time.perf_counter() - t0
+            return run
+        body = {"model": ref, "format": fmt,
+                "prompt": ((json_prompt or "a json object about dogs")
+                           if fmt == "json" else "a person as json"),
+                "options": {
+                    "temperature": 0, "num_predict": 96,
+                    "stream_flush_tokens": 1, "stream_flush_ms": 0}}
+        calls = [timed(lambda: http(port, "/api/generate", body))] + [
+            timed(gen(" ".join(words[(i + j) % len(words)]
+                               for j in range(20)), None))
+            for i in range(7)]
+        res, wall = concurrent(calls)
+        (_, frames, times), t_end = res[0][0], res[0][1]
+        fin = frames[-1]
+        t_free = max(r[1] for r in res[1:])
+        lag = t_end - times[-1]       # this call's start after t0
+        n_beside = sum(1 for t in times[:-1] if t + lag <= t_free)
+        structured[f"{label} beside 7 free"] = {
+            "tokens_while_free_run": n_beside,
+            "tok_s_while_free_run": n_beside / t_free,
+            "free_tok_s_median": sorted(
+                tok_s(r[0][1][-1]) for r in res[1:])[3],
+            "free_wall_s": t_free, "tok_s_whole": tok_s(fin),
+            "wall_s": wall}
+        outputs.append((f"{label} beside 7",
+                        "".join(f["response"] for f in frames),
+                        fin["done_reason"],
+                        None if fmt == "json" else PERSON_SCHEMA))
+    checked = []
+    for label, text, reason, schema in outputs:
+        if not json_prefix_ok(text, schema):
+            raise RuntimeError(f"{label}: {text!r} is not a valid prefix")
+        complete = reason == "stop"
+        if complete:
+            obj = json.loads(text)
+            if schema is not None and not person_ok(obj):
+                raise RuntimeError(f"{label}: {obj} does not fit the schema")
+        checked.append({"label": label, "done_reason": reason,
+                        "complete": complete, "chars": len(text)})
+    structured["outputs"] = checked
+    out["structured"] = structured
+    s = structured
+    print(f"path 10 (c) [{card}]: format json first request TTFT "
+          f"{s['json first']['ttft_ms']:.1f} ms, "
+          f"{s['json first']['total_s']:.3f} s in all (the device table "
+          f"builds between its first and second token); repeat TTFT "
+          f"{s['json repeat']['ttft_ms']:.1f} ms, "
+          f"{s['json repeat']['total_s']:.3f} s; schema first "
+          f"{s['schema first']['total_s']:.3f} s, repeat "
+          f"{s['schema repeat']['total_s']:.3f} s; tok/s alone: json "
+          f"running to num_predict "
+          f"{s.get('json to num_predict', {}).get('tok_s', 'not found')}, "
+          f"schema {s['schema repeat']['tok_s']:.1f}; beside 7 free (while "
+          f"they run): json "
+          f"{s['json beside 7 free']['tok_s_while_free_run']:.2f} (free "
+          f"median "
+          f"{s['json beside 7 free']['free_tok_s_median']:.1f}), schema "
+          f"{s['schema beside 7 free']['tok_s_while_free_run']:.2f} (free "
+          f"median {s['schema beside 7 free']['free_tok_s_median']:.1f});"
+          f" outputs {checked}", flush=True)
+
+    # (d) tools
+    tool_msgs = [{"role": "system", "content": system[:400]},
+                 {"role": "user", "content": "what is the weather"}]
+    names = [t["function"]["name"] for t in TOOLS]
+    tools = {}
+    for stream in (False, True):
+        _, fr, _ = http(port, "/api/chat", {
+            "model": ref, "messages": tool_msgs, "tools": TOOLS,
+            "format": CALL_SCHEMA, "stream": stream,
+            "options": {"temperature": 0, "num_predict": 64}})
+        msg = fr[0]["message"]
+        calls = msg.get("tool_calls") or []
+        if (not calls or calls[0]["function"]["name"] not in names
+                or len(fr) != (2 if stream else 1)):
+            raise RuntimeError(f"/api/chat tools (stream {stream}): {fr}")
+        tools[f"api_chat stream={stream}"] = calls[0]["function"]
+        _, o, _ = http(port, "/v1/chat/completions", {
+            "model": ref, "messages": tool_msgs, "tools": TOOLS,
+            "temperature": 0, "max_tokens": 64, "stream": stream,
+            "response_format": {"type": "json_schema",
+                                "json_schema": {"schema": CALL_SCHEMA}}})
+        if stream:
+            delta = o[0]["choices"][0]["delta"]
+            finish = o[1]["choices"][0]["finish_reason"]
+            calls = delta.get("tool_calls") or []
+        else:
+            finish = o[0]["choices"][0]["finish_reason"]
+            calls = o[0]["choices"][0]["message"].get("tool_calls") or []
+        if (finish != "tool_calls" or not calls
+                or calls[0]["function"]["name"] not in names):
+            raise RuntimeError(f"/v1/chat/completions tools (stream "
+                               f"{stream}): {o}")
+        tools[f"openai stream={stream}"] = calls[0]["function"]
+    _, fr, _ = http(port, "/api/chat", {
+        "model": ref, "messages": tool_msgs, "tools": TOOLS, "stream": False,
+        "options": {"temperature": 0, "num_predict": 32}})
+    msg = fr[0]["message"]
+    if msg["role"] != "assistant" or not isinstance(
+            msg.get("tool_calls", msg.get("content")), (list, str)):
+        raise RuntimeError(f"/api/chat tools without a schema: {msg}")
+    tools["without a schema"] = ("tool_calls" if msg.get("tool_calls")
+                                 else "content")
+    out["tools"] = tools
+    after = ms.launches()
+    launches = {k: after[k] - before[k] for k in after}
+    missing = [k for k in CHAT_COUNTERS if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"path 10 launches {launches}: not launched "
+                           f"{missing}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"path 10 (d) [{card}]: tool calls {tools}; launches {launches}; "
+          f"(a)-(d) took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def escape_walk(gt, table, tokens) -> int:
+    """The escapes a device-table run of ``tokens`` (a request's stream
+    after its first token's state is known) would make: steps from a
+    tabled state to one outside the table by a legal, non-EOG token."""
+    from ollama_operator_tpu_torch.ops.constrain import (INITIAL_STATE,
+                                                         advance_bytes)
+    st, n = INITIAL_STATE, 0
+    for i, t in enumerate(tokens):
+        nxt = advance_bytes(st, table.pieces[t]) if table.pieces[t] else None
+        if nxt is None:
+            break
+        if i > 0 and gt.state_id(st) >= 0 and gt.state_id(nxt) < 0:
+            n += 1
+        st = nxt
+    return n
+
+
+def grammar_cross_check(torch, details, card: str, tokenizer) -> dict:
+    """(e) In this process: llama3.2:3b at full width and two layers with
+    int8 weights and the GGUF's tokenizer, on the paged int8 pool and on
+    the dense bf16 cache. Greedy ``format: "json"`` streams with the
+    device table at 64 states and at 4 states must equal the streams with
+    host masks (``TPU_GRAMMAR_DEVICE=0``), and the 4-state table must be
+    left at least once. Also times the table builds on this host."""
+    import gc
+
+    from ollama_operator_tpu_torch.models.config import get_config
+    from ollama_operator_tpu_torch.ops.constrain import (GrammarTable,
+                                                         TokenTable)
+    from ollama_operator_tpu_torch.runtime.service import LoadedModel
+    from ollama_operator_tpu_torch.server.app import apply_engine_dtype
+    cfg = dataclasses.replace(get_config(GGUF_MODEL), n_layers=2)
+    params = apply_engine_dtype(dense_params(torch, cfg), "int8", "cuda")
+    out = {"model": GGUF_MODEL, "layers": 2, "card": card}
+    t0 = time.perf_counter()
+    table = TokenTable.for_tokenizer(tokenizer)
+    out["token_table_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g64 = GrammarTable.for_table(table, cap=64)
+    out["grammar_table_64_s"] = time.perf_counter() - t0
+    out["grammar_table_64_states"] = g64.n_states
+    t0 = time.perf_counter()
+    g4 = GrammarTable.for_table(table, cap=4)
+    out["grammar_table_4_s"] = time.perf_counter() - t0
+    words = GGUF_WORDS
+
+    def prompts(lo, hi):
+        return [" ".join(words[(3 * i + j) % len(words)]
+                         for j in range(4 + i % 9)) for i in range(lo, hi)]
+
+    def run(cache, knob, ps):
+        env = {"TPU_GRAMMAR_DEVICE": "0" if knob == "host" else "1",
+               "TPU_GRAMMAR_STATES": "4" if knob == "device-4" else "64"}
+        with mock.patch.dict(os.environ, env):
+            lm = LoadedModel(GGUF_MODEL, cfg, params, tokenizer,
+                             template=CHAT_TEMPLATE, device="cuda",
+                             kv_dtype=cache[0], paged=cache[1])
+        try:
+            res = [_final(lm.generate_stream(
+                p, {"temperature": 0, "num_predict": 64}, format="json"))
+                for p in ps]
+            return res, lm.scheduler.n_grammar_escapes
+        finally:
+            lm.unload()
+            del lm
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    for cache in (("int8", True), ("bfloat16", False)):
+        name = f"{cache[0]} {'paged' if cache[1] else 'dense'}"
+        ps = prompts(0, 8)
+        host, _ = run(cache, "host", ps)
+        # more prompts until a 4-state walk would leave its table
+        while (sum(escape_walk(g4, table, r.context[r.prompt_tokens:])
+                   for r in host) == 0 and len(ps) < 32):
+            extra = prompts(len(ps), len(ps) + 8)
+            ps += extra
+            host += run(cache, "host", extra)[0]
+        rec = {"prompts": len(ps)}
+        for knob in ("device-64", "device-4"):
+            got, escapes = run(cache, knob, ps)
+            equal = sum(a.context == b.context for a, b in zip(host, got))
+            rec[knob] = {"streams_equal": f"{equal}/{len(ps)}",
+                         "escapes": escapes}
+            if equal != len(ps):
+                raise RuntimeError(f"(e) {name}: {knob} streams differ from "
+                                   f"host masks ({equal}/{len(ps)})")
+        if rec["device-4"]["escapes"] <= 0:
+            raise RuntimeError(f"(e) {name}: no escape from the 4-state "
+                               f"table")
+        for r in host:
+            if not json_prefix_ok(tokenizer.decode(
+                    r.context[r.prompt_tokens:])):
+                raise RuntimeError(f"(e) {name}: output is not JSON")
+        rec["done_reasons"] = dict(collections.Counter(
+            r.done_reason for r in host))
+        out[name] = rec
+        print(f"path 10 (e) [{card}] {name}: greedy json streams with the "
+              f"device table at 64 and 4 states equal host masks: "
+              f"{rec['device-64']['streams_equal']} / "
+              f"{rec['device-4']['streams_equal']}; escapes "
+              f"{rec['device-64']['escapes']} / {rec['device-4']['escapes']}"
+              f"; done {rec['done_reasons']}", flush=True)
+    print(f"path 10 (e) [{card}]: token table {out['token_table_s']:.2f} s, "
+          f"grammar table {g64.n_states} states "
+          f"{out['grammar_table_64_s']:.2f} s, 4 states "
+          f"{out['grammar_table_4_s']:.2f} s (this host, Python mask fill)",
+          flush=True)
+    details["grammar_cross_check"] = out
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _final(stream):
+    final = None
+    for _piece, res in stream:
+        final = res or final
+    return final
 
 
 def main() -> int:
@@ -2020,8 +2586,9 @@ def main() -> int:
                          "paged-decode wrappers (K6, K4, K5) at each paged "
                          "row, and fail unless its K6 gives the same bits")
     ap.add_argument("--gguf-only", action="store_true",
-                    help="build the kernels, then run path 9 (the pulled "
-                         "GGUF model) alone; no result line")
+                    help="build the kernels, then run paths 9 and 10 (the "
+                         "pulled GGUF model, its chat and structured "
+                         "output) alone; no result line")
     args = ap.parse_args()
     try:
         import torch
@@ -2128,15 +2695,17 @@ def main() -> int:
     if args.gguf_only:
         workdir = tempfile.mkdtemp(prefix="chip_smoke_gguf_")
         try:
-            gguf_phase(torch, details, card, workdir)
+            _, _, tokenizer = gguf_phase(torch, details, card, workdir)
+            grammar_cross_check(torch, details, card, tokenizer)
         except Exception as e:  # noqa: BLE001 — the phase's failure
             import traceback
             traceback.print_exc()
-            return fail(f"path 9: {e!r}")
+            return fail(f"paths 9 and 10: {e!r}")
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         write_details(out_dir, details)
-        print("gguf-only run: no kernel rows; no result", flush=True)
+        print("gguf-only run (paths 9 and 10): no kernel rows; no result",
+              flush=True)
         return 4
     try:
         timer = Timer(torch)
@@ -2181,7 +2750,7 @@ def main() -> int:
         try:
             prefix_phase(torch, details, kept[3])
         finally:
-            close_serving(torch, details, *kept)
+            close_serving(torch, details, *kept, grammar=True)
             kept = None
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
         prefix_cross_check(torch, details, "llama3.1", 4, "int8", 1000,
@@ -2202,13 +2771,17 @@ def main() -> int:
         with mock.patch.dict(os.environ, {"TPU_PAGED_V4": "1"}):
             cross_check(torch, details, "phi3", 8, "int8")
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
-        # 7. path 9: the pulled GGUF model, served by the port's processes
+        # 7. path 9: the pulled GGUF model, served by the port's processes,
+        # and path 10 on the same server
         workdir = tempfile.mkdtemp(prefix="chip_smoke_gguf_")
         try:
-            launches_by_path[GGUF_PATH] = gguf_phase(torch, details, card,
-                                                     workdir)
+            (launches_by_path[GGUF_PATH], launches_by_path[CHAT_PATH],
+             tokenizer) = gguf_phase(torch, details, card, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
+        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        # 8. path 10's grammar cross-check in this process
+        grammar_cross_check(torch, details, card, tokenizer)
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
     except Exception as e:  # noqa: BLE001 — every phase failure is fatal
         import traceback

@@ -18,14 +18,25 @@ on unless ``TPU_PREFIX_CACHE`` is 0) takes finished prefixes
 copied first). The surface the scheduler drives is the JAX engine's:
 ``admit``, ``extend``, ``decode_n_launch`` → ``DecodeHandle.wait``,
 ``prepare_decode``, ``release`` (``park``), ``can_admit``,
-``admissible``, ``free_slots``, ``bucket_for``, and the radix calls.
+``admissible``, ``free_slots``, ``bucket_for``, the radix calls, and the
+grammar calls (``set_mask``, ``clear_mask``, ``install_grammar``,
+``step_budgets``, ``spec_ack``).
+
+Grammar-constrained decoding (``ops/constrain.py``, ``ops/schema.py``) is
+the JAX engine's design: each slot may carry a packed allowed-token row
+that masks its logits before sampling, and a slot whose automaton state
+lies in the installed device grammar table (``TPU_GRAMMAR_DEVICE``, on by
+default; ``TPU_GRAMMAR_STATES`` states, 64 by default) reads its mask from
+that table and advances its state on the device every step, so it keeps
+the whole decode chunk; a host-masked slot takes one token a dispatch.
+A batch with no constrained slot runs none of this.
 
 PyTorch runs eagerly, so there is nothing to compile: a decode dispatch is
 the host loop that enqueues ``n`` steps on the device, and its handle
 waits on a CUDA event recorded after the last step (on the CPU the work is
 done by the time the launch returns). The host arena of the prefix cache,
-speculative decoding, grammars, mirostat and multi-device meshes are not
-ported yet.
+speculative decoding, mirostat and multi-device meshes are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -171,6 +182,16 @@ def resolve_cache_dtype(name_or_dtype, device=None
                          "its decode kernels take bfloat16, int8 or int4 "
                          "(paged) caches")
     return name_or_dtype
+
+
+def unpack_mask(mask_bits: torch.Tensor, V: int) -> torch.Tensor:
+    """Packed [..., ceil(V/32)] words → bool [..., V] allowed-token mask.
+
+    The words are the uint32 rows of ``ops/constrain.py`` held as int32
+    bit patterns (an arithmetic shift still leaves bit k at position 0)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=mask_bits.device)
+    bits = (mask_bits[..., None] >> shifts) & 1
+    return bits.reshape(*mask_bits.shape[:-1], -1)[..., :V] != 0
 
 
 def prefill_buckets(max_seq_len: int, min_bucket: int) -> List[int]:
@@ -466,6 +487,31 @@ class Engine:
         self._admit_order = np.zeros(B, np.int64)
         self._admit_seq = 0
         self._buckets = prefill_buckets(S, ecfg.min_prefill_bucket)
+        # grammar-constraint state: packed per-slot allowed-token rows
+        # (all ones + flag off = unconstrained; ops/constrain.py fills them)
+        self.mask_words = (V + 31) // 32
+        self.mask_bits = torch.full((B, self.mask_words), -1,
+                                    dtype=torch.int32, device=dev)
+        self._constrained = np.zeros(B, bool)
+        self._constr_dev = torch.zeros(B, dtype=torch.bool, device=dev)
+        # the device grammar program (ops/constrain.GrammarTable): gmask
+        # [G, mask_words] holds the packed mask of each tabled automaton
+        # state, gtrans [G, V] the successor state of each token (-1: the
+        # walk leaves the table). Each slot carries a state: >= 0 device-
+        # table mode (its mask is gmask[gstate], advanced on the device
+        # after sampling), -1 host-mask mode (its mask_bits row, one token
+        # a dispatch), -2 escaped (frozen until the host installs a fresh
+        # mask through set_mask)
+        self._gstates_cap = int(os.environ.get("TPU_GRAMMAR_STATES", "64"))
+        self._grammar_device = os.environ.get(
+            "TPU_GRAMMAR_DEVICE", "1").lower() not in ("0", "false")
+        self._gmask_dev = torch.zeros((self._gstates_cap, self.mask_words),
+                                      dtype=torch.int32, device=dev)
+        self._gtrans_dev = torch.full((self._gstates_cap, V), -1,
+                                      dtype=torch.int32, device=dev)
+        self._gstate = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        self._gdev_mode = np.zeros(B, bool)   # host mirror: gstate >= 0
+        self._gtable_key = None
         self._rebuild_slot_tensors()
 
     @property
@@ -531,10 +577,12 @@ class Engine:
                 and self.kv.fits_empty(self._ahead(n_tokens)))
 
     def admit(self, slot: int, prompt: np.ndarray,
-              opts: SlotOptions = SlotOptions()) -> int:
+              opts: SlotOptions = SlotOptions(),
+              mask_row: Optional[np.ndarray] = None) -> int:
         """Prefill ``prompt`` into ``slot``; returns the first sampled
-        token. Paged: raises :class:`PagesExhausted` when the pool cannot
-        hold the prompt plus one decode chunk."""
+        token, drawn under ``mask_row`` (a packed allowed-token row) when
+        one is given. Paged: raises :class:`PagesExhausted` when the pool
+        cannot hold the prompt plus one decode chunk."""
         if self.active[slot]:
             raise RuntimeError(f"slot {slot} busy")
         prompt = np.asarray(prompt, np.int64)
@@ -548,16 +596,19 @@ class Engine:
         tokens[0, :n] = prompt
         x, ks, vs = decoder.prefill_hidden(
             self.params, self.cfg, torch.from_numpy(tokens).to(self.device))
-        tok = self._sample_install(slot, prompt, x[:, n - 1], opts)
+        tok = self._sample_install(slot, prompt, x[:, n - 1], opts,
+                                   mask_row)
         self.kv.insert(self.cfg, ks, vs, slot, n)
         return tok
 
     def extend(self, slot: int, full_ids: np.ndarray, start: int,
-               opts: SlotOptions = SlotOptions()) -> int:
+               opts: SlotOptions = SlotOptions(),
+               mask_row: Optional[np.ndarray] = None) -> int:
         """Admit ``full_ids`` into ``slot`` reusing its cached first
         ``start`` positions (a parked conversation, a stitched radix
         prefix, or the pieces a chunked prefill has written); prefills
-        only the tail and returns the first sampled token. It runs on
+        only the tail and returns the first sampled token (drawn under
+        ``mask_row`` when one is given). It runs on
         every cache the port has (the paged pool: int8, int4, bf16/f32;
         the dense slot cache: bf16/f32, int8). The caller guarantees the slot's cache holds K/V for ``full_ids[:start]``;
         stale entries at positions >= start are never attended (masking
@@ -594,15 +645,18 @@ class Engine:
         x = self.kv.extend_hidden(
             self.params, self.cfg, torch.from_numpy(tokens).to(dev), slot,
             torch.tensor([start], dtype=torch.int32, device=dev), attn_len)
-        return self._sample_install(slot, full_ids, x[:, n_new - 1], opts)
+        return self._sample_install(slot, full_ids, x[:, n_new - 1], opts,
+                                    mask_row)
 
     def _sample_install(self, slot: int, prompt: np.ndarray, x_last,
-                        opts: SlotOptions) -> int:
+                        opts: SlotOptions,
+                        mask_row: Optional[np.ndarray] = None) -> int:
         """Shared admission tail of ``admit`` and ``extend``: the penalty
         window over the last ``rln`` prompt tokens, the slot's seed
         (from the slot and the full prompt length), the first token
         sampled from the last prompt row's hidden state ``x_last`` [1, D]
-        and pushed through the window, and the slot state installed."""
+        (its logits masked by ``mask_row`` when one is given) and pushed
+        through the window, and the slot state installed."""
         cfg, dev, V = self.cfg, self.device, self.cfg.vocab_size
         n = int(prompt.shape[0])
         rln = self._resolve_rln(opts)
@@ -622,6 +676,9 @@ class Engine:
         row = sampling.SamplingParams.from_rows([dataclasses.asdict(opts)],
                                                 dev)
         logits = decoder._unembed(cfg, self.params, x_last)
+        if mask_row is not None:
+            allowed = unpack_mask(self._words(mask_row), V)
+            logits = logits.masked_fill(~allowed[None], sampling.NEG_INF)
         counts_dev = torch.from_numpy(counts).to(dev)
         tok = int(sampling.sample(logits, counts_dev[None, :V], row,
                                   [self._generator(slot, n - 1)])[0])
@@ -673,7 +730,17 @@ class Engine:
         Paged: pages freed after this launch stay fenced until
         :meth:`retire` gets its epoch; raises :class:`PagesExhausted` when
         the pool cannot cover the chunk — callers that preempt run
-        :meth:`prepare_decode` themselves."""
+        :meth:`prepare_decode` themselves.
+
+        With a constrained slot in the batch, each step masks the logits
+        of the constrained slots (the device table's row for a slot in
+        device-table mode, its host row otherwise), advances the device
+        automaton by the sampled token (a transition out of the table
+        escapes to -2, which freezes the slot for the rest of the
+        dispatch), and freezes each slot once the step index reaches its
+        budget (:meth:`step_budgets`). Host lengths advance by the
+        budgets; the caller rolls back what an escaped slot did not use
+        through :meth:`spec_ack`."""
         n = n or self.ecfg.decode_chunk
         victims = self.prepare_decode(n)
         if victims:
@@ -681,21 +748,45 @@ class Engine:
         cfg, dev, V = self.cfg, self.device, self.cfg.vocab_size
         step = self.kv.stepper(self._attn_bucket(n))
         active = self._active_dev
-        act_b = active.bool()
-        live = act_b & (self._rln_dev > 0)
+        budgets = self.step_budgets(n)
+        constrained = bool(self._constrained.any())
+        if constrained:
+            budgets_dev = torch.from_numpy(budgets).to(dev)
+            G = self._gmask_dev.shape[0]
+        else:
+            act_b = active.bool()
+            live = act_b & (self._rln_dev > 0)
         rmod = self._rln_dev.clamp(min=1)
         sentinel = torch.full((self.n_slots,), V, dtype=torch.int64,
                               device=dev)
         ones = torch.ones((self.n_slots, 1), dtype=torch.int32, device=dev)
         toks = torch.empty((n, self.n_slots), dtype=torch.int64, device=dev)
         for t in range(n):
+            if constrained:
+                # a slot freezes past its budget, and once it escaped
+                active = (self._active_dev * (t < budgets_dev)
+                          * (self._gstate != -2))
+                act_b = active.bool()
+                live = act_b & (self._rln_dev > 0)
             logits, _, _ = step(self.params, cfg, self.last_tokens[:, None],
                                 self.lengths)
+            last = logits[:, 0]
+            if constrained:
+                gdev = self._gstate >= 0
+                gi = self._gstate.clamp(0, G - 1).long()
+                eff = torch.where(gdev[:, None], self._gmask_dev[gi],
+                                  self.mask_bits)
+                last = last.masked_fill(
+                    self._constr_dev[:, None] & ~unpack_mask(eff, V),
+                    sampling.NEG_INF)
             gens = [self._generator(s, int(self._host_lengths[s]) + t)
                     if self.active[s] else None
                     for s in range(self.n_slots)]
-            tok = sampling.sample(logits[:, 0], self.counts[:, :V],
-                                  self.sp, gens)
+            tok = sampling.sample(last, self.counts[:, :V], self.sp, gens)
+            if constrained:
+                ns = self._gtrans_dev[gi, tok]
+                ns = torch.where(ns < 0, torch.full_like(ns, -2), ns)
+                self._gstate = torch.where(gdev & act_b, ns, self._gstate)
             # penalty window: the new token sits at lengths + 1; evict
             # what held its ring slot rln tokens ago, then admit it
             slot_pos = ((self.lengths.long() + 1) % rmod)[:, None]
@@ -711,7 +802,7 @@ class Engine:
             self.lengths += active
             self.last_tokens = torch.where(act_b, tok, self.last_tokens)
             toks[t] = tok
-        self._host_lengths[self.active] += n
+        self._host_lengths[self.active] += budgets[self.active]
         event = None
         if dev.type == "cuda":
             event = torch.cuda.Event()
@@ -719,13 +810,108 @@ class Engine:
         epoch = self.kv.advance_epoch()
         return DecodeHandle(toks, event, epoch)
 
+    # ------------------------------------------------------------------
+    # grammar masks
+    # ------------------------------------------------------------------
+    def _pad_mask_row(self, row) -> np.ndarray:
+        """Zero-pad a packed mask to the engine's width: ids beyond the
+        grammar's token table are unknown to it and stay disallowed."""
+        row = np.asarray(row, np.uint32)
+        if row.shape[0] == self.mask_words:
+            return row
+        if row.shape[0] > self.mask_words:
+            raise ValueError(f"mask row of {row.shape[0]} words exceeds the "
+                             f"vocabulary ({self.mask_words} words)")
+        out = np.zeros((self.mask_words,), np.uint32)
+        out[:row.shape[0]] = row
+        return out
+
+    def _words(self, row) -> torch.Tensor:
+        """A packed host row → its int32 bit patterns on the device."""
+        return torch.from_numpy(
+            self._pad_mask_row(row).view(np.int32)).to(self.device)
+
+    def set_mask(self, slot: int, row: np.ndarray, gid: int = -1):
+        """Install the packed allowed-token mask for ``slot`` (applies from
+        the next decode step; constrained until release/clear_mask).
+
+        ``gid`` >= 0 also places the slot in device-table mode: its mask
+        is read from row ``gid`` of the installed grammar table and its
+        automaton advances on the device with every sampled token, so the
+        slot keeps the whole decode chunk. The host row still installs as
+        the mask the slot falls back to when it escapes the table."""
+        self._constrained[slot] = True
+        self._gdev_mode[slot] = gid >= 0
+        self.mask_bits[slot] = self._words(row)
+        self._constr_dev[slot] = True
+        self._gstate[slot] = gid
+
+    def clear_mask(self, slot: int):
+        if not self._constrained[slot]:
+            return
+        self._constrained[slot] = False
+        self._gdev_mode[slot] = False
+        self.mask_bits[slot] = -1
+        self._constr_dev[slot] = False
+        self._gstate[slot] = -1
+
+    def install_grammar(self, key, mask: np.ndarray,
+                        trans: np.ndarray) -> bool:
+        """Upload a grammar program (``GrammarTable.mask``/``.trans``) to
+        the device tables. ``key`` names the table; a matching key is a
+        no-op. Returns False (the scheduler then uses host masks) when
+        device tables are off, or when a different table is live while a
+        slot still runs in device-table mode (swapping it under them
+        would corrupt their automata). Rows and columns beyond the
+        [TPU_GRAMMAR_STATES, vocab] capacity are cut; a transition into a
+        state beyond the capacity becomes an escape (-1)."""
+        if not self._grammar_device:
+            return False
+        if self._gtable_key == key:
+            return True
+        if self._gdev_mode.any():
+            return False
+        G, V = self._gstates_cap, self.cfg.vocab_size
+        mask = np.asarray(mask, np.uint32)[:G]
+        trans = np.asarray(trans, np.int32)[:G]
+        m = np.zeros((G, self.mask_words), np.uint32)
+        m[:mask.shape[0], :min(mask.shape[1], self.mask_words)] = \
+            mask[:, :self.mask_words]
+        t = np.full((G, V), -1, np.int32)
+        t[:trans.shape[0], :min(trans.shape[1], V)] = trans[:, :V]
+        t[t >= G] = -1
+        self._gmask_dev = torch.from_numpy(m.view(np.int32)).to(self.device)
+        self._gtrans_dev = torch.from_numpy(t).to(self.device)
+        self._gtable_key = key
+        return True
+
+    def step_budgets(self, n: int) -> np.ndarray:
+        """Per-slot step budget for a dispatch of ``n`` steps: host-masked
+        constrained slots advance one token a dispatch (their mask
+        refreshes on the host between dispatches); device-table slots and
+        everyone else take the whole dispatch."""
+        host_masked = self._constrained & ~self._gdev_mode
+        return np.where(host_masked, 1, n).astype(np.int64)
+
+    def spec_ack(self, rollback: np.ndarray) -> None:
+        """Take back the per-slot host-length advance a dispatch did not
+        use (the steps after a device-table slot escaped, which froze it).
+        The name is the JAX engine's, whose speculative decoding rolls
+        back the same way. Inactive slots are masked out, and no length
+        goes below 0."""
+        rb = np.asarray(rollback, np.int64)
+        rb = np.minimum(np.where(self.active, rb, 0), self._host_lengths)
+        self._host_lengths -= rb
+
     def release(self, slot: int, park: bool = False):
         """Free ``slot``: its pages return to the pool and its device
         state resets (a dense slot's rows stay as they are, masked until
         the next admission overwrites them). With ``park`` the cache,
         pages and lengths stay, so that a later ``extend`` can reuse the
         prefix: the slot goes inactive (decode dispatches skip it) and
-        counts as free, and any admission may overwrite it."""
+        counts as free, and any admission may overwrite it. Either way
+        its grammar mask is cleared."""
+        self.clear_mask(slot)
         self.active[slot] = False
         self._opts.pop(slot, None)
         self._gens[slot] = None

@@ -30,9 +30,21 @@ tokens generated so far, and re-admission continues the same stream. A
 dense engine never runs dry (``prepare_decode`` returns no victims and
 ``PagesExhausted`` cannot occur).
 
-Left for later slices: speculative decoding, grammars, tenants and
-admission policy, deadlines, async dispatch, drain and the supervised
-restart.
+A request with a grammar constraint (``ops/constrain.py``,
+``ops/schema.py``) admits under its current mask, and every token it
+receives is checked against the constraint before it is delivered: an
+illegal token finishes the request with "stop". A JSON constraint whose
+state lies in the device grammar table (built on this thread on the first
+such request, ``_grammar_table``) decodes whole chunks, its state
+advancing on the device; the host follows it through the table and, where
+the device walk escaped, takes back the steps the slot did not use
+(``_grammar_ack``) and installs the exact mask again. Other constrained
+requests take one token a dispatch, and a dispatch takes one step when
+every decoding slot is host-masked. A preempted constrained request keeps
+its constraint state and re-admits under its current mask.
+
+Left for later slices: speculative decoding, tenants and admission
+policy, deadlines, async dispatch, drain and the supervised restart.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from ..ops.constrain import GrammarTable
 from .engine import Engine, SlotOptions
 from .paged import PagesExhausted
 
@@ -79,10 +92,17 @@ class Request:
     _ids_lock = threading.Lock()
 
     def __init__(self, prompt_ids: Sequence[int], opts: SlotOptions,
-                 max_tokens: int, eog_ids: frozenset):
+                 max_tokens: int, eog_ids: frozenset, constraint=None):
         with Request._ids_lock:
             self.id = next(Request._ids)
         self.prompt_ids = np.asarray(prompt_ids, np.int64)
+        # grammar state (ops/constrain.py, ops/schema.py), or None
+        self.constraint = constraint
+        # the device grammar table for this request's token table: None =
+        # not resolved yet, False = unavailable (device tables off, the
+        # build failed, or another table owns the device), else the
+        # installed GrammarTable (Scheduler._grammar_table)
+        self._gtable = None
         self.opts = opts
         self.max_tokens = max_tokens
         self.eog_ids = eog_ids
@@ -168,13 +188,20 @@ class Scheduler:
         self.broken: Optional[str] = None
         self.n_preempted = 0
         self.n_prefill_pieces = 0
+        # device-table grammar walks that left the table
+        self.n_grammar_escapes = 0
+        # prompt tokens served from a cached prefix / prefilled, counted
+        # at every admission (a re-admission counts again)
+        self.prefix_hit_tokens = 0
+        self.prefix_miss_tokens = 0
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="torch-scheduler")
         self._thread.start()
 
     # ------------------------------------------------------------------
     def submit(self, prompt_ids: Sequence[int], opts: SlotOptions,
-               max_tokens: int, eog_ids: frozenset = frozenset()) -> Request:
+               max_tokens: int, eog_ids: frozenset = frozenset(),
+               constraint=None) -> Request:
         if self.broken is not None:
             raise SchedulerBroken(self.broken)
         n = len(prompt_ids)
@@ -184,7 +211,7 @@ class Scheduler:
         if not self.engine.admissible(n):
             raise ValueError(f"prompt of {n} tokens needs more KV pages "
                              f"than the pool has")
-        req = Request(prompt_ids, opts, max_tokens, eog_ids)
+        req = Request(prompt_ids, opts, max_tokens, eog_ids, constraint)
         with self._lock:
             if len(self._waiting) >= self.max_queue:
                 raise SchedulerBusy("request queue full")
@@ -400,26 +427,41 @@ class Scheduler:
         this pass."""
         ids = req.admit_ids
         try:
+            mask_row = (req.constraint.mask_row()
+                        if req.constraint is not None else None)
             try:
-                first = (self.engine.extend(slot, ids, reuse_len, req.opts)
+                first = (self.engine.extend(slot, ids, reuse_len, req.opts,
+                                            mask_row=mask_row)
                          if reuse_len else
-                         self.engine.admit(slot, ids, req.opts))
+                         self.engine.admit(slot, ids, req.opts,
+                                           mask_row=mask_row))
             except PagesExhausted:
                 if not (reuse_len and self._use_radix):
                     raise
                 # the stitched tail ran dry (extend released the shared
                 # mappings): fall back to a cold admission once
                 reuse_len = 0
-                first = self.engine.admit(slot, ids, req.opts)
+                first = self.engine.admit(slot, ids, req.opts,
+                                          mask_row=mask_row)
             req.stats.n_reused = reuse_len
         except PagesExhausted as e:
             return self._requeue_dry(req, e)
         except Exception as e:  # noqa: BLE001 — fail this request only
             req.out.put(("error", f"admission failed: {e}"))
             return True
-        self._running[slot] = req
-        self._emit(slot, req, [first])
+        self._post_admit(slot, req, first)
         return True
+
+    def _post_admit(self, slot: int, req: Request, first: int):
+        """Shared tail of a whole admission and of a chunked one's last
+        piece: the slot is taken, the reuse counted, and the first token
+        delivered (for a constrained request: checked, then its mask
+        installed)."""
+        self._running[slot] = req
+        n_re = min(req.stats.n_reused, len(req.admit_ids))
+        self.prefix_hit_tokens += n_re
+        self.prefix_miss_tokens += len(req.admit_ids) - n_re
+        self._emit(slot, req, [first])
 
     def _start_chunked(self, slot: int, req: Request,
                        reuse_len: int) -> bool:
@@ -480,7 +522,10 @@ class Scheduler:
         final = end == len(ids)
         try:
             if final:
-                first = self.engine.extend(slot, ids, job.done, req.opts)
+                mask_row = (req.constraint.mask_row()
+                            if req.constraint is not None else None)
+                first = self.engine.extend(slot, ids, job.done, req.opts,
+                                           mask_row=mask_row)
             else:
                 self.engine.extend(slot, ids[:end], job.done)
                 self.engine.release(slot, park=True)
@@ -498,36 +543,138 @@ class Scheduler:
         self.n_prefill_pieces += 1
         if final:
             del self._prefilling[slot]
-            self._emit(slot, req, [first])
+            self._post_admit(slot, req, first)
 
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
-    def _emit(self, slot: int, req: Request, toks: Sequence[int]):
-        """Deliver ``toks`` (one dispatch's worth) to ``req``; finishes
-        the request on EOG, on its token budget, or at the context end."""
+    def _emit(self, slot: int, req: Request, toks: Sequence[int]) -> bool:
+        """Deliver ``toks`` (one dispatch's worth, or the admission's
+        first token) to ``req``; finishes the request on EOG, on its token
+        budget, or at the context end. Returns True while it goes on.
+
+        A constrained request's tokens are checked against its constraint
+        before they are delivered, as the JAX scheduler's ``_fanout``
+        does, and an illegal one finishes it with "stop". A host-masked
+        slot was frozen after the dispatch's first step, so only its first
+        token counts, and its mask is refreshed after it. A device-table
+        slot's tokens count while the host's walk through the table stays
+        inside it: at the token where the walk leaves the table (the slot
+        froze on the device after it) the rest is dropped, the host
+        lengths the slot did not use are taken back, and the exact mask
+        is installed again (back in device-table mode when the state is
+        in the table)."""
+        c = req.constraint
+        walk = None          # [table, state id] of a device-table slot
+        if c is not None and self.engine._gdev_mode[slot]:
+            gt = self._grammar_table(req)
+            if gt is not None:
+                st = gt.state_id(c.state)
+                if st < 0:
+                    # the host's and the device's walks disagree: drop
+                    # the dispatch and start again from the exact state
+                    self._grammar_ack(slot, len(toks))
+                    self._refresh_mask(slot, req)
+                    return True
+                walk = [gt, st]
         buf: List[int] = []
         reason = None
-        for tid in toks:
+        for r, tid in enumerate(toks):
+            rest = len(toks) - (r + 1)
+            if c is not None:
+                if walk is None and r >= 1:
+                    break
+                if tid not in req.eog_ids and not c.advance(tid):
+                    if walk is not None:
+                        self._grammar_ack(slot, rest)
+                    reason = "stop"
+                    break
             if req.stats.n_generated == 0 and req.stats.t_first_token == 0:
                 req.stats.t_first_token = time.monotonic()
             req.all_tokens.append(tid)
             if tid in req.eog_ids:
+                if walk is not None:
+                    # an EOG token escapes on the device: the slot froze
+                    # after it
+                    self._grammar_ack(slot, rest)
                 reason = "stop"
                 break
             req.stats.n_generated += 1
             buf.append(tid)
-            if req.stats.n_generated >= req.max_tokens:
-                reason = "length"
-                break
-            if (req.stats.n_prompt + req.stats.n_generated
+            if (req.stats.n_generated >= req.max_tokens
+                    or req.stats.n_prompt + req.stats.n_generated
                     >= self.engine.max_seq - 1):
                 reason = "length"
                 break
+            if c is None:
+                continue
+            if walk is None:
+                self._refresh_mask(slot, req)
+                continue
+            gt = walk[0]
+            nid = (int(gt.trans[walk[1], tid]) if tid < gt.trans.shape[1]
+                   else -1)
+            if nid >= 0:
+                walk[1] = nid        # still in the table
+                continue
+            # the device walk escaped after this token: the rest of the
+            # dispatch ran with the slot frozen
+            self.n_grammar_escapes += 1
+            self._grammar_ack(slot, rest)
+            self._refresh_mask(slot, req)
+            break
         if buf:
             req.out.put(("tokens", buf))
         if reason is not None:
             self._finish(slot, req, reason)
+            return False
+        return True
+
+    # -- the device grammar table ----------------------------------------
+    def _grammar_table(self, req: Request) -> Optional[GrammarTable]:
+        """The engine-installed GrammarTable for ``req``'s constraint, or
+        None where device tables are unavailable for it (the engine's
+        knob is off, the constraint is not the generic JSON one, the
+        build failed, or another table owns the device while slots run
+        on it). Resolved once a request; ``GrammarTable.for_table``
+        caches the build on the token table, so later requests share
+        it."""
+        c = req.constraint
+        if (c is None or not getattr(c, "grammar_table_ok", False)
+                or not self.engine._grammar_device):
+            return None
+        if req._gtable is not None:
+            return req._gtable or None
+        try:
+            gt = GrammarTable.for_table(c.table,
+                                        cap=self.engine._gstates_cap)
+        except Exception:  # noqa: BLE001 — any build failure: host masks
+            gt = None
+        if gt is None or not self.engine.install_grammar(
+                ("grammar", id(gt)), gt.mask, gt.trans):
+            req._gtable = False
+            return None
+        req._gtable = gt
+        return gt
+
+    def _refresh_mask(self, slot: int, req: Request):
+        """Install ``req``'s current mask on ``slot``; where its state is
+        in the installed device table the slot enters device-table mode
+        and keeps the whole decode chunk."""
+        gid = -1
+        gt = self._grammar_table(req)
+        if gt is not None:
+            gid = gt.state_id(req.constraint.state)
+        self.engine.set_mask(slot, req.constraint.mask_row(), gid=gid)
+
+    def _grammar_ack(self, slot: int, over: int):
+        """Take back the host lengths a device-table slot was advanced by
+        at launch but did not use (the frozen steps after an escape)."""
+        if over <= 0:
+            return
+        rb = np.zeros((self.engine.n_slots,), np.int64)
+        rb[slot] = over
+        self.engine.spec_ack(rb)
 
     def _preempt(self, slot: int):
         req = self._running[slot]
@@ -555,7 +702,13 @@ class Scheduler:
         snapshot = self._decoding()
         if not snapshot:
             return
-        handle = self.engine.decode_n_launch()
+        # host-masked grammar slots take one token a dispatch (the engine
+        # freezes them after the first step); when every decoding slot is
+        # host-masked, a one-step dispatch does the same work for less
+        gdev = self.engine._gdev_mode
+        n = (1 if all(r.constraint is not None and not gdev[s]
+                      for s, r in snapshot.items()) else None)
+        handle = self.engine.decode_n_launch(n)
         toks = handle.wait()
         self.engine.retire(handle.epoch)
         for slot, req in snapshot.items():

@@ -2,20 +2,26 @@
 prompt template + default options.
 
 Counterpart of ``ollama_operator_tpu/runtime/service.py``: the text-level
-API the HTTP layer calls (prompt templating, option merging, stop
-sequences with holdback, streaming detokenisation). Everything below it
-is token-level.
+API the HTTP layer calls (prompt and chat templating, option merging, stop
+sequences with holdback, streaming detokenisation, and the grammar
+constraint of ``format``). Everything below it is token-level.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import sys
 import time
+from collections import OrderedDict
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
+from ..ops.constrain import JsonConstraint
+from ..ops.schema import SchemaConstraint, compile_schema
 from ..server.template import DEFAULT_TEMPLATE, Template
+from ..server.tools import to_template_tool_calls, to_template_tools
 from ..tokenizer import StreamDecoder, Tokenizer
 from .engine import (Engine, EngineConfig, SlotOptions, resolve_cache_dtype,
                      resolve_kv_dtype_default, resolve_serving_defaults)
@@ -37,6 +43,24 @@ class GenerateResult:
     context: List[int] = dataclasses.field(default_factory=list)
     # prompt tokens whose K/V came from a cached prefix (no prefill)
     reused_tokens: int = 0
+
+
+class _Piece(str):
+    """A detokenised text piece that remembers how many scheduler tokens
+    produced it. The stream stays (str, final) pairs, but the HTTP frame
+    coalescer counts tokens a piece, not characters."""
+
+    n_tokens = 1
+
+    @staticmethod
+    def of(text: str, n: int) -> "_Piece":
+        p = _Piece(text)
+        p.n_tokens = n
+        return p
+
+
+# a once-a-process notice that a schema fell back to generic JSON
+_schema_warned = [False]
 
 
 def merge_options(defaults: Dict, request: Optional[Dict]
@@ -164,6 +188,39 @@ class LoadedModel:
         self.ecfg = ecfg
         self.engine = Engine(cfg, params, ecfg=ecfg, device=self.device)
         self.scheduler = Scheduler(self.engine)
+        # compiled JSON schemas of recent ``format`` requests (None for a
+        # schema outside the supported subset), least recently used first
+        self._schemas: "OrderedDict[str, object]" = OrderedDict()
+
+    def _make_constraint(self, format):
+        """format "json" → the generic JSON grammar; a schema dict → the
+        compiled skeleton machine (ops/schema.py) when the schema is in
+        the supported subset, else generic JSON with a once-a-process
+        warning (never a silently wrong constraint)."""
+        if isinstance(format, dict):
+            key = json.dumps(format, sort_keys=True)
+            if key in self._schemas:
+                sch = self._schemas[key]
+                self._schemas.move_to_end(key)
+            else:
+                sch = compile_schema(format)
+                if len(self._schemas) > 64:
+                    # evict one stale entry: a wholesale clear would pay
+                    # again every machine's per-state mask cache
+                    self._schemas.popitem(last=False)
+                self._schemas[key] = sch   # None cached too (unsupported)
+            if sch is not None:
+                c = SchemaConstraint.for_tokenizer(sch, self.tokenizer)
+                # the initial mask on the HTTP thread (later novel states
+                # fill on the scheduler thread)
+                c.mask_row()
+                return c
+            if not _schema_warned[0]:
+                _schema_warned[0] = True
+                print("warning: JSON schema outside the supported subset; "
+                      "constraining to generic JSON only",
+                      file=sys.stderr, flush=True)
+        return JsonConstraint.for_tokenizer(self.tokenizer)
 
     def render_prompt(self, prompt: str, system: Optional[str] = None,
                       template: Optional[str] = None,
@@ -182,6 +239,43 @@ class LoadedModel:
             return tpl.render(prompt=prompt, suffix=suffix, system=system)
         return tpl.render(prompt=prompt, system=system)
 
+    def render_chat(self, messages: List[Dict],
+                    template: Optional[str] = None,
+                    tools: Optional[List[Dict]] = None) -> str:
+        """Render a messages list. Templates that iterate ``.Messages``
+        get them (the system messages merged into one, after the model's
+        own system prompt); others get the flattened view (system and the
+        last message as the prompt). ``tools`` (OpenAI wire shape) render
+        through the template's ``.Tools``; a template without a tools
+        section cannot honour them, which is a client error."""
+        tpl = Template(template) if template else self.template
+        if tools and ".Tools" not in tpl.src:
+            raise BadRequest(
+                f"model {self.name} does not support tools (its template "
+                f"has no .Tools section)")
+        system = self.system or ""
+        sys_parts = [m["content"] for m in messages
+                     if m.get("role") == "system"]
+        if sys_parts:
+            system = "\n".join(([system] if system else []) + sys_parts)
+        msgs = []
+        for m in messages:
+            if m.get("role") == "system":
+                continue
+            entry = {"Role": m.get("role", "user"),
+                     "Content": m.get("content", "") or ""}
+            if m.get("tool_calls"):
+                entry["ToolCalls"] = to_template_tool_calls(m["tool_calls"])
+            msgs.append(entry)
+        tpl_tools = to_template_tools(tools) if tools else []
+        if ".Messages" in tpl.src:
+            if system:
+                msgs = [{"Role": "system", "Content": system}] + msgs
+            return tpl.render(messages=msgs, system=system, prompt="",
+                              tools=tpl_tools)
+        prompt = msgs[-1]["Content"] if msgs else ""
+        return tpl.render(system=system, prompt=prompt, tools=tpl_tools)
+
     def generate_stream(self, prompt_text: str,
                         options: Optional[Dict] = None,
                         context: Optional[List[int]] = None,
@@ -193,9 +287,13 @@ class LoadedModel:
         ``images`` (the request's list): every model of the port is
         text-only, so any image is refused, as the reference refuses one
         for a model without a vision projector. ``format``: None or ""
-        asks for free text; "json" or a JSON-schema dict asks for
-        constrained decoding, which is not ported yet and is refused;
-        any other value is refused as the reference refuses it.
+        asks for free text; "json" or a JSON-schema dict turns on
+        grammar-constrained decoding (``ops/constrain.py``,
+        ``ops/schema.py``): every token is legal for the grammar, and an
+        output that ends with "stop" is a complete JSON value (of the
+        schema, when it is in the supported subset); any other value is
+        refused as the reference refuses it. Text pieces come as
+        ``_Piece`` strings that carry their token counts.
 
         Options, tokenization and submission run at call time, so bad
         requests and a full queue raise before the caller commits a
@@ -216,16 +314,17 @@ class LoadedModel:
             raise BadRequest(
                 f"prompt of {len(ids)} tokens leaves no room to generate "
                 f"within the {self.engine.max_seq}-token context")
+        constraint = None
         if format is not None and format != "":
             if format == "json" or isinstance(format, dict):
+                constraint = self._make_constraint(format)
+            else:
                 raise BadRequest(
-                    f"format {format!r} asks for constrained decoding, "
-                    f"which is not ported yet")
-            raise BadRequest(
-                f"unsupported format {format!r}; expected \"json\" or "
-                f"a JSON schema object")
+                    f"unsupported format {format!r}; expected \"json\" or "
+                    f"a JSON schema object")
         req = self.scheduler.submit(ids, so, max_new,
-                                    eog_ids=frozenset(self.tokenizer.eog_ids))
+                                    eog_ids=frozenset(self.tokenizer.eog_ids),
+                                    constraint=constraint)
         return self._stream(req, stops, ids, max_new, t0)
 
     def _stream(self, req, stops, ids, max_new, t0):
@@ -240,7 +339,7 @@ class LoadedModel:
                 piece = sm.feed(sd.feed_many(chunk))
                 if piece:
                     result.text += piece
-                    yield piece, None
+                    yield _Piece.of(piece, len(chunk)), None
                 if sm.hit:
                     req.cancel()
                     break
@@ -252,7 +351,7 @@ class LoadedModel:
         tail = sm.feed(sd.flush()) + sm.flush()
         if tail:
             result.text += tail
-            yield tail, None
+            yield _Piece.of(tail, 0), None   # its tokens were counted
         st = req.stats
         result.generated_tokens = st.n_generated
         result.ttft_s = st.ttft_s

@@ -16,9 +16,27 @@ port serves:
   DELETE /api/delete      remove a model from the store (POST too)
   POST /api/generate      generation, streamed (NDJSON) or not; ``suffix``
                           (fill-in-middle) as the reference renders it,
-                          ``images`` and ``format`` refused with 400 until
-                          vision and grammars are ported, ``keep_alive``
-                          parsed as the reference does
+                          ``format`` ("json" or a JSON schema) decoded
+                          under its grammar, ``images`` refused with 400
+                          until vision is ported, ``keep_alive`` parsed as
+                          the reference does
+  POST /api/chat          chat-templated generation (NDJSON): system
+                          messages merged, ``tools`` rendered through the
+                          template's ``.Tools`` and answered as one message
+                          with ``tool_calls``, ``format``, ``keep_alive``
+                          (0 with no messages unloads), ``images`` refused
+  POST /v1/chat/completions   OpenAI chat (SSE when streamed), with
+                          ``response_format`` (json_object, json_schema)
+                          and ``tools``
+  POST /v1/completions    OpenAI text completion
+  GET  /v1/models         OpenAI model list
+
+Streamed responses are coalesced as the reference's are: the first piece
+goes out alone, then a frame every ``stream_flush_tokens`` tokens (16) or
+``stream_flush_ms`` (25 ms), whichever comes first; the request's options
+override ``TPU_STREAM_FLUSH_TOKENS`` / ``TPU_STREAM_FLUSH_MS``, which
+override the defaults. An error after the stream started is its last
+frame (an SSE error event and ``[DONE]`` on the OpenAI route).
 
 The manager owns the blob store (``server/registry.py``) and loads a model
 from it on demand, as the JAX manager does: the GGUF is read, dequantized
@@ -34,6 +52,7 @@ routes and refuses generation with 503; it touches no device.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -43,7 +62,7 @@ import threading
 import time
 from datetime import datetime, timezone
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -66,12 +85,78 @@ from .names import ModelName
 from .registry import (MT_ADAPTER, MT_LICENSE, MT_MODEL, MT_PARAMS,
                        MT_PROJECTOR, MT_SYSTEM, MT_TEMPLATE, ModelStore,
                        RegistryClient, RegistryError)
+from .tools import split_tool_calls
 
 ENGINE_DTYPES = ("bfloat16", "float32", "int8", "int4")
 
 
 def _now_iso() -> str:
     return datetime.now(timezone.utc).isoformat().replace("+00:00", "Z")
+
+
+# stream coalescing defaults: a frame every N tokens or T ms, whichever
+# comes first (the first piece always goes out at once: it carries TTFT)
+STREAM_FLUSH_TOKENS = 16
+STREAM_FLUSH_MS = 25.0
+
+
+def resolve_stream_flush(options: Optional[Dict]) -> Tuple[int, float]:
+    """(tokens a frame, seconds between frames) for stream coalescing.
+
+    The request's options (``stream_flush_tokens``, ``stream_flush_ms``)
+    override the environment (``TPU_STREAM_FLUSH_TOKENS``,
+    ``TPU_STREAM_FLUSH_MS``), which overrides the defaults;
+    ``stream_flush_tokens: 1`` gives a frame a piece."""
+    o = options or {}
+    try:
+        n = int(o.get("stream_flush_tokens",
+                      os.environ.get("TPU_STREAM_FLUSH_TOKENS",
+                                     STREAM_FLUSH_TOKENS)))
+    except (TypeError, ValueError):
+        n = STREAM_FLUSH_TOKENS
+    try:
+        ms = float(o.get("stream_flush_ms",
+                         os.environ.get("TPU_STREAM_FLUSH_MS",
+                                        STREAM_FLUSH_MS)))
+    except (TypeError, ValueError):
+        ms = STREAM_FLUSH_MS
+    return max(1, n), max(0.0, ms) / 1000.0
+
+
+class _StreamCoalescer:
+    """Batches streamed text pieces into wire frames: the first piece
+    goes out at once (it is the TTFT token); after it a frame goes out
+    every ``max_tokens`` tokens (a piece counts its ``n_tokens``, else 1)
+    or ``max_s`` seconds, whichever comes first. ``frames`` counts the
+    frames sent."""
+
+    def __init__(self, chunk_fn, make_frame, max_tokens: int, max_s: float):
+        self._chunk = chunk_fn
+        self._make = make_frame
+        self.max_tokens = max_tokens
+        self.max_s = max_s
+        self._parts: List[str] = []
+        self._ntok = 0
+        self._t_last = None     # None: the first piece goes out at once
+        self.frames = 0
+
+    def add(self, piece: str):
+        self._parts.append(piece)
+        self._ntok += getattr(piece, "n_tokens", 1)
+        now = time.monotonic()
+        if (self._t_last is None or self._ntok >= self.max_tokens
+                or now - self._t_last >= self.max_s):
+            self.flush(now)
+
+    def flush(self, now: Optional[float] = None):
+        if not self._parts:
+            return
+        text = "".join(self._parts)
+        self._parts.clear()
+        self._ntok = 0
+        self._t_last = time.monotonic() if now is None else now
+        self._chunk(self._make(text))
+        self.frames += 1
 
 
 def _fmt_params(n: int) -> str:
@@ -515,9 +600,10 @@ class ModelManager:
     def ps(self) -> List[Dict]:
         """The resident models, with the JAX manager's core keys: the
         serving dtype, decode chunk and cache kind it resolved, the
-        keep-alive deadline, and the bytes the process holds on the card
-        (``size_vram``). ``kernel_launches`` counts every kernel launch of
-        this process so far (``ops/cuda_build.launches``)."""
+        keep-alive deadline, the bytes the process holds on the card
+        (``size_vram``), and the prefix cache's token counts
+        (``prefix_cache``). ``kernel_launches`` counts every kernel
+        launch of this process so far (``ops/cuda_build.launches``)."""
         with self._lock:
             models = [(lm, self._expires.get(lm.name))
                       for lm in self._models.values()]
@@ -544,6 +630,13 @@ class ModelManager:
                 "expires_at": expires,
                 "size_vram": vram,
                 "kernel_launches": dict(cuda_build.launches),
+                # the model's lifetime prefix-cache token counts and the
+                # pages its radix tree holds, as the JAX server reports
+                "prefix_cache": {
+                    "enabled": lm.engine.radix_enabled,
+                    "hit_tokens": lm.scheduler.prefix_hit_tokens,
+                    "miss_tokens": lm.scheduler.prefix_miss_tokens,
+                    "radix_pages": lm.engine.radix_pages},
             })
         return out
 
@@ -647,18 +740,84 @@ class Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+    def _start_stream(self, ctype: str = "application/x-ndjson"):
+        self.send_response(200)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+        self._streaming = True
+        self._stream_ctype = ctype
+
     def _chunk(self, data: bytes):
         self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
         self.wfile.flush()
 
+    def _end_stream(self):
+        self._chunk(b"")
+        self._streaming = False
+
+    def _stream_json(self, obj):
+        self._chunk(json.dumps(obj).encode() + b"\n")
+
+    @staticmethod
+    def _sse(obj) -> bytes:
+        return b"data: " + json.dumps(obj).encode() + b"\n\n"
+
     def _send_error(self, message: str, status: int):
+        """An error that is safe before and after a stream started: once
+        the chunked headers are out, it becomes the stream's last frame
+        (on an SSE stream an error event and ``[DONE]``, which OpenAI
+        clients wait for)."""
         if getattr(self, "_streaming", False):
-            # headers are out: the error becomes the stream's last frame
-            self._chunk(json.dumps({"error": message}).encode() + b"\n")
-            self._chunk(b"")
-            self._streaming = False
+            try:
+                if getattr(self, "_stream_ctype", "") == "text/event-stream":
+                    self._chunk(self._sse({"error": {
+                        "message": message, "type": "server_error"}}))
+                    self._chunk(b"data: [DONE]\n\n")
+                else:
+                    self._stream_json({"error": message})
+                self._end_stream()
+            except (BrokenPipeError, ConnectionResetError):
+                pass
         else:
             self._send_json({"error": message}, status)
+
+    @staticmethod
+    def _pull_first(gen):
+        """Pull the first (piece, final) pair before the caller commits
+        200 and the chunked headers, so that a failure before the first
+        token is still a real HTTP status; returns an iterator that
+        replays it."""
+        it = iter(gen)
+        try:
+            first = next(it)
+        except StopIteration:
+            return iter(())
+        return itertools.chain([first], it)
+
+    def _coalescer(self, pre: bytes, mid: Optional[bytes], suf: bytes,
+                   options: Optional[Dict]) -> _StreamCoalescer:
+        """A frame coalescer over this response's chunked stream. A frame
+        is ``pre + timestamp + mid + json(text) + suf`` (NDJSON) or
+        ``pre + json(text) + suf`` when ``mid`` is None (SSE chunks carry
+        no timestamp); the fragments reproduce json.dumps of the whole
+        frame dict byte for byte."""
+        n, sec = resolve_stream_flush(options)
+        buf = bytearray()
+
+        def make(text: str) -> bytearray:
+            buf.clear()
+            buf.extend(pre)
+            if mid is not None:
+                # an ISO-8601 UTC stamp is plain ASCII with no JSON
+                # escapes, so splicing it raw equals json.dumps output
+                buf.extend(_now_iso().encode())
+                buf.extend(mid)
+            buf.extend(json.dumps(text).encode())
+            buf.extend(suf)
+            return buf
+
+        return _StreamCoalescer(self._chunk, make, n, sec)
 
     def do_GET(self):
         try:
@@ -676,6 +835,11 @@ class Handler(BaseHTTPRequestHandler):
                 self._send_json({"models": self.manager.list_models()})
             elif path == "/api/ps":
                 self._send_json({"models": self.manager.ps()})
+            elif path == "/v1/models":
+                self._send_json({"object": "list", "data": [
+                    {"id": m["name"], "object": "model", "created": 0,
+                     "owned_by": "library"}
+                    for m in self.manager.list_models()]})
             else:
                 self._send_json({"error": "not found"}, 404)
         except ApiError as e:
@@ -706,9 +870,12 @@ class Handler(BaseHTTPRequestHandler):
         try:
             body = self._json_body()
             route = {"/api/generate": self._api_generate,
+                     "/api/chat": self._api_chat,
                      "/api/pull": self._api_pull,
                      "/api/show": self._api_show,
                      "/api/delete": self._api_delete,
+                     "/v1/chat/completions": self._oai_chat,
+                     "/v1/completions": self._oai_completions,
                      }.get(self.path.split("?")[0])
             if route is None:
                 raise ApiError(404, "not found")
@@ -740,11 +907,7 @@ class Handler(BaseHTTPRequestHandler):
             self.manager.pull(model)
             self._send_json({"status": "success"})
             return
-        self.send_response(200)
-        self.send_header("Content-Type", "application/x-ndjson")
-        self.send_header("Transfer-Encoding", "chunked")
-        self.end_headers()
-        self._streaming = True
+        self._start_stream()
 
         def progress(status, completed, total, digest=None):
             msg = {"status": status}
@@ -758,9 +921,8 @@ class Handler(BaseHTTPRequestHandler):
         try:
             self.manager.pull(model, progress)
         except RegistryError as e:
-            self._chunk(json.dumps({"error": str(e)}).encode() + b"\n")
-        self._chunk(b"")
-        self._streaming = False
+            self._stream_json({"error": str(e)})
+        self._end_stream()
 
     def _api_show(self, body: Dict):
         self._send_json(self.manager.show(self._model_arg(body)))
@@ -797,35 +959,39 @@ class Handler(BaseHTTPRequestHandler):
                                  images=body.get("images"),
                                  format=body.get("format"))
         try:
-            self._respond(model, gen, body)
+            if body.get("stream", True):
+                gen = self._pull_first(gen)
+                self._start_stream()
+                co = self._coalescer(
+                    b'{"model": ' + json.dumps(model).encode()
+                    + b', "created_at": "',
+                    b'", "response": ', b', "done": false}\n',
+                    body.get("options"))
+                for piece, final in gen:
+                    if final is None:
+                        co.add(piece)
+                    else:
+                        co.flush()
+                        self._stream_json(self._final_frame(model, final,
+                                                            body))
+                self._end_stream()
+            else:
+                final = self._drain(gen)
+                out = self._final_frame(model, final, body)
+                out["response"] = final.text
+                self._send_json(out)
         finally:
             # the idle window starts when the generation ends
             self.manager.touch(lm, self.manager.keep_alive_s(ka))
 
-    def _respond(self, model: str, gen, body: Dict):
-        if body.get("stream", True):
-            self.send_response(200)
-            self.send_header("Content-Type", "application/x-ndjson")
-            self.send_header("Transfer-Encoding", "chunked")
-            self.end_headers()
-            self._streaming = True
-            for piece, final in gen:
-                if final is None:
-                    frame = {"model": model, "created_at": _now_iso(),
-                             "response": piece, "done": False}
-                else:
-                    frame = self._final_frame(model, final, body)
-                self._chunk(json.dumps(frame).encode() + b"\n")
-            self._chunk(b"")
-            self._streaming = False
-        else:
-            final = None
-            for _piece, f in gen:
-                if f is not None:
-                    final = f
-            out = self._final_frame(model, final, body)
-            out["response"] = final.text
-            self._send_json(out)
+    @staticmethod
+    def _drain(gen):
+        """The final GenerateResult of a generation stream."""
+        final = None
+        for _piece, f in gen:
+            if f is not None:
+                final = f
+        return final
 
     @staticmethod
     def _final_frame(model: str, res, body: Dict) -> Dict:
@@ -842,6 +1008,212 @@ class Handler(BaseHTTPRequestHandler):
         if body.get("context") is not None or not body.get("raw"):
             out["context"] = res.context
         return out
+
+    def _api_chat(self, body: Dict):
+        model = self._model_arg(body)
+        messages = body.get("messages", [])
+        ka = body.get("keep_alive")
+        if not messages and ka is not None and parse_keep_alive(ka) == 0.0:
+            self.manager.stop(model)
+            self._send_json({"model": model, "created_at": _now_iso(),
+                             "message": {"role": "assistant", "content": ""},
+                             "done": True, "done_reason": "unload"})
+            return
+        lm = self.manager.require_loaded(model, keep_alive=ka)
+        try:
+            self._chat(lm, model, body, messages)
+        finally:
+            self.manager.touch(lm, self.manager.keep_alive_s(ka))
+
+    def _chat(self, lm: LoadedModel, model: str, body: Dict, messages):
+        stream = body.get("stream", True)
+        tools = body.get("tools")
+        prompt = lm.render_chat(messages, template=body.get("template"),
+                                tools=tools)
+        images = []
+        for m in messages:
+            images.extend(m.get("images") or [])
+        gen = lm.generate_stream(prompt, options=body.get("options"),
+                                 images=images, format=body.get("format"))
+
+        def chat_frame(final) -> Dict:
+            out = self._final_frame(model, final, body)
+            out.pop("response", None)
+            out.pop("context", None)
+            out["message"] = {"role": "assistant", "content": ""}
+            return out
+
+        if stream and not tools:
+            gen = self._pull_first(gen)
+            self._start_stream()
+            co = self._coalescer(
+                b'{"model": ' + json.dumps(model).encode()
+                + b', "created_at": "',
+                b'", "message": {"role": "assistant", "content": ',
+                b'}, "done": false}\n', body.get("options"))
+            for piece, final in gen:
+                if final is None:
+                    co.add(piece)
+                else:
+                    co.flush()
+                    self._stream_json(chat_frame(final))
+            self._end_stream()
+            return
+        final = self._drain(gen)
+        out = chat_frame(final)
+        # JSON tool invocations become structured tool_calls (prose around
+        # them stays as content)
+        msg = {"role": "assistant", "content": final.text}
+        if tools:
+            calls, prose = split_tool_calls(final.text)
+            if calls:
+                msg = {"role": "assistant", "content": prose,
+                       "tool_calls": calls}
+        if stream:
+            # a tool answer streams as one message frame and the final
+            # frame: the invocation parses only once the output is whole
+            self._start_stream()
+            self._stream_json({"model": model, "created_at": _now_iso(),
+                               "message": msg, "done": False})
+            self._stream_json(out)
+            self._end_stream()
+        else:
+            out["message"] = msg
+            self._send_json(out)
+
+    # -- OpenAI compatibility ----------------------------------------------
+    def _oai_chat(self, body: Dict):
+        model = self._model_arg(body)
+        lm = self.manager.require_loaded(model)
+        try:
+            self._oai_chat_on(lm, model, body)
+        finally:
+            self.manager.touch(lm, self.manager.keep_alive_s())
+
+    def _oai_chat_on(self, lm: LoadedModel, model: str, body: Dict):
+        options = {}
+        for key in ("temperature", "top_p", "seed", "frequency_penalty",
+                    "presence_penalty"):
+            if body.get(key) is not None:
+                options[key] = body[key]
+        if body.get("max_tokens") is not None:
+            options["num_predict"] = body["max_tokens"]
+        if body.get("stop"):
+            options["stop"] = body["stop"]
+        tools = body.get("tools")
+        prompt = lm.render_chat(body.get("messages", []), tools=tools)
+        rid = f"chatcmpl-{int(time.time() * 1000)}"
+        created = int(time.time())
+        # response_format → grammar-constrained decoding: json_schema
+        # carries its schema to the skeleton machine (ops/schema.py),
+        # json_object asks for the generic JSON grammar
+        rf = body.get("response_format") or {}
+        fmt = None
+        if isinstance(rf, dict):
+            if rf.get("type") == "json_schema":
+                js = rf.get("json_schema")
+                fmt = (js.get("schema") if isinstance(js, dict)
+                       else None) or "json"
+            elif rf.get("type") == "json_object":
+                fmt = "json"
+        gen = lm.generate_stream(prompt, options=options or None, format=fmt)
+
+        def chunk(delta, finish) -> bytes:
+            return self._sse({
+                "id": rid, "object": "chat.completion.chunk",
+                "created": created, "model": model,
+                "choices": [{"index": 0, "delta": delta,
+                             "finish_reason": finish}]})
+
+        def usage(final) -> Dict:
+            return {"prompt_tokens": final.prompt_tokens,
+                    "completion_tokens": final.generated_tokens,
+                    "total_tokens": (final.prompt_tokens
+                                     + final.generated_tokens)}
+
+        if not tools and body.get("stream"):
+            gen = self._pull_first(gen)
+            self._start_stream(ctype="text/event-stream")
+            self._chunk(chunk({"role": "assistant", "content": ""}, None))
+            co = self._coalescer(
+                b'data: {"id": ' + json.dumps(rid).encode()
+                + b', "object": "chat.completion.chunk", "created": '
+                + str(created).encode() + b', "model": '
+                + json.dumps(model).encode()
+                + b', "choices": [{"index": 0, "delta": {"content": ',
+                None, b'}, "finish_reason": null}]}\n\n', options)
+            final = None
+            for piece, f in gen:
+                if f is None:
+                    co.add(piece)
+                else:
+                    final = f
+            co.flush()
+            self._chunk(chunk({}, final.done_reason))
+            self._chunk(b"data: [DONE]\n\n")
+            self._end_stream()
+            return
+        final = self._drain(gen)
+        msg = {"role": "assistant", "content": final.text}
+        finish = final.done_reason
+        if tools:
+            # tool invocations parse from the whole output
+            calls, prose = split_tool_calls(final.text)
+            if calls:
+                msg = {"role": "assistant", "content": prose or None,
+                       "tool_calls": [
+                           {"id": f"call_{rid}_{i}", "type": "function",
+                            "function": {
+                                "name": c["function"]["name"],
+                                "arguments": json.dumps(
+                                    c["function"]["arguments"])}}
+                           for i, c in enumerate(calls)]}
+                finish = "tool_calls"
+            if body.get("stream"):
+                # the finished message as one SSE delta, then the finish
+                self._start_stream(ctype="text/event-stream")
+                delta = dict(msg)
+                if delta.get("tool_calls"):
+                    # SSE deltas carry an index on each entry
+                    delta["tool_calls"] = [dict(tc, index=i) for i, tc in
+                                           enumerate(delta["tool_calls"])]
+                self._chunk(chunk(delta, None))
+                self._chunk(chunk({}, finish))
+                self._chunk(b"data: [DONE]\n\n")
+                self._end_stream()
+                return
+        self._send_json({
+            "id": rid, "object": "chat.completion", "created": created,
+            "model": model,
+            "choices": [{"index": 0, "message": msg,
+                         "finish_reason": finish}],
+            "usage": usage(final)})
+
+    def _oai_completions(self, body: Dict):
+        model = self._model_arg(body)
+        lm = self.manager.require_loaded(model)
+        options = {}
+        if body.get("max_tokens") is not None:
+            options["num_predict"] = body["max_tokens"]
+        if body.get("temperature") is not None:
+            options["temperature"] = body["temperature"]
+        if body.get("stop"):
+            options["stop"] = body["stop"]
+        try:
+            final = self._drain(lm.generate_stream(
+                body.get("prompt", ""), options=options or None))
+        finally:
+            self.manager.touch(lm, self.manager.keep_alive_s())
+        self._send_json({
+            "id": f"cmpl-{int(time.time() * 1000)}",
+            "object": "text_completion", "created": int(time.time()),
+            "model": model,
+            "choices": [{"index": 0, "text": final.text,
+                         "finish_reason": final.done_reason}],
+            "usage": {"prompt_tokens": final.prompt_tokens,
+                      "completion_tokens": final.generated_tokens,
+                      "total_tokens": (final.prompt_tokens
+                                       + final.generated_tokens)}})
 
 
 def serve(manager: ModelManager, host: str = "0.0.0.0", port: int = 11434

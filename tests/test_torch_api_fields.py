@@ -6,8 +6,9 @@ the CPU at the tiny preset.
   with the message the reference's ``LoadedModel.generate_stream`` gives a
   model without a vision projector;
 - ``format``: None and "" ask for free text; "json" and a schema dict ask
-  for constrained decoding, which the port refuses with a 400 until
-  grammars are ported; any other value is the reference's 400;
+  for constrained decoding, served as the reference's ``LoadedModel``
+  serves the same request (the same greedy tokens); any other value is
+  the reference's 400;
 - ``suffix``: rendered through the template's ``.Suffix`` exactly as the
   reference's ``LoadedModel.render_prompt`` renders it, or the reference's
   400 when the template has none;
@@ -18,20 +19,28 @@ the CPU at the tiny preset.
 The reference's rules are called on the same request: its
 ``parse_keep_alive``, and its ``LoadedModel`` methods on a stand-in that
 holds only what they read before the rule fires (its template, name,
-tokenizer, options and context length), so no JAX engine is built.
+tokenizer, options and context length); only the ``format`` requests
+build a JAX ``LoadedModel`` on the same weights.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import time
 import types
 import urllib.error
 import urllib.request
+from unittest import mock
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from ollama_operator_tpu.models.config import PRESETS as JPRESETS
+from ollama_operator_tpu.runtime.engine import EngineConfig as JEngineConfig
 from ollama_operator_tpu.runtime.errors import BadRequest as JBadRequest
 from ollama_operator_tpu.runtime.service import LoadedModel as JLoadedModel
 from ollama_operator_tpu.server.app import \
@@ -55,17 +64,21 @@ FIM = "<PRE>{{ .Prompt }}<SUF>{{ .Suffix }}<MID>"
 FEW = {"temperature": 0, "num_predict": 2}
 
 
+ENGINE = dict(paged=True, max_slots=2, max_seq_len=64, page_size=16,
+              min_prefill_bucket=16, decode_chunk=2)
+
+
+def _params():
+    return decoder.init_params(PRESETS["tiny"],
+                               torch.Generator().manual_seed(0),
+                               torch.float32, "cpu")
+
+
 def _model(name, template):
-    cfg = PRESETS["tiny"]
-    params = decoder.init_params(cfg, torch.Generator().manual_seed(0),
-                                 torch.float32, "cpu")
-    return LoadedModel(name, cfg, params, Tokenizer(model="llama", **BYTES),
+    return LoadedModel(name, PRESETS["tiny"], _params(),
+                       Tokenizer(model="llama", **BYTES),
                        template=template, device="cpu",
-                       ecfg=EngineConfig(paged=True, max_slots=2,
-                                         max_seq_len=64,
-                                         cache_dtype=torch.float32,
-                                         page_size=16, min_prefill_bucket=16,
-                                         decode_chunk=2))
+                       ecfg=EngineConfig(cache_dtype=torch.float32, **ENGINE))
 
 
 @pytest.fixture(scope="module")
@@ -130,16 +143,47 @@ def test_format_other_values_refused_as_the_reference(server):
     assert (status, out["error"]) == (400, want)
 
 
-@pytest.mark.parametrize("fmt", ["json", {"type": "object"}])
-def test_format_json_refused_until_grammars_are_ported(server, fmt):
-    """The reference constrains the output for these; the port cannot yet,
-    so it refuses rather than answer free text with 200."""
+@pytest.fixture(scope="module")
+def jax_model():
+    """The reference's LoadedModel on the port models' weights."""
+    with mock.patch.dict(os.environ, {"TPU_WARM_BUCKETS": "0"}):
+        jlm = JLoadedModel(
+            "tiny", JPRESETS["tiny"],
+            jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()),
+                                   _params()),
+            JTokenizer(model="llama", **BYTES), template=TPL,
+            ecfg=JEngineConfig(cache_dtype=jnp.float32, **ENGINE))
+    try:
+        yield jlm
+    finally:
+        jlm.unload()
+
+
+@pytest.mark.parametrize("fmt", [
+    "json", {"type": "object"},
+    {"type": "object", "properties": {"a": {"type": "integer"},
+                                      "b": {"type": "string"}}}])
+def test_format_json_served_as_the_reference(server, jax_model, fmt):
+    """The reference constrains the output for these, and so does the port:
+    200 with the reference's greedy tokens for the same request."""
     _, port = server
+    opts = {"temperature": 0, "num_predict": 8}
     status, out = _post(port, {"model": "tiny", "prompt": "hi",
-                               "format": fmt, "options": FEW})
-    assert status == 400
-    assert "constrained decoding" in out["error"]
-    assert "not ported" in out["error"]
+                               "format": fmt, "options": opts})
+    want = None
+    for _piece, res in jax_model.generate_stream("hi", opts, format=fmt):
+        want = res or want
+    # the reference's idle loop returns the request's pages to its pool
+    # (every test must end with its page pools settled)
+    for _ in range(200):
+        if jax_model.engine.quarantined_pages == 0:
+            break
+        time.sleep(0.05)
+    assert status == 200
+    assert out["context"] == want.context
+    assert (out["response"], out["eval_count"], out["done_reason"]) == (
+        want.text, want.generated_tokens, want.done_reason)
+    assert want.generated_tokens > 0
 
 
 @pytest.mark.parametrize("fmt", [None, ""])

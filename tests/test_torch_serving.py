@@ -213,7 +213,8 @@ def test_port_imports_no_jax():
                 "gguf/writer.py", "gguf/store.py", "gguf/transcode.py",
                 "server/names.py", "server/registry.py",
                 "server/modelfile.py", "server/pull.py",
-                "server/__main__.py"):
+                "server/__main__.py", "ops/constrain.py", "ops/schema.py",
+                "server/tools.py"):
         assert ROOT / "ollama_operator_tpu_torch" / mod in files, mod
     for f in files:
         for name in _imports(f):
