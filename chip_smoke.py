@@ -158,13 +158,50 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``step_breakdown``) is also taken with slot 0 on a device-table JSON
    grammar.
 
+9. Path 11, the operator's pod lifecycle (``lifecycle_phase``), on a
+   third start of path 9's server from the transcode cache with
+   ``--max-slots 4``, ``TPU_TENANT_MAX_QUEUED=2`` and
+   ``TPU_DRAIN_TIMEOUT_S=30``: (a) ``/healthz``, ``/livez`` and
+   ``/readyz`` answer 200 after preload, ``/metrics`` parses as
+   Prometheus text with the request, token, shed and dispatch-histogram
+   families, and ``/api/ps`` carries ``admission``, ``lifecycle``
+   ("serving") and ``utilization`` (the card's peak, an MFU between 0 and
+   1); (b) ``deadline_ms`` 300 with ``num_predict`` 512 ends with
+   ``done_reason`` "timeout" and partial output, and a queued request
+   whose 200 ms deadline passes gets 503 with ``Retry-After``; (c) four
+   ``high`` requests sent behind eight queued ``best_effort`` ones (256
+   tokens each; a best_effort stream is dropped after its first frame):
+   the TTFT median and max by class are printed, and the high median must
+   be below the best_effort median; (d) a third queued request of
+   ``X-Tenant: a`` gets 429 with ``Retry-After``, and one with
+   ``ttft_slo_ms`` 1 behind that backlog 503 with ``Retry-After``; (e)
+   ``options.trace`` puts ``timings`` in the final frame, served in full
+   by ``/debug/trace?id=``, and ``/debug/events`` serves the flight
+   recorder's ring; (f) bad ``deadline_ms``, ``priority`` and
+   ``ttft_slo_ms`` values answer 400 with the reference's messages, and
+   ``disagg_prefill`` 400; (g) SIGTERM while four streams run:
+   ``/readyz`` answers 503 "draining" while ``/livez`` answers 200, a new
+   request 503 with ``Retry-After``, each stream ends with its done frame
+   (or a "drain" frame at the timeout), and the process exits 0 within
+   40 s; the drain time is printed. K1, K6 and K7 counts from ``/api/ps``
+   must be above 0. Then in this process (``replay_cross_check``, (h)):
+   llama3.2:3b at full width and two layers, int8 weights, the paged int8
+   pool, ``TPU_DISPATCH_WATCHDOG_MS=500``: four greedy and two seeded
+   streams run unfailed, then again with one dispatch wait wedged 2 s
+   through the ``engine.watchdog`` fault point mid-stream; the watchdog
+   fires, the scheduler restarts and replays all six through K1, none
+   ends with an error frame, and a greedy stream's tokens must equal the
+   unfailed run's up to a divergence at a near-tie (the tokens after it
+   are counted as not decidable); the restart and replay times are
+   printed.
+
 Then it prints one JSON line ``{"kernels": [...]}`` (``launches`` summed
 over the serving paths, per path in ``launches_by_path``), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``. With ``--out DIR`` the details (``chip_smoke.json``) and the
 compiler's register report (``ptxas.txt``) are written to DIR;
 ``--kernels-only`` stops after phase 2; ``--gguf-only`` runs phase 1 and
-then phases 7 and 8 alone (both exit 4 by design: no result line).
+then phases 7, 8 and 9 alone (both exit 4 by design: no result line).
 """
 
 from __future__ import annotations
@@ -182,6 +219,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from unittest import mock
 
@@ -1806,14 +1844,15 @@ class PortServer:
     """``python -m ollama_operator_tpu_torch.server`` in a subprocess, its
     output in a log file; ``start`` returns once it answers ``GET /``."""
 
-    def __init__(self, args, log_path: str):
+    def __init__(self, args, log_path: str, env=None):
         self.port = free_port()
         self.log = open(log_path, "w+")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "ollama_operator_tpu_torch.server",
              "--host", "127.0.0.1", "--port", str(self.port)] + args,
             cwd=os.path.dirname(os.path.abspath(__file__)),
-            env=child_env(), stdout=self.log, stderr=subprocess.STDOUT)
+            env=dict(child_env(), **(env or {})), stdout=self.log,
+            stderr=subprocess.STDOUT)
 
     def wait_ready(self, timeout: float = 600) -> float:
         t0 = time.perf_counter()
@@ -2010,6 +2049,13 @@ def gguf_phase(torch, details, card: str, workdir: str):
         chat = chat_phase(card, ms2, ref)
         if ms2.stop() != 0:
             raise RuntimeError(f"model server stopped badly: {ms2.tail()}")
+        # path 11 on a third start (from the cache), with 4 slots; it
+        # ends with the server's SIGTERM
+        ms3 = PortServer(args + ["--max-slots", "4"],
+                         os.path.join(workdir, "model3.log"), env=LIFE_ENV)
+        servers.append(ms3)
+        out["load_lifecycle_server_s"] = ms3.wait_ready()
+        life = lifecycle_phase(card, ms3, ref)
     finally:
         for s in servers:
             s.stop()
@@ -2074,7 +2120,8 @@ def gguf_phase(torch, details, card: str, workdir: str):
           f"{out['gate_streams_equal']}", flush=True)
     details["gguf_path"] = out
     details["chat_path"] = chat
-    return launches, chat["launches"], tokenizer
+    details["lifecycle_path"] = life
+    return launches, chat["launches"], life["launches"], tokenizer
 
 
 # ---------------------------------------------------------------------------
@@ -2453,6 +2500,456 @@ def chat_phase(card: str, ms, ref: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 9. Path 11: the lifecycle of the operator's pod, on a third start of path
+# 9's model (4 slots), then the replay cross-check in this process
+# ---------------------------------------------------------------------------
+
+LIFE_PATH = "llama3.2:3b GGUF, lifecycle (4 slots): int8 paged (v3) KV"
+LIFE_COUNTERS = ("flash_prefill", "paged_decode", "qmm")
+LIFE_ENV = {"TPU_TENANT_MAX_QUEUED": "2", "TPU_DRAIN_TIMEOUT_S": "30"}
+# the reference's 400 messages (its resolvers, runtime/admission.py and
+# runtime/service.py), for the bad values path 11 sends
+LIFE_BAD = (("deadline_ms", "abc", "invalid deadline_ms: 'abc'"),
+            ("priority", "bogus", "invalid priority 'bogus'; expected one of "
+                                  "high/normal/best_effort"),
+            ("ttft_slo_ms", "soon", "invalid ttft_slo_ms: 'soon'"),
+            ("disagg_prefill", True, "disagg_prefill: disaggregated prefill "
+                                     "is not ported to the torch server"))
+METRIC_FAMILIES = ("tpu_model_requests_total",
+                   "tpu_model_generated_tokens_total",
+                   "tpu_model_requests_shed_total", "tpu_model_shed_total",
+                   "tpu_model_dispatch_seconds_count",
+                   "tpu_model_dispatch_seconds_bucket")
+
+
+def call(port: int, path: str, body=None, headers=None, timeout=600):
+    """One request: (status, headers, parsed JSON or text), HTTP errors
+    included."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers=dict(headers or {}, **{"Content-Type": "application/json"}))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, hdrs, raw = r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        status, hdrs, raw = e.code, e.headers, e.read()
+    try:
+        return status, hdrs, json.loads(raw)
+    except ValueError:
+        return status, hdrs, raw.decode()
+
+
+def prometheus(text: str) -> dict:
+    """``name{labels}`` → value of every sample line; raises on a line
+    that is not Prometheus text."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, val = line.rpartition(" ")
+            if not re.fullmatch(r"[a-z_:][a-z0-9_:]*(\{.*\})?", key):
+                raise RuntimeError(f"not Prometheus text: {line!r}")
+            out[key] = float(val)
+    return out
+
+
+class Stream:
+    """A streamed /api/generate on a thread: ``first_s`` (time to the
+    first frame), ``frames``; ``close_after_first`` drops the connection
+    after the first frame (the server then cancels the request)."""
+
+    def __init__(self, port, ref, prompt, options, tenant,
+                 close_after_first=False):
+        self.first_s = None
+        self.frames, self.error = [], None
+        self.got_first = threading.Event()
+        body = {"model": ref, "prompt": prompt, "options": options}
+        self.req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/api/generate",
+            data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json",
+                     "X-Tenant": tenant})
+        self.close_after_first = close_after_first
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.t0 = time.perf_counter()
+        self.thread.start()
+
+    def _run(self):
+        try:
+            with urllib.request.urlopen(self.req, timeout=600) as r:
+                for line in r:
+                    if not line.strip():
+                        continue
+                    self.frames.append(json.loads(line))
+                    if self.first_s is None:
+                        self.first_s = time.perf_counter() - self.t0
+                        self.got_first.set()
+                        if self.close_after_first:
+                            return
+        except Exception as e:  # noqa: BLE001 — read by the caller
+            self.error = repr(e)
+        finally:
+            self.got_first.set()
+
+    def join(self, timeout=600):
+        self.thread.join(timeout)
+        if self.thread.is_alive() or self.error:
+            raise RuntimeError(f"stream failed: {self.error}")
+        return self.frames
+
+
+def lifecycle_phase(card: str, ms, ref: str) -> dict:
+    """Path 11 on a third start of path 9's model (``ms``: 4 slots,
+    TPU_TENANT_MAX_QUEUED=2, TPU_DRAIN_TIMEOUT_S=30): (a) the probes,
+    /metrics and the /api/ps blocks; (b) a deadline that ends a stream
+    with "timeout", and one that sheds a queued request with 503; (c) four
+    high requests behind eight best_effort ones; (d) the tenant cap's 429
+    and the TTFT SLO's 503; (e) request traces; (f) the reference's 400s;
+    (g) SIGTERM while four streams run. Returns the record; its
+    ``launches`` are read from /api/ps at the start and just before the
+    SIGTERM."""
+    out = {"model": GGUF_MODEL, "card": card, "env": LIFE_ENV}
+    port = ms.port
+    words = GGUF_WORDS
+    t_phase = time.perf_counter()
+
+    def prompt(i, n=12):
+        return " ".join(words[(5 * i + j) % len(words)] for j in range(n))
+
+    def gen(options, i=0, headers=None, stream=False):
+        return call(port, "/api/generate", {
+            "model": ref, "prompt": prompt(i), "stream": stream,
+            "options": dict({"temperature": 0}, **options)}, headers)
+
+    # (a) the probes and /metrics after preload
+    for path in ("/healthz", "/livez", "/readyz"):
+        status, _, text = call(port, path)
+        if (status, text) != (200, "ok"):
+            raise RuntimeError(f"(a) {path} answered {status} {text!r}")
+    m = prometheus(call(port, "/metrics")[2])
+    before = ms.launches()
+
+    # (b) a deadline mid-generation: "timeout" with partial output
+    status, _, r = gen({"deadline_ms": 300, "num_predict": 512})
+    if status != 200 or r["done_reason"] != "timeout" or not (
+            0 < r["eval_count"] < 512):
+        raise RuntimeError(f"(b) deadline_ms 300: {status} {r}")
+    out["deadline_timeout"] = {"eval_count": r["eval_count"],
+                               "total_ms": r["total_duration"] / 1e6}
+    # four streams fill the slots; a queued request's deadline passes
+    fill = [Stream(port, ref, prompt(10 + i), {"temperature": 0,
+                                               "num_predict": 96},
+                   f"fill{i}") for i in range(4)]
+    for f in fill:
+        f.got_first.wait(120)
+    t0 = time.perf_counter()
+    status, hdrs, r = gen({"deadline_ms": 200, "num_predict": 8}, 20,
+                          {"X-Tenant": "late"})
+    out["queued_deadline"] = {"status": status, "s": time.perf_counter() - t0,
+                              "retry_after": hdrs.get("Retry-After")}
+    if status != 503 or not hdrs.get("Retry-After"):
+        raise RuntimeError(f"(b) queued deadline: {status} {r}")
+    # (d) tenant a's third queued request: 429; a 1 ms TTFT SLO behind
+    # that backlog: 503
+    queued_a = [Stream(port, ref, prompt(30 + i), {"temperature": 0,
+                                                   "num_predict": 8}, "a")
+                for i in range(2)]
+    time.sleep(0.5)
+    status, hdrs, r = gen({"num_predict": 8}, 32, {"X-Tenant": "a"})
+    out["tenant_cap"] = {"status": status, "retry_after":
+                         hdrs.get("Retry-After"), "error": r.get("error")}
+    if status != 429 or not hdrs.get("Retry-After"):
+        raise RuntimeError(f"(d) tenant cap: {status} {r}")
+    status, hdrs, r = gen({"num_predict": 8, "ttft_slo_ms": 1}, 33,
+                          {"X-Tenant": "slo"})
+    out["ttft_slo"] = {"status": status, "retry_after":
+                       hdrs.get("Retry-After"), "error": r.get("error")}
+    if status != 503 or not hdrs.get("Retry-After"):
+        raise RuntimeError(f"(d) ttft_slo_ms 1: {status} {r}")
+    for s in fill + queued_a:
+        frames = s.join()
+        if frames[-1].get("done_reason") not in ("length", "stop"):
+            raise RuntimeError(f"(b)/(d) stream ended {frames[-1]}")
+
+    # (c) four high requests behind eight best_effort ones: each
+    # best_effort stream is dropped after its first frame
+    opts = {"temperature": 0, "num_predict": 256}
+    low = [Stream(port, ref, prompt(40 + i),
+                  dict(opts, priority="best_effort"), f"be{i}",
+                  close_after_first=True) for i in range(8)]
+    time.sleep(1.5)
+    high = [Stream(port, ref, prompt(50 + i), dict(opts, priority="high"),
+                   f"hi{i}") for i in range(4)]
+    for s in high:
+        frames = s.join()
+        if frames[-1].get("done_reason") not in ("length", "stop"):
+            raise RuntimeError(f"(c) high stream ended {frames[-1]}")
+    for s in low:
+        s.join()
+    ttft = {}
+    for cls, group in (("high", high), ("best_effort", low)):
+        t = sorted(s.first_s for s in group)
+        ttft[cls] = {"median_s": t[len(t) // 2], "max_s": t[-1], "all": t}
+    out["ttft_by_class"] = ttft
+    print(f"path 11 (c) [{card}]: TTFT s, 4 high behind 8 best_effort "
+          f"(4 slots, 256 tokens each): high median "
+          f"{ttft['high']['median_s']:.3f} max {ttft['high']['max_s']:.3f}; "
+          f"best_effort median {ttft['best_effort']['median_s']:.3f} max "
+          f"{ttft['best_effort']['max_s']:.3f}", flush=True)
+    if not ttft["high"]["median_s"] < ttft["best_effort"]["median_s"]:
+        raise RuntimeError(f"(c) high TTFT not below best_effort: {ttft}")
+
+    # (e) traces
+    status, _, r = gen({"num_predict": 8, "trace": True}, 60)
+    tm = r.get("timings") if status == 200 else None
+    if not tm or not tm.get("spans"):
+        raise RuntimeError(f"(e) no timings: {status} {r}")
+    _, _, tr = call(port, f"/debug/trace?id={tm['request_id']}")
+    evs = [e["ev"] for e in tr.get("events", [])]
+    if "dispatch" not in evs or "finish" not in evs:
+        raise RuntimeError(f"(e) /debug/trace: {tr}")
+    _, _, ring = call(port, "/debug/events")
+    kinds = collections.Counter(e["kind"] for e in ring["events"])
+    if not kinds.get("admit") or not kinds.get("shed"):
+        raise RuntimeError(f"(e) /debug/events: {kinds}")
+    out["trace"] = {"spans": [s["ev"] for s in tm["spans"]],
+                    "events": len(evs), "flight_kinds": dict(kinds)}
+
+    # (f) the reference's 400s
+    for key, value, want in LIFE_BAD:
+        status, _, r = gen({key: value, "num_predict": 4}, 61)
+        if (status, r.get("error")) != (400, want):
+            raise RuntimeError(f"(f) {key}={value!r}: {status} {r}")
+
+    # (a) the /api/ps blocks and /metrics after the traffic
+    ps = ms.get("/api/ps")["models"][0]
+    util, life = ps["utilization"], ps["lifecycle"]
+    mfu = util.get("mfu")
+    m2 = prometheus(call(port, "/metrics")[2])
+    missing = [f for f in METRIC_FAMILIES
+               if not any(k.split("{")[0] == f for k in m2)]
+    out["ps"] = {"admission": ps["admission"], "lifecycle": life,
+                 "utilization": util}
+    out["metrics"] = {k: m2[k] for k in m2 if k.startswith((
+        "tpu_model_requests_total", "tpu_model_generated_tokens_total",
+        "tpu_model_requests_shed_total", "tpu_model_shed_total",
+        "tpu_model_request_timeouts_total"))}
+    if (life["state"] != "serving" or "queued_by_class" not in ps["admission"]
+            or not util.get("peak_flops") or mfu is None
+            or not 0 < mfu < 1 or missing
+            or m2["tpu_model_requests_total"] <= m.get(
+                "tpu_model_requests_total", 0)):
+        raise RuntimeError(f"(a) /api/ps {out['ps']}, metrics missing "
+                           f"{missing}")
+    print(f"path 11 (a) [{card}]: probes 200; /metrics "
+          f"{len(m2)} samples; /api/ps lifecycle {life['state']}, watchdog "
+          f"budget {life['watchdog']['timeout_s']} s; utilization on "
+          f"{util['device_kind']} peak {util['peak_flops']:.4g} FLOP/s: MFU "
+          f"{mfu} over {util['window_s']} s, goodput "
+          f"{util['goodput_tok_s']} tok/s, occupancy {util['occupancy']}, "
+          f"breakdown {util['breakdown']}", flush=True)
+
+    # (g) SIGTERM while four streams run
+    runs = [Stream(port, ref, prompt(70 + i), {"temperature": 0,
+                                               "num_predict": 64},
+                   f"g{i}") for i in range(4)]
+    for s in runs:
+        s.got_first.wait(120)
+    after = ms.launches()
+    out["launches"] = {k: after[k] - before[k] for k in after}
+    t_term = time.perf_counter()
+    ms.proc.send_signal(15)
+    time.sleep(0.3)
+    ready = call(port, "/readyz")
+    live = call(port, "/livez")
+    shed = gen({"num_predict": 4}, 80, {"X-Tenant": "new"})
+    ends = [s.join()[-1] for s in runs]
+    code = ms.proc.wait(timeout=60)
+    exit_s = time.perf_counter() - t_term
+    log = ms.tail(20000)
+    drain_s = re.findall(r"drain: ([0-9.]+) s", log)
+    out["sigterm"] = {"readyz": ready[::2], "livez": live[::2],
+                      "new_request": [shed[0], shed[1].get("Retry-After")],
+                      "done_reasons": [e.get("done_reason") for e in ends],
+                      "exit_code": code, "exit_s": exit_s,
+                      "drain_s": float(drain_s[-1]) if drain_s else None}
+    print(f"path 11 (g) [{card}]: SIGTERM with 4 streams running: readyz "
+          f"{ready[::2]}, livez {live[::2]}, a new request {shed[0]} "
+          f"(Retry-After {shed[1].get('Retry-After')}); streams ended "
+          f"{out['sigterm']['done_reasons']}; drain "
+          f"{out['sigterm']['drain_s']} s; exit {code} after "
+          f"{exit_s:.2f} s", flush=True)
+    if (ready[::2] != (503, "draining") or live[::2] != (200, "ok")
+            or shed[0] != 503 or not shed[1].get("Retry-After")
+            or any(e.get("done_reason") not in ("length", "drain")
+                   or not e.get("done") for e in ends)
+            or code != 0 or exit_s > 30 + 10):
+        raise RuntimeError(f"(g) SIGTERM: {out['sigterm']}")
+    missing = [k for k in LIFE_COUNTERS if out["launches"][k] <= 0]
+    stray = [k for k in GGUF_ABSENT if out["launches"][k] != 0]
+    if missing or stray:
+        raise RuntimeError(f"path 11 launches {out['launches']}: not "
+                           f"launched {missing}, of another path {stray}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"path 11 [{card}]: (b) deadline 300 ms ended with timeout after "
+          f"{out['deadline_timeout']['eval_count']} tokens, a queued 200 ms "
+          f"deadline shed 503 after {out['queued_deadline']['s']:.2f} s "
+          f"(Retry-After {out['queued_deadline']['retry_after']}); (d) "
+          f"tenant cap 429 (Retry-After {out['tenant_cap']['retry_after']}),"
+          f" ttft_slo_ms 1 503 (Retry-After "
+          f"{out['ttft_slo']['retry_after']}); (e) spans "
+          f"{out['trace']['spans']}; (f) 400s as the reference; launches "
+          f"{out['launches']}; {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def replay_cross_check(torch, details, card: str, tokenizer) -> dict:
+    """(h) In this process: llama3.2:3b at full width and two layers, int8
+    weights, the paged int8 pool, TPU_DISPATCH_WATCHDOG_MS=500. Four greedy
+    and two seeded streams (200-token prompts, 128 tokens) run unfailed,
+    then again with one dispatch wait wedged 2 s by the engine.watchdog
+    fault point mid-stream: the watchdog fires, the scheduler restarts
+    and replays them through K1. Every stream must end without an error
+    frame; a greedy stream's tokens must equal the unfailed run's up to a
+    step whose top-2 logit gap (a prefill of the unfailed tokens) is a
+    near-tie (below 3% of max |logit| twice over), and the tokens after
+    it are counted as not decidable; the seeded streams' equal tokens are
+    reported."""
+    import gc
+
+    from ollama_operator_tpu_torch.models import decoder
+    from ollama_operator_tpu_torch.models.config import get_config
+    from ollama_operator_tpu_torch.runtime.engine import SlotOptions
+    from ollama_operator_tpu_torch.runtime.faults import FAULTS
+    from ollama_operator_tpu_torch.runtime.service import LoadedModel
+    from ollama_operator_tpu_torch.runtime.trace import FLIGHT
+    from ollama_operator_tpu_torch.server.app import apply_engine_dtype
+    cfg = dataclasses.replace(get_config(GGUF_MODEL), n_layers=2)
+    params = apply_engine_dtype(dense_params(torch, cfg), "int8", "cuda")
+    out = {"model": GGUF_MODEL, "layers": 2, "card": card}
+    g = torch.Generator(device="cpu").manual_seed(SEED + 11)
+    prompts = [torch.randint(0, cfg.vocab_size, (200 + 7 * i,),
+                             generator=g).tolist() for i in range(6)]
+    greedy = SlotOptions(temperature=0.0, repeat_penalty=1.0)
+    seeded = [SlotOptions(temperature=0.8, seed=SEED + i, repeat_penalty=1.0)
+              for i in range(2)]
+    opts = [greedy] * 4 + seeded
+    n_tok = 128
+
+    def run(fault: bool):
+        lm = LoadedModel(GGUF_MODEL, cfg, params, tokenizer,
+                         template=CHAT_TEMPLATE, device="cuda",
+                         kv_dtype="int8", paged=True)
+        sched = lm.scheduler
+        sched.restart_backoff = 0.0
+        got = [[] for _ in prompts]
+        errors = []
+        try:
+            reqs = [sched.submit(p, o, n_tok) for p, o in zip(prompts, opts)]
+
+            def read(i):
+                try:
+                    for c in reqs[i].chunks():
+                        got[i].extend(c)
+                except Exception as e:  # noqa: BLE001 — checked below
+                    errors.append(f"stream {i}: {e!r}")
+
+            threads = [threading.Thread(target=read, args=(i,))
+                       for i in range(len(reqs))]
+            for t in threads:
+                t.start()
+            seq0 = FLIGHT.seq
+            if fault:
+                # mid-stream: after every stream has a decode dispatch
+                t0 = time.perf_counter()
+                while (min(len(x) for x in got) < 2
+                       and time.perf_counter() - t0 < 120):
+                    time.sleep(0.001)
+                FAULTS.arm("engine.watchdog", "delay:2s:once")
+            for t in threads:
+                t.join(timeout=600)
+            evs = [e for e in FLIGHT.snapshot() if e["seq"] > seq0]
+            stats = {"watchdog_fires": sched.n_watchdog_fires,
+                     "restarts": sched.n_restarts,
+                     "replays": sched.n_replays,
+                     "fallbacks": sched.n_replay_fallbacks,
+                     "done": [r.done_reason for r in reqs]}
+            return got, errors, stats, evs, lm
+        finally:
+            FAULTS.disarm("engine.watchdog")
+
+    # whole admissions: every stream is decoding when the fault lands
+    with mock.patch.dict(os.environ, {"TPU_DISPATCH_WATCHDOG_MS": "500",
+                                      "TPU_PREFILL_CHUNK": "0"}):
+        ref, ref_err, ref_stats, _, lm = run(False)
+        lm.unload()
+        got, err, stats, evs, lm = run(True)
+        lm.unload()
+    if ref_err or ref_stats["watchdog_fires"] or ref_stats["restarts"]:
+        raise RuntimeError(f"(h) the unfailed run failed: {ref_err} "
+                           f"{ref_stats}")
+    t_of = {}
+    for e in evs:
+        t_of.setdefault(e["kind"], e["t_unix"])
+    readmit = [e for e in evs if e["kind"] == "replay_readmit"]
+    replayed = {e["rid"] for e in evs if e["kind"] == "replay"}
+    t_admits = [e["t_unix"] for e in evs if e["kind"] == "admit"
+                and e["rid"] in replayed
+                and readmit and e["t_unix"] >= readmit[0]["t_unix"]]
+    out["restart_s"] = (t_of["restart"] - t_of["watchdog"]
+                        if "restart" in t_of and "watchdog" in t_of else None)
+    out["replay_s"] = ((max(t_admits) - t_of["restart"])
+                       if t_admits and "restart" in t_of else None)
+    out["stats"] = stats
+    rows = []
+    n_undecided = 0
+    for i, (a, b) in enumerate(zip(ref, got)):
+        k = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]),
+                 None)
+        row = {"stream": i, "kind": "greedy" if i < 4 else "seeded",
+               "tokens": len(b), "equal": sum(x == y for x, y in zip(a, b)),
+               "first_divergence": k}
+        if k is not None and i < 4:
+            # the unfailed tokens' logits at the divergence
+            seq = prompts[i] + a[:k]
+            ids = torch.zeros((1, -(-len(seq) // 64) * 64),
+                              dtype=torch.long, device="cuda")
+            ids[0, :len(seq)] = torch.tensor(seq, device="cuda")
+            x = decoder.prefill_hidden(params, cfg, ids)[0]
+            lg = decoder._unembed(cfg, params,
+                                  x[:, len(seq) - 1]).float()[0]
+            top2 = lg.topk(2).values
+            gap = float(top2[0] - top2[1])
+            tol = 3e-2 * max(1.0, float(lg.abs().max()))
+            row.update(gap=gap, tol=tol, decidable=gap > 2 * tol)
+            n_undecided += len(b) - k
+        rows.append(row)
+    out["streams"] = rows
+    out["greedy_tokens_not_decidable"] = n_undecided
+    print(f"path 11 (h) [{card}]: watchdog 500 ms, one dispatch wait "
+          f"wedged 2 s: fires {stats['watchdog_fires']}, restarts "
+          f"{stats['restarts']}, replays {stats['replays']}, fallbacks "
+          f"{stats['fallbacks']}; watchdog to restart "
+          f"{out['restart_s']} s, restart to the replays admitted "
+          f"{out['replay_s']} s; streams equal to the unfailed run "
+          f"{[r['equal'] for r in rows]} of {[r['tokens'] for r in rows]}; "
+          f"greedy tokens after a near-tie divergence (not decidable): "
+          f"{n_undecided}", flush=True)
+    bad = [r for r in rows if r["kind"] == "greedy"
+           and r["first_divergence"] is not None and r["decidable"]]
+    if (err or stats["watchdog_fires"] != 1 or stats["replays"] != 6
+            or stats["fallbacks"] or any(len(x) != n_tok for x in got)
+            or bad):
+        raise RuntimeError(f"(h) replay: errors {err}, {stats}, decidable "
+                           f"divergences {bad}")
+    details["replay_cross_check"] = out
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def escape_walk(gt, table, tokens) -> int:
     """The escapes a device-table run of ``tokens`` (a request's stream
     after its first token's state is known) would make: steps from a
@@ -2586,9 +3083,9 @@ def main() -> int:
                          "paged-decode wrappers (K6, K4, K5) at each paged "
                          "row, and fail unless its K6 gives the same bits")
     ap.add_argument("--gguf-only", action="store_true",
-                    help="build the kernels, then run paths 9 and 10 (the "
-                         "pulled GGUF model, its chat and structured "
-                         "output) alone; no result line")
+                    help="build the kernels, then run paths 9, 10 and 11 "
+                         "(the pulled GGUF model, its chat and structured "
+                         "output, its lifecycle) alone; no result line")
     args = ap.parse_args()
     try:
         import torch
@@ -2695,16 +3192,18 @@ def main() -> int:
     if args.gguf_only:
         workdir = tempfile.mkdtemp(prefix="chip_smoke_gguf_")
         try:
-            _, _, tokenizer = gguf_phase(torch, details, card, workdir)
+            _, _, _, tokenizer = gguf_phase(torch, details, card, workdir)
             grammar_cross_check(torch, details, card, tokenizer)
+            replay_cross_check(torch, details, card, tokenizer)
         except Exception as e:  # noqa: BLE001 — the phase's failure
             import traceback
             traceback.print_exc()
-            return fail(f"paths 9 and 10: {e!r}")
+            return fail(f"paths 9, 10 and 11: {e!r}")
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         write_details(out_dir, details)
-        print("gguf-only run (paths 9 and 10): no kernel rows; no result",
+        print("gguf-only run (paths 9, 10 and 11): no kernel rows; no "
+              "result",
               flush=True)
         return 4
     try:
@@ -2776,12 +3275,16 @@ def main() -> int:
         workdir = tempfile.mkdtemp(prefix="chip_smoke_gguf_")
         try:
             (launches_by_path[GGUF_PATH], launches_by_path[CHAT_PATH],
+             launches_by_path[LIFE_PATH],
              tokenizer) = gguf_phase(torch, details, card, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
         # 8. path 10's grammar cross-check in this process
         grammar_cross_check(torch, details, card, tokenizer)
+        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        # 9. path 11's replay cross-check in this process
+        replay_cross_check(torch, details, card, tokenizer)
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
     except Exception as e:  # noqa: BLE001 — every phase failure is fatal
         import traceback

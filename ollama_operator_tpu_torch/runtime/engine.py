@@ -53,6 +53,7 @@ from ..models import decoder
 from ..models.config import ModelConfig
 from ..ops import sampling
 from ..ops.paged import paged_route, paged_shape_error
+from .faults import FAULTS
 from .paged import PageTable, PagesExhausted
 from .radix import RadixCache
 
@@ -741,6 +742,7 @@ class Engine:
         budget (:meth:`step_budgets`). Host lengths advance by the
         budgets; the caller rolls back what an escaped slot did not use
         through :meth:`spec_ack`."""
+        FAULTS.check("engine.step")
         n = n or self.ecfg.decode_chunk
         victims = self.prepare_decode(n)
         if victims:
@@ -1014,6 +1016,27 @@ class Engine:
                 self._pt.pin(node.page)
         self.release(slot)
         return k * ps
+
+    def radix_reset(self):
+        """Drop the whole radix tree (supervised restart: the cache's
+        contents are unknown after a failed step, so nothing may be
+        reused); its pages go back to the pool."""
+        if self._radix is None:
+            return
+        for pg in self._radix.reset():
+            self._pt.unpin(pg)
+
+    def drain_quarantine(self) -> int:
+        """Return every fenced page to the pool without waiting on a
+        handle (supervised restart: the failed dispatch is never waited,
+        and any program still running on the stream finishes before a
+        later one reads a recycled page). Returns the pages freed."""
+        return self._pt.drain_quarantine() if self._pt is not None else 0
+
+    @property
+    def free_pages(self) -> int:
+        """Pages on the pool's free list (0 for the dense cache)."""
+        return self._pt.n_free if self._pt is not None else 0
 
     def radix_evict(self, n_pages: int = 1) -> int:
         """Evict up to ``n_pages`` least-recently-used radix leaves whose

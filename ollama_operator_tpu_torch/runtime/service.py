@@ -3,14 +3,17 @@ prompt template + default options.
 
 Counterpart of ``ollama_operator_tpu/runtime/service.py``: the text-level
 API the HTTP layer calls (prompt and chat templating, option merging, stop
-sequences with holdback, streaming detokenisation, and the grammar
-constraint of ``format``). Everything below it is token-level.
+sequences with holdback, streaming detokenisation, the grammar constraint
+of ``format``, and the request budgets: ``deadline_ms``, ``priority``,
+``tenant`` and ``ttft_slo_ms``, resolved as the reference resolves them).
+Everything below it is token-level.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import sys
 import time
 from collections import OrderedDict
@@ -20,16 +23,41 @@ from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..ops.constrain import JsonConstraint
 from ..ops.schema import SchemaConstraint, compile_schema
+from ..server.metrics import GLOBAL as METRICS
 from ..server.template import DEFAULT_TEMPLATE, Template
 from ..server.tools import to_template_tool_calls, to_template_tools
 from ..tokenizer import StreamDecoder, Tokenizer
+from .admission import resolve_priority, resolve_tenant, resolve_ttft_slo_s
 from .engine import (Engine, EngineConfig, SlotOptions, resolve_cache_dtype,
                      resolve_kv_dtype_default, resolve_serving_defaults)
+from .errors import BadRequest
 from .scheduler import Scheduler
 
+__all__ = ["BadRequest", "GenerateResult", "LoadedModel", "merge_options",
+           "resolve_deadline_s"]
 
-class BadRequest(ValueError):
-    """A request the client got wrong (HTTP 400)."""
+
+def resolve_deadline_s(defaults: Optional[Dict],
+                       options: Optional[Dict]) -> Optional[float]:
+    """Per-request wall-clock budget in seconds, or None for unlimited.
+
+    Precedence: request ``deadline_ms`` option > modelfile default >
+    ``TPU_REQUEST_DEADLINE_MS`` env. 0 (or absent everywhere) disables.
+    """
+    o = dict(defaults or {})
+    o.update(options or {})
+    raw = o.get("deadline_ms")
+    if raw is None:
+        raw = os.environ.get("TPU_REQUEST_DEADLINE_MS") or None
+    if raw is None:
+        return None
+    try:
+        ms = float(raw)
+    except (TypeError, ValueError) as e:
+        raise BadRequest(f"invalid deadline_ms: {raw!r}") from e
+    if ms < 0:
+        raise BadRequest("deadline_ms must be >= 0")
+    return ms / 1000.0 if ms > 0 else None
 
 
 @dataclasses.dataclass
@@ -43,6 +71,41 @@ class GenerateResult:
     context: List[int] = dataclasses.field(default_factory=list)
     # prompt tokens whose K/V came from a cached prefix (no prefill)
     reused_tokens: int = 0
+    # scheduler request id: the handle for GET /debug/trace?id=
+    request_id: int = 0
+    # per-stage span summary (runtime/trace.py), only when the request
+    # asked for it (options.trace true): the final frame's "timings"
+    timings: Optional[Dict] = None
+
+
+class _OwnedStream:
+    """An iterator that owns its scheduler request: submission is eager,
+    so a stream dropped before its first next() (the client went away
+    while the headers were written) must still cancel the request."""
+
+    def __init__(self, it, req):
+        self._it, self._req = it, req
+        self._started = False
+        # the span timeline, for the HTTP layer's flush events
+        self.trace = req.trace
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self._started = True
+        return next(self._it)
+
+    def close(self):
+        if not self._started:
+            self._req.cancel()
+        self._it.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — never raise from GC
+            pass
 
 
 class _Piece(str):
@@ -295,6 +358,17 @@ class LoadedModel:
         refused as the reference refuses it. Text pieces come as
         ``_Piece`` strings that carry their token counts.
 
+        The budgets: ``deadline_ms`` (a request still waiting when it
+        passes is shed with 503, one that streamed tokens ends with
+        ``done_reason`` "timeout"), ``priority`` (high, normal,
+        best_effort), ``tenant`` (its fair-queuing bucket) and
+        ``ttft_slo_ms`` (refused at once when the queue model predicts a
+        miss), each resolved as the reference resolves it (request >
+        modelfile > environment) and refused with its 400 when bad.
+        ``trace`` true puts the span summary in ``timings``.
+        ``disagg_prefill`` true is refused: disaggregated prefill is not
+        ported.
+
         Options, tokenization and submission run at call time, so bad
         requests and a full queue raise before the caller commits a
         streamed response."""
@@ -322,12 +396,24 @@ class LoadedModel:
                 raise BadRequest(
                     f"unsupported format {format!r}; expected \"json\" or "
                     f"a JSON schema object")
+        if (options or {}).get("disagg_prefill"):
+            raise BadRequest("disagg_prefill: disaggregated prefill is not "
+                             "ported to the torch server")
         req = self.scheduler.submit(ids, so, max_new,
                                     eog_ids=frozenset(self.tokenizer.eog_ids),
-                                    constraint=constraint)
-        return self._stream(req, stops, ids, max_new, t0)
+                                    constraint=constraint,
+                                    deadline_s=resolve_deadline_s(
+                                        self.default_params, options),
+                                    priority=resolve_priority(
+                                        self.default_params, options),
+                                    tenant=resolve_tenant(options),
+                                    ttft_slo_s=resolve_ttft_slo_s(
+                                        self.default_params, options))
+        want_timings = bool((options or {}).get("trace"))
+        return _OwnedStream(self._stream(req, stops, ids, max_new, t0,
+                                         want_timings), req)
 
-    def _stream(self, req, stops, ids, max_new, t0):
+    def _stream(self, req, stops, ids, max_new, t0, want_timings=False):
         sd = StreamDecoder(self.tokenizer)
         sm = StopMatcher(stops)
         result = GenerateResult(prompt_tokens=req.stats.n_prompt)
@@ -336,6 +422,7 @@ class LoadedModel:
         try:
             for chunk in req.chunks():
                 all_ids.extend(chunk)
+                req.trace.event("detok", n=len(chunk))
                 piece = sm.feed(sd.feed_many(chunk))
                 if piece:
                     result.text += piece
@@ -357,9 +444,26 @@ class LoadedModel:
         result.ttft_s = st.ttft_s
         result.reused_tokens = st.n_reused
         result.total_s = time.monotonic() - t0
-        result.done_reason = ("stop" if sm.hit or st.n_generated < max_new
-                              else "length")
+        if req.done_reason in ("timeout", "drain"):
+            # the deadline passed mid-generation, or the drain window
+            # closed around a running stream: the partial output stands
+            result.done_reason = req.done_reason
+        else:
+            result.done_reason = ("stop" if sm.hit or st.n_generated < max_new
+                                  else "length")
         result.context = ids + all_ids
+        METRICS.inc("tpu_model_requests_total")
+        METRICS.inc("tpu_model_generated_tokens_total", st.n_generated)
+        METRICS.inc("tpu_model_prompt_tokens_total", len(ids))
+        if st.n_reused:
+            METRICS.inc("tpu_model_prefix_reused_tokens_total", st.n_reused)
+        METRICS.observe("tpu_model_ttft_seconds", st.ttft_s)
+        if st.decode_tok_s > 0:
+            METRICS.observe("tpu_model_decode_tokens_per_second",
+                            st.decode_tok_s)
+        result.request_id = req.id
+        if want_timings:
+            result.timings = req.trace.timings()
         yield "", result
 
     def generate(self, prompt_text: str, options: Optional[Dict] = None
@@ -369,6 +473,14 @@ class LoadedModel:
             if res is not None:
                 final = res
         return final
+
+    def begin_drain(self):
+        self.scheduler.begin_drain()
+
+    def drain(self, timeout_s: Optional[float] = None) -> int:
+        """Graceful drain of this model's scheduler; returns the
+        stragglers it ended (``Scheduler.drain``)."""
+        return self.scheduler.drain(timeout_s)
 
     def unload(self):
         self.scheduler.shutdown()

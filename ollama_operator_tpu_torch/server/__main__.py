@@ -20,6 +20,15 @@ Typical start, from a checkout::
 Tensor, sequence, expert and data parallelism (``--tp``/``--sp``/``--ep``/
 ``--dp`` above 1) and multi-host worlds (``TPU_DIST_HOSTS`` above 1) are
 refused until the port has them.
+
+SIGTERM (or SIGINT) shuts the server down as the reference's does, every
+step bounded so that a wedged engine never turns a rollout's SIGTERM into
+a SIGKILL: drain (``/readyz`` answers 503 "draining", new work is shed
+with 503 + Retry-After, running streams finish within
+``TPU_DRAIN_TIMEOUT_S``, 30 s by default, stragglers get a terminal
+``"drain"`` frame), wait for the handlers to write their last frames,
+stop the listener, unload the models and stop the keep-alive reaper,
+then dump the flight recorder to stderr.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import argparse
 import os
 import signal
 import sys
+import time
 
 
 def main(argv=None):
@@ -164,10 +174,33 @@ def main(argv=None):
     signal.pthread_sigmask(signal.SIG_BLOCK, [signal.SIGINT, signal.SIGTERM])
     stop = signal.sigwait([signal.SIGINT, signal.SIGTERM])
     print(f"signal {stop}, shutting down", file=sys.stderr, flush=True)
+    graceful_shutdown(manager, httpd)
+    return 0
+
+
+def graceful_shutdown(manager, httpd) -> float:
+    """The SIGTERM sequence: drain (bounded by TPU_DRAIN_TIMEOUT_S), wait
+    up to 10 s for the handlers' last frames, stop the listener, unload
+    every model and stop the reaper, dump the flight recorder. No step's
+    failure stops the next. Returns the drain's seconds."""
+    from ..runtime.trace import FLIGHT
+    t0 = time.monotonic()
+    try:
+        shed = manager.drain()
+        manager.wait_idle(10.0)
+        print(f"drain: {time.monotonic() - t0:.3f} s, {shed} straggler(s) "
+              f"ended", file=sys.stderr, flush=True)
+    except Exception as e:  # noqa: BLE001 — the shutdown goes on
+        print(f"drain failed: {e!r}", file=sys.stderr, flush=True)
+    took = time.monotonic() - t0
     httpd.shutdown()
     httpd.server_close()
-    manager.shutdown()
-    return 0
+    try:
+        manager.shutdown()
+    except Exception as e:  # noqa: BLE001 — the shutdown goes on
+        print(f"unload failed: {e!r}", file=sys.stderr, flush=True)
+    FLIGHT.dump("shutdown")
+    return took
 
 
 if __name__ == "__main__":

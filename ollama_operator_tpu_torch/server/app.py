@@ -30,13 +30,35 @@ port serves:
                           and ``tools``
   POST /v1/completions    OpenAI text completion
   GET  /v1/models         OpenAI model list
+  GET  /healthz, /livez, /readyz   the pod's probes: /healthz answers
+                          once the server listens (startup); /livez and
+                          /readyz answer 503 when a resident model's
+                          engine failed for good, and /readyz 503
+                          "draining" while the server drains (/livez
+                          stays 200 then, so the kubelet does not kill a
+                          pod mid-drain)
+  GET  /metrics           Prometheus text (``server/metrics.py``)
+  GET  /debug/trace?id=   a recent request's span timeline (no id: the
+                          ids held); /debug/events the flight recorder's
+                          ring (?kind=, ?last=); /debug/utilization a
+                          model's per-second utilization ring (?model=,
+                          ?last=)
+  POST /api/drain         start a graceful drain (the operator's
+                          drain-first shrink): new work is shed with 503
+                          and Retry-After, running streams finish
 
 Streamed responses are coalesced as the reference's are: the first piece
 goes out alone, then a frame every ``stream_flush_tokens`` tokens (16) or
 ``stream_flush_ms`` (25 ms), whichever comes first; the request's options
 override ``TPU_STREAM_FLUSH_TOKENS`` / ``TPU_STREAM_FLUSH_MS``, which
 override the defaults. An error after the stream started is its last
-frame (an SSE error event and ``[DONE]`` on the OpenAI route).
+frame (an SSE error event and ``[DONE]`` on the OpenAI route). Before it
+started, a request shed while queued (its deadline passed, a higher
+class displaced it, the server drains, the queue is full, the TTFT SLO
+cannot be met) answers 503 with ``Retry-After``, a tenant over its queued
+cap 429 with ``Retry-After``. Every generation route takes the
+fair-queuing tenant from ``X-Tenant``, else from a hash of ``X-API-Key``
+or ``Authorization``, when the options name none.
 
 The manager owns the blob store (``server/registry.py``) and loads a model
 from it on demand, as the JAX manager does: the GGUF is read, dequantized
@@ -60,6 +82,7 @@ import re
 import sys
 import threading
 import time
+import weakref
 from datetime import datetime, timezone
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
@@ -75,11 +98,15 @@ from ..gguf.transcode import (config_from_gguf, is_encoder_arch,
 from ..models.decoder import check_supported
 from ..ops import cuda_build
 from ..ops import quant as Q
+from ..runtime.admission import TenantRateLimited, tenant_from_key
 from ..runtime.engine import (EngineConfig, resolve_engine_dtype,
                               resolve_serving_defaults)
+from ..runtime.errors import BadRequest, DeadlineExceeded
 from ..runtime.scheduler import SchedulerBroken, SchedulerBusy
-from ..runtime.service import BadRequest, LoadedModel
+from ..runtime.service import LoadedModel
+from ..runtime.trace import FLIGHT, TRACER
 from ..tokenizer import Tokenizer
+from .metrics import GLOBAL as METRICS
 from .modelfile import Modelfile
 from .names import ModelName
 from .registry import (MT_ADAPTER, MT_LICENSE, MT_MODEL, MT_PARAMS,
@@ -130,7 +157,8 @@ class _StreamCoalescer:
     or ``max_s`` seconds, whichever comes first. ``frames`` counts the
     frames sent."""
 
-    def __init__(self, chunk_fn, make_frame, max_tokens: int, max_s: float):
+    def __init__(self, chunk_fn, make_frame, max_tokens: int, max_s: float,
+                 trace=None):
         self._chunk = chunk_fn
         self._make = make_frame
         self.max_tokens = max_tokens
@@ -139,6 +167,8 @@ class _StreamCoalescer:
         self._ntok = 0
         self._t_last = None     # None: the first piece goes out at once
         self.frames = 0
+        # the request's span timeline: each flush is stamped on it
+        self._trace = trace
 
     def add(self, piece: str):
         self._parts.append(piece)
@@ -152,11 +182,15 @@ class _StreamCoalescer:
         if not self._parts:
             return
         text = "".join(self._parts)
+        n_tok = self._ntok
         self._parts.clear()
         self._ntok = 0
         self._t_last = time.monotonic() if now is None else now
         self._chunk(self._make(text))
         self.frames += 1
+        METRICS.inc("tpu_model_stream_frames_total")
+        if self._trace is not None:
+            self._trace.event("http_flush", n_tokens=n_tok, chars=len(text))
 
 
 def _fmt_params(n: int) -> str:
@@ -277,7 +311,12 @@ class ModelManager:
     device, no engine, generation refused with 503.
     ``default_keep_alive`` (else ``OLLAMA_KEEP_ALIVE``, else 5 minutes)
     is the idle time after which a store-loaded model is unloaded;
-    ``clock`` is the reaper's clock and ``reap_every_s`` its period."""
+    ``clock`` is the reaper's clock and ``reap_every_s`` its period.
+
+    ``begin_drain`` (SIGTERM, ``POST /api/drain``) puts every resident
+    model, and every model loaded after it, into draining: ``/readyz``
+    answers 503 and new work is shed while running streams finish;
+    ``drain`` also waits for them, up to ``TPU_DRAIN_TIMEOUT_S``."""
 
     def __init__(self, store_root: Optional[str] = None,
                  cache_dir: Optional[str] = None, device="cuda",
@@ -312,6 +351,11 @@ class ModelManager:
                   f"5m", file=sys.stderr)
             self.default_keep_alive = 300.0
         self._reaper_stop = threading.Event()
+        self.draining = False
+        # generation requests inside a handler (the shutdown waits for
+        # them to write their last frame)
+        self._inflight = 0
+        self._inflight_cv = threading.Condition()
         if serve_models and self.store is not None:
             self._reaper = threading.Thread(
                 target=self._reap_loop, args=(reap_every_s,), daemon=True,
@@ -351,9 +395,60 @@ class ModelManager:
         with self._lock:
             old = self._models.get(lm.name)
             self._models[lm.name] = lm
+            if self.draining:
+                lm.begin_drain()
         if old is not None and old is not lm:
             old.unload()
         return lm
+
+    def resident(self) -> List[LoadedModel]:
+        with self._lock:
+            return list(self._models.values())
+
+    # -- lifecycle -------------------------------------------------------
+    def broken(self) -> bool:
+        """True when a resident model's engine failed for good (its
+        scheduler went broken): the liveness and readiness probes fail."""
+        return any(lm.scheduler.broken is not None
+                   for lm in self.resident())
+
+    def begin_drain(self):
+        """Enter draining: readiness fails, every resident model's
+        scheduler sheds new work (503 + Retry-After), running streams keep
+        generating. Idempotent."""
+        with self._lock:
+            already, self.draining = self.draining, True
+            models = list(self._models.values())
+        if not already:
+            FLIGHT.record("drain", phase="manager",
+                          models=[lm.name for lm in models])
+        for lm in models:
+            lm.begin_drain()
+
+    def drain(self, timeout_s: Optional[float] = None) -> int:
+        """Graceful drain for SIGTERM: begin_drain(), then let every
+        resident model's streams finish within ``timeout_s`` in all
+        (default TPU_DRAIN_TIMEOUT_S) before the stragglers are ended.
+        Returns the stragglers."""
+        from ..runtime.scheduler import drain_timeout_s
+        self.begin_drain()
+        if timeout_s is None:
+            timeout_s = drain_timeout_s()
+        deadline = time.monotonic() + max(0.0, timeout_s)
+        return sum(lm.drain(max(0.0, deadline - time.monotonic()))
+                   for lm in self.resident())
+
+    def track(self, delta: int):
+        with self._inflight_cv:
+            self._inflight += delta
+            self._inflight_cv.notify_all()
+
+    def wait_idle(self, timeout_s: float) -> bool:
+        """Wait until no generation handler runs (each has written its
+        last frame), at most ``timeout_s``; False if some still run."""
+        with self._inflight_cv:
+            return self._inflight_cv.wait_for(lambda: self._inflight == 0,
+                                              timeout=timeout_s)
 
     def _find(self, name: str) -> Optional[LoadedModel]:
         with self._lock:
@@ -453,6 +548,8 @@ class ModelManager:
             lm.digest = digest
             with self._lock:
                 self._models[lm.name] = lm
+                if self.draining:
+                    lm.begin_drain()
                 ka = self.default_keep_alive
                 self._expires[lm.name] = (None if ka is None
                                           else self._clock() + ka)
@@ -601,9 +698,15 @@ class ModelManager:
         """The resident models, with the JAX manager's core keys: the
         serving dtype, decode chunk and cache kind it resolved, the
         keep-alive deadline, the bytes the process holds on the card
-        (``size_vram``), and the prefix cache's token counts
-        (``prefix_cache``). ``kernel_launches`` counts every kernel
-        launch of this process so far (``ops/cuda_build.launches``)."""
+        (``size_vram``), the prefix cache's token counts
+        (``prefix_cache``), the failure counters (``failures``), and the
+        blocks the operator's drain-first shrink and autoscaler read:
+        ``admission`` (queue depth and backlog by class, the knobs),
+        ``lifecycle`` (serving/draining/broken, active streams, queued,
+        restarts, replays, the watchdog's budget) and ``utilization``
+        (MFU against the card's peak, goodput, occupancy, the wall-clock
+        breakdown). ``kernel_launches`` counts every kernel launch of
+        this process so far (``ops/cuda_build.launches``)."""
         with self._lock:
             models = [(lm, self._expires.get(lm.name))
                       for lm in self._models.values()]
@@ -637,6 +740,17 @@ class ModelManager:
                     "hit_tokens": lm.scheduler.prefix_hit_tokens,
                     "miss_tokens": lm.scheduler.prefix_miss_tokens,
                     "radix_pages": lm.engine.radix_pages},
+                "failures": {
+                    "broken": lm.scheduler.broken is not None,
+                    "engine_restarts": lm.scheduler.n_restarts,
+                    "request_timeouts": int(METRICS.get(
+                        "tpu_model_request_timeouts_total")),
+                    "requests_shed": int(METRICS.get(
+                        "tpu_model_requests_shed_total")),
+                },
+                "admission": lm.scheduler.admission_stats(),
+                "lifecycle": lm.scheduler.lifecycle_stats(),
+                "utilization": lm.scheduler.utilization_stats(),
             })
         return out
 
@@ -732,11 +846,22 @@ class Handler(BaseHTTPRequestHandler):
         except json.JSONDecodeError as e:
             raise ApiError(400, f"invalid json: {e}") from e
 
-    def _send_json(self, obj, status=200):
-        body = json.dumps(obj).encode()
+    def _send_json(self, obj, status=200,
+                   headers: Optional[Dict[str, str]] = None):
+        self._send_body(json.dumps(obj).encode(), "application/json",
+                        status, headers)
+
+    def _send_text(self, text: str, status=200,
+                   ctype="text/plain; charset=utf-8"):
+        self._send_body(text.encode(), ctype, status)
+
+    def _send_body(self, body: bytes, ctype: str, status: int,
+                   headers: Optional[Dict[str, str]] = None):
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(body)
 
@@ -763,7 +888,8 @@ class Handler(BaseHTTPRequestHandler):
     def _sse(obj) -> bytes:
         return b"data: " + json.dumps(obj).encode() + b"\n\n"
 
-    def _send_error(self, message: str, status: int):
+    def _send_error(self, message: str, status: int,
+                    headers: Optional[Dict[str, str]] = None):
         """An error that is safe before and after a stream started: once
         the chunked headers are out, it becomes the stream's last frame
         (on an SSE stream an error event and ``[DONE]``, which OpenAI
@@ -780,7 +906,7 @@ class Handler(BaseHTTPRequestHandler):
             except (BrokenPipeError, ConnectionResetError):
                 pass
         else:
-            self._send_json({"error": message}, status)
+            self._send_json({"error": message}, status, headers=headers)
 
     @staticmethod
     def _pull_first(gen):
@@ -796,7 +922,7 @@ class Handler(BaseHTTPRequestHandler):
         return itertools.chain([first], it)
 
     def _coalescer(self, pre: bytes, mid: Optional[bytes], suf: bytes,
-                   options: Optional[Dict]) -> _StreamCoalescer:
+                   options: Optional[Dict], trace=None) -> _StreamCoalescer:
         """A frame coalescer over this response's chunked stream. A frame
         is ``pre + timestamp + mid + json(text) + suf`` (NDJSON) or
         ``pre + json(text) + suf`` when ``mid`` is None (SSE chunks carry
@@ -817,18 +943,97 @@ class Handler(BaseHTTPRequestHandler):
             buf.extend(suf)
             return buf
 
-        return _StreamCoalescer(self._chunk, make, n, sec)
+        return _StreamCoalescer(self._chunk, make, n, sec, trace=trace)
+
+    # -- probes and introspection -----------------------------------------
+    def _query(self) -> Dict[str, str]:
+        """The last value of each key of the request's query string."""
+        from urllib.parse import parse_qs
+        qs = parse_qs(self.path.partition("?")[2])
+        return {k: v[-1] for k, v in qs.items()}
+
+    def _query_int(self, key: str, default: int) -> int:
+        try:
+            return int(self._query().get(key, default))
+        except ValueError:
+            return default
+
+    def _probe(self, path: str):
+        """/livez and /readyz: 503 "engine failed" when a resident model's
+        scheduler is broken (the kubelet then restarts the pod: a sticky
+        device error is not recovered in-process); /readyz 503
+        "draining" while draining, /livez 200 then."""
+        if self.manager.broken():
+            self._send_text("engine failed", status=503)
+        elif path == "/readyz" and self.manager.draining:
+            self._send_text("draining", status=503)
+        else:
+            self._send_text("ok")
+
+    def _debug_trace(self):
+        """A recent request's span timeline; with no id, the ids the
+        tracer still holds (newest last)."""
+        rid = self._query().get("id")
+        if rid is None:
+            self._send_json({"ids": TRACER.ids()})
+            return
+        tr = TRACER.get(rid)
+        if tr is None:
+            self._send_json({"error": f"no trace for id {rid!r} "
+                             "(evicted, or TPU_TRACE=0)"}, 404)
+            return
+        self._send_json(tr.to_dict())
+
+    def _debug_events(self):
+        """The flight recorder's ring, oldest first: ?kind=K keeps one
+        event type (before the trim), ?last=N the newest N."""
+        events = FLIGHT.snapshot()
+        kind = self._query().get("kind", "")
+        if kind:
+            events = [e for e in events if e.get("kind") == kind]
+        last = self._query_int("last", 0)
+        if last > 0:
+            events = events[-last:]
+        self._send_json({"events": events, "dumps": FLIGHT.dumps})
+
+    def _debug_utilization(self):
+        """A resident model's (?model=, else the first) per-second
+        utilization ring (?last=N seconds, 60) and its windowed
+        snapshot."""
+        name = self._query().get("model")
+        lm = (self.manager._find(name) if name
+              else next(iter(self.manager.resident()), None))
+        if lm is None:
+            self._send_json({"error": "no model loaded"}, 404)
+            return
+        acct = lm.scheduler.acct
+        if not acct.enabled:
+            self._send_json({"enabled": False, "error": "accounting "
+                             "disabled (TPU_ACCOUNTING=0)"})
+            return
+        last = max(1, min(self._query_int("last", 60), 600))
+        self._send_json({"model": lm.name,
+                         "snapshot": lm.scheduler.utilization_stats(),
+                         "ring": acct.ring(last=last)})
 
     def do_GET(self):
         try:
             path = self.path.split("?")[0]
             if path == "/":
-                body = b"Ollama is running"
-                self.send_response(200)
-                self.send_header("Content-Type", "text/plain; charset=utf-8")
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
+                self._send_text("Ollama is running")
+            elif path == "/healthz":
+                self._send_text("ok")
+            elif path in ("/livez", "/readyz"):
+                self._probe(path)
+            elif path == "/metrics":
+                self._send_text(METRICS.render(),
+                                ctype="text/plain; version=0.0.4")
+            elif path == "/debug/trace":
+                self._debug_trace()
+            elif path == "/debug/events":
+                self._debug_events()
+            elif path == "/debug/utilization":
+                self._debug_utilization()
             elif path == "/api/version":
                 self._send_json({"version": __version__})
             elif path == "/api/tags":
@@ -866,7 +1071,14 @@ class Handler(BaseHTTPRequestHandler):
         except Exception as e:  # noqa: BLE001 — the request boundary
             self._send_json({"error": f"internal: {e}"}, 500)
 
+    _GENERATION = ("/api/generate", "/api/chat", "/v1/chat/completions",
+                   "/v1/completions")
+
     def do_POST(self):
+        path = self.path.split("?")[0]
+        tracked = path in self._GENERATION
+        if tracked:
+            self.manager.track(1)
         try:
             body = self._json_body()
             route = {"/api/generate": self._api_generate,
@@ -874,9 +1086,10 @@ class Handler(BaseHTTPRequestHandler):
                      "/api/pull": self._api_pull,
                      "/api/show": self._api_show,
                      "/api/delete": self._api_delete,
+                     "/api/drain": self._api_drain,
                      "/v1/chat/completions": self._oai_chat,
                      "/v1/completions": self._oai_completions,
-                     }.get(self.path.split("?")[0])
+                     }.get(path)
             if route is None:
                 raise ApiError(404, "not found")
             route(body)
@@ -884,14 +1097,61 @@ class Handler(BaseHTTPRequestHandler):
             self._send_error(str(e), e.status)
         except BadRequest as e:
             self._send_error(str(e), 400)
+        except DeadlineExceeded as e:
+            # shed while queued: the caller got nothing and should retry
+            # (503 is what load balancers key backpressure on); cut off
+            # before a stream started: 504
+            if e.while_queued:
+                self._send_error(str(e), 503, headers={
+                    "Retry-After": str(int(e.retry_after_s))})
+            else:
+                self._send_error(str(e), 504)
+        except TenantRateLimited as e:
+            # this tenant is over its share, everyone else is fine
+            self._send_error(str(e), 429, headers={
+                "Retry-After": str(int(e.retry_after_s))})
         except SchedulerBusy as e:
-            self._send_error(str(e), 503)
+            # queue full, draining, or a TTFT-SLO early reject: each with
+            # a computed Retry-After
+            self._send_error(str(e), 503, headers={
+                "Retry-After": str(int(e.retry_after_s))})
         except (SchedulerBroken, RegistryError) as e:
             self._send_error(str(e), 500)
         except (BrokenPipeError, ConnectionResetError):
             pass
         except Exception as e:  # noqa: BLE001 — the request boundary
             self._send_error(f"internal: {e}", 500)
+        finally:
+            if tracked:
+                self.manager.track(-1)
+
+    def _api_drain(self, body: Dict):
+        """Operator-initiated graceful drain (the drain-first shrink):
+        /readyz answers 503, new work is shed, running streams finish.
+        Idempotent: the operator posts again until /api/ps shows no
+        active work."""
+        self.manager.begin_drain()
+        models = self.manager.resident()
+        self._send_json({
+            "status": "draining",
+            "active_streams": sum(lm.scheduler.n_active for lm in models),
+            "queued": sum(lm.scheduler.qsize for lm in models),
+        })
+
+    def _inject_tenant(self, options: Optional[Dict]) -> Optional[Dict]:
+        """The fair-queuing tenant from the transport headers when the
+        options name none: ``X-Tenant`` as it is, else a stable hash of
+        the API key (``X-API-Key`` / ``Authorization``)."""
+        o = dict(options or {})
+        if not o.get("tenant"):
+            t = self.headers.get("X-Tenant")
+            if not t:
+                key = (self.headers.get("X-API-Key")
+                       or self.headers.get("Authorization"))
+                t = tenant_from_key(key) if key else None
+            if t:
+                o["tenant"] = t
+        return o or None
 
     @staticmethod
     def _model_arg(body: Dict) -> str:
@@ -954,19 +1214,22 @@ class Handler(BaseHTTPRequestHandler):
         text = prompt if raw else lm.render_prompt(
             prompt, system=body.get("system"),
             template=body.get("template"), suffix=body.get("suffix"))
-        gen = lm.generate_stream(text, options=body.get("options"),
+        gen = lm.generate_stream(text,
+                                 options=self._inject_tenant(
+                                     body.get("options")),
                                  context=body.get("context"),
                                  images=body.get("images"),
                                  format=body.get("format"))
         try:
             if body.get("stream", True):
+                trace = gen.trace
                 gen = self._pull_first(gen)
                 self._start_stream()
                 co = self._coalescer(
                     b'{"model": ' + json.dumps(model).encode()
                     + b', "created_at": "',
                     b'", "response": ', b', "done": false}\n',
-                    body.get("options"))
+                    body.get("options"), trace=trace)
                 for piece, final in gen:
                     if final is None:
                         co.add(piece)
@@ -1007,6 +1270,10 @@ class Handler(BaseHTTPRequestHandler):
         }
         if body.get("context") is not None or not body.get("raw"):
             out["context"] = res.context
+        if res.timings is not None:
+            # options.trace true: the span summary, and the id that
+            # fetches the whole timeline from /debug/trace
+            out["timings"] = dict(res.timings, request_id=res.request_id)
         return out
 
     def _api_chat(self, body: Dict):
@@ -1033,7 +1300,9 @@ class Handler(BaseHTTPRequestHandler):
         images = []
         for m in messages:
             images.extend(m.get("images") or [])
-        gen = lm.generate_stream(prompt, options=body.get("options"),
+        gen = lm.generate_stream(prompt,
+                                 options=self._inject_tenant(
+                                     body.get("options")),
                                  images=images, format=body.get("format"))
 
         def chat_frame(final) -> Dict:
@@ -1044,13 +1313,14 @@ class Handler(BaseHTTPRequestHandler):
             return out
 
         if stream and not tools:
+            trace = gen.trace
             gen = self._pull_first(gen)
             self._start_stream()
             co = self._coalescer(
                 b'{"model": ' + json.dumps(model).encode()
                 + b', "created_at": "',
                 b'", "message": {"role": "assistant", "content": ',
-                b'}, "done": false}\n', body.get("options"))
+                b'}, "done": false}\n', body.get("options"), trace=trace)
             for piece, final in gen:
                 if final is None:
                     co.add(piece)
@@ -1116,7 +1386,8 @@ class Handler(BaseHTTPRequestHandler):
                        else None) or "json"
             elif rf.get("type") == "json_object":
                 fmt = "json"
-        gen = lm.generate_stream(prompt, options=options or None, format=fmt)
+        gen = lm.generate_stream(prompt, options=self._inject_tenant(options),
+                                 format=fmt)
 
         def chunk(delta, finish) -> bytes:
             return self._sse({
@@ -1201,7 +1472,8 @@ class Handler(BaseHTTPRequestHandler):
             options["stop"] = body["stop"]
         try:
             final = self._drain(lm.generate_stream(
-                body.get("prompt", ""), options=options or None))
+                body.get("prompt", ""),
+                options=self._inject_tenant(options)))
         finally:
             self.manager.touch(lm, self.manager.keep_alive_s())
         self._send_json({
@@ -1216,11 +1488,51 @@ class Handler(BaseHTTPRequestHandler):
                                        + final.generated_tokens)}})
 
 
+def _register_gauges(manager: ModelManager):
+    """The /metrics gauges, read at every scrape over ``manager``'s
+    resident models (a weak reference: a stopped manager reads 0)."""
+    ref = weakref.ref(manager)
+
+    def over_models(fn):
+        def total():
+            mm = ref()
+            return float(sum(fn(lm) for lm in mm.resident())) if mm else 0.0
+        return total
+
+    def util(field):
+        return over_models(lambda lm: lm.scheduler.utilization_stats().get(
+            field) or 0.0)
+
+    def device_bytes():
+        mm = ref()
+        dev = mm.device if mm is not None else None
+        return float(torch.cuda.memory_allocated(dev)
+                     if dev is not None and dev.type == "cuda" else 0)
+
+    for name, fn in (
+            ("tpu_model_active_slots",
+             over_models(lambda lm: lm.scheduler.n_active)),
+            ("tpu_model_queue_depth",
+             over_models(lambda lm: lm.scheduler.qsize)),
+            ("tpu_model_kv_free_pages",
+             over_models(lambda lm: lm.engine.free_pages)),
+            ("tpu_model_radix_pages",
+             over_models(lambda lm: lm.engine.radix_pages)),
+            ("tpu_model_mfu", util("mfu")),
+            ("tpu_model_goodput_tokens_per_second", util("goodput_tok_s")),
+            ("tpu_model_hbm_bytes_in_use", device_bytes),
+            ("tpu_model_flight_recorder_events", lambda: float(FLIGHT.seq)),
+            ("tpu_model_flight_recorder_dumps",
+             lambda: float(FLIGHT.dumps))):
+        METRICS.gauge_fn(name, fn)
+
+
 def serve(manager: ModelManager, host: str = "0.0.0.0", port: int = 11434
           ) -> ThreadingHTTPServer:
     """Start the HTTP server on a daemon thread; returns it (its
     ``server_address`` carries the bound port when ``port`` is 0). Stop
     it with ``shutdown()`` and ``server_close()``."""
+    _register_gauges(manager)
     handler = type("BoundHandler", (Handler,), {"manager": manager})
     httpd = ThreadingHTTPServer((host, port), handler)
     httpd.daemon_threads = True

@@ -274,3 +274,70 @@ def test_keep_alive_zero_with_empty_prompt_unloads():
         httpd.shutdown()
         httpd.server_close()
         mm.shutdown()
+
+
+def _settle(jlm):
+    """Let the reference's idle loop return the request's pages (every
+    test must end with its page pools settled)."""
+    for _ in range(200):
+        if jlm.engine.quarantined_pages == 0:
+            break
+        time.sleep(0.05)
+
+
+BUDGETS = [("deadline_ms", "abc"), ("deadline_ms", -5), ("deadline_ms", 0),
+           ("deadline_ms", 60000), ("deadline_ms", "900"),
+           ("priority", "bogus"), ("priority", 3), ("priority", "HIGH"),
+           ("priority", "best_effort"), ("ttft_slo_ms", "soon"),
+           ("ttft_slo_ms", -1), ("ttft_slo_ms", 0), ("ttft_slo_ms", 60000),
+           ("tenant", "team-a"), ("tenant", "not a label value!"),
+           ("trace", True), ("trace", False), ("disagg_prefill", False)]
+
+
+@pytest.mark.parametrize("key,value", BUDGETS)
+def test_budget_options_served_as_the_reference(server, jax_model, key,
+                                                value):
+    """``deadline_ms``, ``priority``, ``ttft_slo_ms``, ``tenant`` and
+    ``trace``: a value the reference refuses is the reference's 400 with
+    its message; a value it serves is served with the same tokens (and
+    the ``timings`` block when ``trace`` is true)."""
+    _, port = server
+    opts = dict(FEW, **{key: value})
+    try:
+        want = None
+        for _piece, res in jax_model.generate_stream("hi", opts):
+            want = res or want
+        _settle(jax_model)
+    except JBadRequest as e:
+        status, out = _post(port, {"model": "tiny", "prompt": "hi",
+                                   "options": opts})
+        assert (status, out["error"]) == (400, str(e))
+        return
+    status, out = _post(port, {"model": "tiny", "prompt": "hi",
+                               "options": opts})
+    assert status == 200
+    assert (out["context"], out["done_reason"]) == (want.context,
+                                                    want.done_reason)
+    assert ("timings" in out) == (want.timings is not None)
+    if want.timings is not None:
+        assert ({s["ev"] for s in want.timings["spans"]}
+                <= {s["ev"] for s in out["timings"]["spans"]} | {
+                    "http_flush"})
+
+
+def test_disagg_prefill_refused(server, jax_model):
+    """The reference serves ``disagg_prefill`` as the prefill half of a
+    disaggregated pair (``done_reason`` "handoff"); the port has no
+    disaggregated pools, so it refuses the option with a 400."""
+    _, port = server
+    opts = dict(FEW, disagg_prefill=True)
+    want = None
+    for _piece, res in jax_model.generate_stream("hi", opts):
+        want = res or want
+    _settle(jax_model)
+    assert want.done_reason in ("handoff", "stop")
+    status, out = _post(port, {"model": "tiny", "prompt": "hi",
+                               "options": opts})
+    assert (status, out["error"]) == (
+        400, "disagg_prefill: disaggregated prefill is not ported to the "
+             "torch server")
