@@ -38,7 +38,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    Every paged row is checked bit-identical over two launches and read for
    the wrapper's host time a call (with ``--baseline DIR``, a checkout of
    another commit, that commit's kernel of the same route timed beside it,
-   and its K6 output required bit-equal to this one's); the
+   and its output required bit-equal to this one's wherever that commit
+   takes the group; K1, K2 and K3 rows the same); K1 also at
+   hd 256 (gemma's chunk, and with gemma2's softcap and a window) and at
+   starcoder2's group of 12, and K6, K4, K5 and K2 at that group; the
    GQA (K2) and MHA (K3) decode kernels over the dense slot cache (K2 also
    at the serving lengths and at other head dims, a full group and a
    softcap, and both at other sequence chunks than their wrappers'); the
@@ -48,7 +51,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    Also the tied LM head's f32 product (a bf16 GEMM with an f32 output)
    against the f32 product of the same values.
 3. Serving, eight paths, each at full width behind the port's HTTP
-   server on an ephemeral port (path 1 at full depth, paths 2-8 cut to 8
+   server on an ephemeral port (path 1 at full depth, paths 2-8 cut to 4
    layers, ``SERVING_LAYERS``: path 9 serves path 2's model and cache at
    full depth), with random dense bf16 weights from a seed handed to
    ``ModelManager.preload``, which picks the weight dtype itself (int4
@@ -195,13 +198,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
    are counted as not decidable); the restart and replay times are
    printed.
 
+10. Path 12, gemma3 at full width and depth (``gemma3_phase``; 34
+    layers, dim 2560, 8/4 heads, hd 256, tied vocab 262208, random bf16
+    weights from the seed through ``ModelManager.preload``, which serves
+    int8 weights (K7), on the server's int8 paged pool, 64 slots of
+    128-row pages): 4 raw /api/generate requests (one of 1500 tokens,
+    past the sliding layers' 1024 window and admitted in six pieces) and
+    4 two-turn /api/chat conversations through the gemma template,
+    greedy, 32 tokens each; qmm's count above 0 and every attention
+    kernel's 0 (alternating windows attend through the einsum); tok/s,
+    TTFT, the decode step (``step_breakdown``), peak memory; then the
+    long request's calls replayed teacher-forced on the kernel path
+    (``teacher_forced``), whose tokens must equal the served ones at
+    every step. Then the dense families' two-layer, full-width
+    cross-checks, kernel path against plain path (``FAMILY_CHECKS``:
+    gemma3 at a 1500-token prompt, cut to one sliding and one
+    full-attention layer with the global rope; qwen3 int4 through K1,
+    K6, K8; gemma2 int4 at a 4200-token prompt; starcoder2 int8 at its
+    group of 12 through K6, K4, K5 and, on the dense bf16 cache, K2; phi
+    int8 at hd 80; gemma int4 through K1 at hd 256), each kernel's count
+    above 0.
+
 Then it prints one JSON line ``{"kernels": [...]}`` (``launches`` summed
 over the serving paths, per path in ``launches_by_path``), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``. With ``--out DIR`` the details (``chip_smoke.json``) and the
 compiler's register report (``ptxas.txt``) are written to DIR;
 ``--kernels-only`` stops after phase 2; ``--gguf-only`` runs phase 1 and
-then phases 7, 8 and 9 alone (both exit 4 by design: no result line).
+then phases 7, 8 and 9 alone, ``--families-only`` phase 1 and then phase
+10 alone, ``--drift`` phase 1 and then gemma3's logit differences at 2,
+6, 12 and 34 layers (``drift_sweep``) (each exits 4 by design: no
+result line).
 """
 
 from __future__ import annotations
@@ -209,6 +236,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -231,9 +259,10 @@ TENSOR_CORE_KERNELS = ("flash_prefill", "qmm4", "qmm", "decode_attention",
 # libraries whose kernels must not spill registers (ptxas report)
 NO_SPILL_KERNELS = ("qmm", "decode_attention", "paged_decode",
                     "paged_decode_v2", "paged_decode_v4")
-# head dims of the served models (llama 128, phi3 96): the paged kernels
-# must run each on their tensor-core path
-SERVED_HEAD_DIMS = (128, 96)
+# head dims of the served models (llama, qwen3, starcoder2 128, phi3 96,
+# gemma2/gemma3/gemma 256, phi 80): the paged kernels must run each on
+# their tensor-core path
+SERVED_HEAD_DIMS = (128, 96, 256, 80)
 
 
 def fail(msg: str) -> int:
@@ -361,7 +390,8 @@ def paged_inputs(torch, g, B, ps, NBLK, H, KvH, hd, bits, max_len, window,
 def load_baseline_paged(root: str):
     """``ops/paged.py`` of the port in another checkout at ``root`` (its
     own package name, build directory and launch counters), so a call can
-    time that commit's paged kernels beside this one's."""
+    time that commit's paged kernels beside this one's; its
+    ``ops/attention.py`` (K1, K2, K3) is ``baseline_port.ops.attention``."""
     import importlib
     import importlib.util
     pkg = os.path.join(os.path.abspath(root), "ollama_operator_tpu_torch")
@@ -375,6 +405,8 @@ def load_baseline_paged(root: str):
 
 
 def kernel_phases(torch, timer, report, baseline=None):
+    import importlib
+
     import torch.nn.functional as F
     from ollama_operator_tpu_torch.ops import attention as A
     from ollama_operator_tpu_torch.ops import paged as PG
@@ -382,6 +414,21 @@ def kernel_phases(torch, timer, report, baseline=None):
     from ollama_operator_tpu_torch.ops.quant_cache import pool_bits
     g = torch.Generator(device="cuda").manual_seed(SEED)
     dev, bf = "cuda", torch.bfloat16
+    base_a = (importlib.import_module("baseline_port.ops.attention")
+              if baseline is not None else None)
+
+    def against_base(fn, base_fn, out):
+        """With a baseline commit: its kernel's time and host time on the
+        same inputs, and whether its output has the same bits (required:
+        every kernel the baseline also takes keeps its bits)."""
+        if base_a is None:
+            return None
+        same = torch.equal(base_fn(), out)
+        if not same:
+            raise RuntimeError("a kernel's output differs from the "
+                               "baseline commit's on the same inputs")
+        return dict(ms=timer(base_fn), host_us=timer.host_us(base_fn),
+                    bit_equal=same)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
@@ -423,7 +470,11 @@ def kernel_phases(torch, timer, report, baseline=None):
                timer(lambda: F.scaled_dot_product_attention(
                    qh, kr, vr, is_causal=True, scale=scale)),
                *bound(nbytes, flops), shape=f"B={B} T={T} H={H} KvH={KvH} "
-                                             f"hd={hd}", main=(H == 32))
+                                             f"hd={hd}", main=(H == 32),
+               baseline=against_base(
+                   lambda: A.flash_prefill(q, k, v, scale),
+                   base_a and (lambda: base_a.flash_prefill(q, k, v,
+                                                            scale)), out))
 
     # -- flash prefill at phi3's admission shape: MHA (G = 1), hd 96,
     # T = 4096, window 2047 (the window bites); the library call is SDPA
@@ -480,7 +531,47 @@ def kernel_phases(torch, timer, report, baseline=None):
                *bound(2 * (2 * q.numel() + k.numel() + v.numel()),
                       4 * B * H * hd * n_pairs),
                shape=f"B={B} T={T} H={H} KvH={KvH} hd={hd} window={window} "
-                     f"softcap={softcap} (ragged)", main=False)
+                     f"softcap={softcap} (ragged)", main=False,
+               baseline=against_base(
+                   lambda: A.flash_prefill(*args),
+                   base_a and (lambda: base_a.flash_prefill(*args)), out))
+        del q, k, v, out, ref, band, qh, kr, vr
+
+    # -- flash prefill at the head dims and groups the other dense families
+    # bring: gemma's prefill chunk (MHA 16/16, hd 256; K1 above
+    # hd 128 keeps Q in shared memory and walks 32-key tiles), hd 256 with
+    # GQA, gemma2's softcap 50 and a 128-key window, and starcoder2's heads
+    # (24 over 2 kv heads, G = 12) under its 4096 window (T = 512: it does
+    # not bite). SDPA has no softcap: no library time there
+    for B, T, H, KvH, hd, window, softcap, what in (
+            (1, 512, 16, 16, 256, 0, 0.0, "gemma"),
+            (1, 512, 16, 8, 256, 128, 50.0, "hd 256, softcap, window"),
+            (1, 512, 24, 2, 128, 4096, 0.0, "starcoder2, G 12")):
+        q, k, v = (randn(B, T, H, hd), randn(B, KvH, T, hd),
+                   randn(B, KvH, T, hd))
+        scale = hd ** -0.5
+        args = (q, k, v, scale, softcap, window)
+        out, ref = A.flash_prefill(*args), A.flash_prefill_plain(*args)
+        check = rowwise(out, ref, B * T, lambda r: f"query {r}")
+        i = torch.arange(T, device=dev)
+        band = i[None, :] <= i[:, None]
+        if window:
+            band &= i[None, :] > i[:, None] - window
+        n_pairs = int(band.sum().item())
+        qh = q.transpose(1, 2)
+        kr = k.repeat_interleave(H // KvH, dim=1)
+        vr = v.repeat_interleave(H // KvH, dim=1)
+        report("flash_prefill", "csrc/flash_prefill.cu",
+               "ollama_operator_tpu/ops/pallas/flash.py:134", check,
+               timer(lambda: A.flash_prefill(*args)),
+               timer(lambda: A.flash_prefill_plain(*args)),
+               None if softcap else timer(
+                   lambda: F.scaled_dot_product_attention(
+                       qh, kr, vr, attn_mask=band, scale=scale)),
+               *bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                      4 * B * H * hd * n_pairs),
+               shape=f"B={B} T={T} H={H} KvH={KvH} hd={hd} window={window} "
+                     f"softcap={softcap} ({what})", main=False)
         del q, k, v, out, ref, band, qh, kr, vr
 
     # -- paged decode over one layer of a two-layer pool, through each of
@@ -561,16 +652,18 @@ def kernel_phases(torch, timer, report, baseline=None):
                 raise RuntimeError(f"two launches of the {route} kernel "
                                    f"differ")
             extra = {"host_us": timer.host_us(lambda: fn(*args, nblk=nblk))}
-            if baseline is not None:
+            # the baseline commit's kernels take groups up to 8
+            if baseline is not None and H // KvH <= 8:
                 old = getattr(baseline, f"paged_decode_attention_{route}")
                 same = torch.equal(old(*args, nblk=nblk), out)
                 extra["baseline"] = dict(
                     ms=timer(lambda: old(*args, nblk=nblk)),
                     host_us=timer.host_us(lambda: old(*args, nblk=nblk)),
                     bit_equal=same)
-                if route == "v3" and not same:
-                    raise RuntimeError("the v3 kernel's output differs from "
-                                       "the baseline commit's")
+                if not same:
+                    raise RuntimeError(f"the {route} kernel's output "
+                                       f"differs from the baseline "
+                                       f"commit's")
             # the positions this route attends: keys 0..length (inside the
             # window), below nblk * ps for v2 and v4
             last = lengths.long() + 1
@@ -621,6 +714,12 @@ def kernel_phases(torch, timer, report, baseline=None):
         paged_case(64, 128, 32, H, 8, 128, bits, 2048, 0, main_routes)
     paged_case(32, 64, 64, 32, 32, 96, 8, 4095, 2047, ("v4",))
     paged_case(32, 64, 64, 32, 32, 96, 16, 4095, 2047, ())
+    # starcoder2's heads (H=24 over KvH=2, G = 12: two n8 query tiles of the
+    # tensor-core loop): int8 through K6, K4 and K5, int4 and bf16
+    # through K6
+    paged_case(64, 128, 32, 24, 2, 128, 8, 2048, 0, ())
+    paged_case(64, 128, 32, 24, 2, 128, 4, 2048, 0, (), routes=("v3",))
+    paged_case(64, 128, 32, 24, 2, 128, 16, 2048, 0, (), routes=("v3",))
     paged_case(64, 128, 32, 32, 8, 128, 8, 2048, 0, (), cut=True)
     # a decode step of the serving paths: 8 slots at 180..300 positions
     # (int8 pool at llama3.1's heads through K6 and K4 (path 7), and at
@@ -701,6 +800,12 @@ def kernel_phases(torch, timer, report, baseline=None):
     for H, KvH, hd in ((4, 2, 256), (6, 2, 72)):
         dense_cases.append(("decode_attention", H, KvH, hd, 0, 0.0, spread,
                             False, None))
+    # starcoder2's heads on the dense cache (G = 12: rows 8 .. 15 of the
+    # 16-row tile are query rows too), with no window and with a
+    # 2047-row one
+    for window in (0, 2047):
+        dense_cases.append(("decode_attention", 24, 2, 128, window, 0.0,
+                            spread, False, None))
     for (name, H, KvH, hd, window, softcap, lengths, main,
          knob) in dense_cases:
         fn, plain, replaces = kinds[name]
@@ -735,7 +840,13 @@ def kernel_phases(torch, timer, report, baseline=None):
                      f"1..{int(lengths.max())} window {window} softcap "
                      f"{softcap} ({n_live} live rows) chunk "
                      f"{A.DECODE_CHUNK}",
-               main=main, host_us=timer.host_us(lambda: fn(*args)))
+               main=main, host_us=timer.host_us(lambda: fn(*args)),
+               # the baseline commit's kernels take groups up to 8, at its
+               # own chunk (rows with a chunk knob are not compared)
+               baseline=against_base(
+                   lambda: fn(*args),
+                   base_a and (lambda: getattr(base_a, fn.__name__)(*args)),
+                   out) if G <= 8 and not knob else None)
         if saved:
             setattr(A, *saved)
         del k, v, kr, vr, out, ref
@@ -817,6 +928,42 @@ def kernel_phases(torch, timer, report, baseline=None):
                       2.0 * N * K * O),
                shape=f"{wname} N={N} K={K} O={O}", main=False)
         del qw, wbf
+    # -- the dequant matmuls at the projections the other dense families
+    # bring, at the decode step's rows: K7 at gemma3's (D 2560, q
+    # 2048, kv 1024, F 10240), starcoder2's kv (O = 256) and phi's untied
+    # head (O = 51200, N = 32 slots); K8 at gemma2's (D 3584, q 4096, kv
+    # 2048, F 14336) and qwen3's head (O = 151936)
+    for name, fn, plain, quant, replaces, shapes in (
+            ("qmm", Q.qmm, Q.qmm_plain, Q.quantize_groupwise,
+             "ollama_operator_tpu/ops/pallas/quant.py:73",
+             (("gemma3 wq", 64, 2560, 2048), ("gemma3 wk/wv", 64, 2560, 1024),
+              ("gemma3 wo", 64, 2048, 2560),
+              ("gemma3 w_gate/w_up", 64, 2560, 10240),
+              ("gemma3 w_down", 64, 10240, 2560),
+              ("starcoder2 wk/wv", 64, 3072, 256),
+              ("phi lm_head", 32, 2560, 51200))),
+            ("qmm4", Q.qmm4, Q.qmm4_plain, Q.quantize_groupwise_int4,
+             "ollama_operator_tpu/ops/pallas/quant.py:142",
+             (("gemma2 wq", 64, 3584, 4096), ("gemma2 wk/wv", 64, 3584, 2048),
+              ("gemma2 wo", 64, 4096, 3584),
+              ("gemma2 w_gate/w_up", 64, 3584, 14336),
+              ("gemma2 w_down", 64, 14336, 3584),
+              ("qwen3 lm_head", 64, 4096, 151936)))):
+        for wname, N, K, O in shapes:
+            qw = quant(torch.randn((K, O), generator=g, device=dev) * 0.02)
+            codes = qw["q4"] if "q4" in qw else qw["q"]
+            wbf = Q.dequantize_groupwise(qw).to(bf)
+            x = randn(N, K)
+            out, ref = fn(x, codes, qw["s"]), plain(x, codes, qw["s"])
+            report(name, f"csrc/{name}.cu", replaces,
+                   ((out - ref).abs().max().item(), 1e-3),
+                   timer(lambda: fn(x, codes, qw["s"])),
+                   timer(lambda: plain(x, codes, qw["s"])),
+                   timer(lambda: torch.matmul(x, wbf)),
+                   *bound(2 * N * K + codes.numel() + 4 * (K // 32) * O
+                          + 4 * N * O, 2.0 * N * K * O),
+                   shape=f"{wname} N={N} K={K} O={O}", main=False)
+            del qw, codes, wbf
     torch.cuda.empty_cache()
 
 
@@ -930,10 +1077,11 @@ SERVING = (
 
 
 # the depth of each serving path (None: full depth). Path 1 stays at full
-# depth (phase 5 runs on it); paths 2-8 are cut to 8 layers to keep the
-# run inside its time limit now that path 9 serves llama3.2:3b, path 2's
-# model and cache, at full depth from a GGUF
-SERVING_LAYERS = (None, 8, 8, 8, 8, 8, 8, 8)
+# depth (phase 5 runs on it); paths 2-8 are cut to 4 layers to keep the
+# run inside its time limit (8 since path 9 serves llama3.2:3b, path 2's
+# model and cache, at full depth from a GGUF; 4 since path 12 serves
+# gemma3 at full depth)
+SERVING_LAYERS = (None, 4, 4, 4, 4, 4, 4, 4)
 
 
 def serving_phase(torch, details, model: str, kv_dtype: str, paged: bool,
@@ -1168,29 +1316,143 @@ def step_breakdown(torch, engine, n_slots: int = 8, n: int = 16,
     return out
 
 
+def plain_matmul(x, w, out_dtype=None, split: int = 1):
+    """``quant.matmul`` with the dequant matmuls on their plain versions
+    (``qmm_plain``, ``qmm4_plain``). ``split`` > 1 (int8 only) sums an
+    int8 product over that many slices of K in f32: the same function,
+    its sums in another order (the drift sweep's control)."""
+    from ollama_operator_tpu_torch.ops import quant as Q
+    if not Q.is_quantized(w):
+        y = x @ w
+        return y.to(out_dtype) if out_dtype is not None else y
+    x2 = x.reshape(-1, x.shape[-1])
+    if Q.is_int4(w):
+        assert split == 1, "the split control is int8 only"
+        y = Q.qmm4_plain(x2, w["q4"], w["s"])
+    else:
+        K = x2.shape[1]
+        cut = [K * i // split // Q.GROUP * Q.GROUP for i in range(split + 1)]
+        y = sum(Q.qmm_plain(x2[:, a:b], w["q"][a:b],
+                            w["s"][a // Q.GROUP:b // Q.GROUP])
+                for a, b in zip(cut, cut[1:]))
+    return y.reshape(*x.shape[:-1], -1).to(out_dtype or x.dtype)
+
+
+def teacher_forced(torch, cfg, params, ids, steps: int, kv_dtype: str,
+                   paged: bool = True, teacher=None, engine=None,
+                   piece: int = 0):
+    """A prompt ``ids`` and ``steps`` decode steps on the card through the
+    decoder's entry points, each step fed ``teacher[step]`` or else the
+    previous step's argmax. Returns (logits [steps + 1, V] f32, their
+    argmax tokens).
+
+    Without ``engine``: the prompt in one ``prefill_chunk`` (padded to a
+    multiple of 256), then steps in a batch of one, on shuffled 128-row
+    pages of a ``kv_dtype`` pool (``paged``) or in a dense slot of twice
+    the prompt's bucket. With ``engine`` (paged): the calls that engine
+    made for a request admitted from position 0: the prompt in
+    ``piece``-token pieces (the first a prefill and an insert, the others
+    extends, each padded to the engine's bucket), then steps in a batch
+    of the engine's slot count (row 0; the other rows idle on the trash
+    page), so every matmul takes the row count, and so the form, that
+    the served one took."""
+    from ollama_operator_tpu_torch.models import decoder
+    dev, n = "cuda", len(ids)
+    L, KvH, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    if engine is None:
+        ps, rows, width, piece = 128, 1, 32, n
+
+        def bucket_for(m):
+            return -(-m // 256) * 256
+    else:
+        ps, rows = engine.ecfg.page_size, engine.n_slots
+        width, bucket_for = engine.max_seq // ps, engine.bucket_for
+    first = min(piece, n)
+    bucket = bucket_for(first)
+    # the blocks of the prompt, the steps and (engine) the last piece's
+    # padding, in a shuffled order of the pool's pages (page 0 the trash
+    # page); the table also covers the first piece's bucket, whose padding
+    # positions paged_insert sends through it to the trash page
+    nb = -(-(n + steps + 1 + (piece if engine is not None else 0)) // ps)
+    P = nb + 3
+    shp = ((L, P, KvH, ps, hd) if paged
+           else (L, 1, KvH, 2 * bucket, hd))
+
+    def pool():
+        if kv_dtype == "int4":
+            return {"q4": torch.zeros(shp[:3] + (ps // 2, hd),
+                                      dtype=torch.uint8, device=dev),
+                    "s": torch.zeros(shp[:-1], device=dev)}
+        if kv_dtype == "int8":
+            return {"q": torch.zeros(shp, dtype=torch.int8, device=dev),
+                    "s": torch.zeros(shp[:-1], device=dev)}
+        return torch.zeros(shp, dtype=torch.bfloat16, device=dev)
+
+    def padded(toks):
+        out = torch.zeros((1, bucket_for(len(toks))), dtype=torch.long,
+                          device=dev)
+        out[0, :len(toks)] = torch.tensor(toks, device=dev)
+        return out
+    kp, vp = pool(), pool()
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    tables = torch.zeros((rows, max(width, nb, -(-bucket // ps))),
+                         dtype=torch.int32, device=dev)
+    tables[0, :nb] = (torch.randperm(P - 1, generator=gen)[:nb] + 1).int()
+    logits, ks, vs = decoder.prefill_chunk(params, cfg, padded(ids[:first]))
+    if paged:
+        decoder.paged_insert(cfg, kp, vp, ks, vs, tables[0], first)
+    else:
+        decoder.dense_insert(kp, vp, ks, vs, 0)
+    last = logits[0, first - 1]
+    for start in range(first, n, piece):
+        tail = ids[start:start + piece]
+        toks = padded(tail)
+        lg, _, _ = decoder.forward_with_cache_paged(
+            params, cfg, toks, kp, vp, tables[:1],
+            torch.tensor([start], dtype=torch.int32, device=dev),
+            -(-bucket_for(start + toks.shape[1]) // ps))
+        last = lg[0, len(tail) - 1]
+    out = [last]
+    lengths = torch.zeros(rows, dtype=torch.int32, device=dev)
+    toks = torch.zeros((rows, 1), dtype=torch.long, device=dev)
+    for step in range(steps):
+        lengths[0] = n + step
+        toks[0, 0] = (out[-1].argmax() if teacher is None
+                      else int(teacher[step]))
+        if paged:
+            lg, _, _ = decoder.forward_with_cache_paged(
+                params, cfg, toks, kp, vp, tables, lengths, nb)
+        else:
+            lg, _, _ = decoder.forward_with_cache(
+                params, cfg, toks, kp, vp, lengths, attn_len=bucket)
+        out.append(lg[0, 0])
+    out = torch.stack(out).float()
+    return out, [int(t) for t in out.argmax(-1)]
+
+
 def cross_check(torch, details, model: str, bits: int, kv_dtype: str,
-                paged: bool = True):
-    """Two layers at full width: kernel path vs plain path on the card,
-    ``bits``-bit weights on a ``kv_dtype`` page pool (``paged``) or dense
-    slot cache."""
+                paged: bool = True, n_prompt: int = 200, expect=(),
+                cut=None):
+    """Two layers (or the config fields ``cut`` sets) at full width:
+    kernel path vs plain path on the card, ``bits``-bit weights on a
+    ``kv_dtype`` page pool (``paged``) or dense slot cache, an
+    ``n_prompt``-token prompt and 16 greedy steps (``teacher_forced``;
+    the plain path is fed the kernel path's tokens). ``expect``: the
+    kernel counters the kernel path must raise above 0 (counted from 0
+    just before it)."""
     from ollama_operator_tpu_torch.models import decoder
     from ollama_operator_tpu_torch.models.config import get_config
     from ollama_operator_tpu_torch.ops import attention as A
     from ollama_operator_tpu_torch.ops import paged as PG
     from ollama_operator_tpu_torch.ops import quant as Q
-    cfg = dataclasses.replace(get_config(model), n_layers=2)
+    cfg = dataclasses.replace(get_config(model),
+                              **(cut or {"n_layers": 2}))
+    layers = cfg.n_layers
     params = Q.quantize_params(dense_params(torch, cfg), bits=bits)
-    dev = "cuda"
     mm_name = "qmm4" if bits == 4 else "qmm"
-
-    def plain_matmul(x, w, out_dtype=None):
-        if not Q.is_quantized(w):
-            y = x @ w
-            return y.to(out_dtype) if out_dtype is not None else y
-        x2 = x.reshape(-1, x.shape[-1])
-        y = (Q.qmm4_plain(x2, w["q4"], w["s"]) if Q.is_int4(w)
-             else Q.qmm_plain(x2, w["q"], w["s"]))
-        return y.reshape(*x.shape[:-1], -1).to(out_dtype or x.dtype)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    ids = torch.randint(0, cfg.vocab_size, (n_prompt,),
+                        generator=gen).tolist()
 
     def plain_chunk(cfg, q, k, v, scale):
         return A.flash_prefill_plain(q, k, v, scale, cfg.attn_softcap,
@@ -1208,64 +1470,28 @@ def cross_check(torch, details, model: str, bits: int, kv_dtype: str,
                                    A.mha_decode_attention_plain)
 
     def run(plain=(), teacher=None):
-        """Prefill 200 tokens, then 16 greedy decode steps; the names in
-        ``plain`` run their plain versions. With ``teacher`` the steps
-        are fed those tokens instead of their own argmax. Returns
-        (logits [17, V] f32, argmax tokens)."""
+        """``teacher_forced`` with the names in ``plain`` on their plain
+        versions."""
         saved = {n: getattr(m, a) for n, (m, a, _) in plain_fns.items()}
         for n in plain:
             m, a, f = plain_fns[n]
             setattr(m, a, f)
         try:
-            L, KvH, hd, ps, NBLK = 2, cfg.n_kv_heads, cfg.head_dim, 128, 32
-            # paged: 8 pages of 128 rows; dense: one slot of 512 rows
-            shp = (L, 8, KvH, ps, hd) if paged else (L, 1, KvH, 512, hd)
-
-            def pool():
-                if kv_dtype == "int4":
-                    return {"q4": torch.zeros(shp[:3] + (ps // 2, hd),
-                                              dtype=torch.uint8, device=dev),
-                            "s": torch.zeros(shp[:-1], device=dev)}
-                if kv_dtype == "int8":
-                    return {"q": torch.zeros(shp, dtype=torch.int8,
-                                             device=dev),
-                            "s": torch.zeros(shp[:-1], device=dev)}
-                return torch.zeros(shp, dtype=torch.bfloat16, device=dev)
-            kp, vp = pool(), pool()
-            n, bucket = 200, 256
-            toks = torch.zeros((1, bucket), dtype=torch.long, device=dev)
-            gen = torch.Generator(device="cpu").manual_seed(SEED)
-            toks[0, :n] = torch.randint(0, cfg.vocab_size, (n,),
-                                        generator=gen).to(dev)
-            table = torch.zeros((1, NBLK), dtype=torch.int32, device=dev)
-            table[0, :3] = torch.tensor([4, 1, 6], dtype=torch.int32)
-            logits, ks, vs = decoder.prefill_chunk(params, cfg, toks)
-            if paged:
-                decoder.paged_insert(cfg, kp, vp, ks, vs, table[0], n)
-            else:
-                decoder.dense_insert(kp, vp, ks, vs, 0)
-            out = [logits[0, n - 1]]
-            lengths = torch.tensor([n], dtype=torch.int32, device=dev)
-            for step in range(16):
-                tok = (out[-1].argmax() if teacher is None
-                       else torch.tensor(teacher[step], device=dev))
-                if paged:
-                    lg, _, _ = decoder.forward_with_cache_paged(
-                        params, cfg, tok.view(1, 1), kp, vp, table, lengths,
-                        3)
-                else:
-                    lg, _, _ = decoder.forward_with_cache(
-                        params, cfg, tok.view(1, 1), kp, vp, lengths,
-                        attn_len=bucket)
-                out.append(lg[0, 0])
-                lengths += 1
-            out = torch.stack(out)
-            return out, [int(t) for t in out.argmax(-1)]
+            return teacher_forced(torch, cfg, params, ids, 16, kv_dtype,
+                                  paged=paged, teacher=teacher)
         finally:
             for n, (m, a, _) in plain_fns.items():
                 setattr(m, a, saved[n])
 
+    from ollama_operator_tpu_torch.ops import cuda_build
+    for name in cuda_build.launches:
+        cuda_build.launches[name] = 0
     lk, sk = run()
+    launched = {k: v for k, v in cuda_build.launches.items() if v}
+    missing = [k for k in expect if launched.get(k, 0) <= 0]
+    if missing:
+        raise RuntimeError(f"cross-check of {model}: kernels not launched "
+                           f"{missing} ({launched})")
     # the plain path is fed the kernel path's tokens, so both see the same
     # inputs at every step
     lp, sp = run(plain=tuple(plain_fns), teacher=sk)
@@ -1286,12 +1512,16 @@ def cross_check(torch, details, model: str, bits: int, kv_dtype: str,
     tag = (f"{model} int{bits} weights, {kv_dtype} "
            f"{f'paged ({route})' if paged else 'dense'} KV")
     details.setdefault("cross_check", []).append({
-        "model": model, "weights": f"int{bits}", "kv": kv_dtype,
-        "paged": paged, "route": route, "kernels": sorted(plain_fns),
+        "model": model, "layers": layers, "weights": f"int{bits}",
+        "kv": kv_dtype, "paged": paged, "route": route,
+        "kernels": sorted(plain_fns),
+        "prompt_tokens": n_prompt, "launches": launched,
         "logit_max_abs_err": err, "logit_scale": scale, "tol": tol,
         "step_err": step_err, "plain_top2_gap": gaps,
         "near_tie_steps": ties, "kernel_tokens": sk, "plain_tokens": sp})
-    print(f"cross-check {tag} (2 layers, full width, 17 steps): logits max "
+    print(f"cross-check {tag} ({layers} layers, full width, "
+          f"{n_prompt}-token prompt, 17 steps; launches {launched}): "
+          f"logits max "
           f"|err| {err:.4g} (tol {tol:.4g}, max |logit| {scale:.4g}); per "
           f"step {[round(e, 4) for e in step_err]}; tokens equal at "
           f"{sum(a == b for a, b in zip(sk, sp))}/{len(sk)} steps; "
@@ -3065,6 +3295,256 @@ def grammar_cross_check(torch, details, card: str, tokenizer) -> dict:
     return out
 
 
+# -- path 12: gemma3 at full width and depth -----------------------------
+
+GEMMA3_PATH = "gemma3 int8 paged (gather + einsum) KV, full depth"
+# the gemma turn format, as the gemma3 image's template renders it: the
+# chat turns for /api/chat, one user turn around the bare prompt for
+# /api/generate
+GEMMA_TEMPLATE = (
+    "{{ if .Messages }}{{ range .Messages }}<start_of_turn>"
+    "{{ if eq .Role \"assistant\" }}model{{ else }}{{ .Role }}{{ end }}\n"
+    "{{ .Content }}<end_of_turn>\n{{ end }}<start_of_turn>model\n"
+    "{{ else }}<start_of_turn>user\n{{ .Prompt }}<end_of_turn>\n"
+    "<start_of_turn>model\n{{ end }}")
+# gemma3's path: the int8 projections and the tied head, no attention
+# kernel (its layers alternate windows: prefill, extends and paged decode
+# attend through the einsum, as in the JAX package)
+GEMMA3_COUNTERS = ("qmm",)
+GEMMA3_ABSENT = ("flash_prefill", "qmm4") + PAGED_COUNTERS + DENSE_COUNTERS
+GEMMA3_LONG = 1500      # the long prompt's tokens
+
+
+def gemma3_phase(torch, details) -> dict:
+    """Path 12: gemma3 (34 layers, dim 2560, 8/4 heads, hd 256, tied vocab
+    262208) with random bf16 weights from the seed, through
+    ``ModelManager.preload`` at the server's defaults (int8 weights, K7;
+    an int8 paged pool of 64 slots, 128-row pages, 768 pages), behind the
+    HTTP server with the gemma template: 8 concurrent greedy requests of
+    32 tokens, four on /api/generate (one a 1500-token prompt, which goes
+    through six 256-token pieces and past the sliding layers' 1024
+    window) and four two-turn /api/chat conversations. Launches: qmm above
+    0, every attention kernel 0. Then, with the scheduler stopped, the
+    decode step (``step_breakdown``), and the long request's served
+    tokens held against the engine's calls for it replayed teacher-forced
+    on the card (``teacher_forced``). Returns the requests' launch
+    counts."""
+    from ollama_operator_tpu_torch.models.config import get_config
+    from ollama_operator_tpu_torch.ops import cuda_build
+    from ollama_operator_tpu_torch.server.app import ModelManager, serve
+    cfg = get_config("gemma3")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = dense_params(torch, cfg)
+    mm = ModelManager()
+    lm = mm.preload("gemma3", cfg, params, byte_tokenizer(cfg.vocab_size),
+                    template=GEMMA_TEMPLATE, kv_dtype="int8")
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_build = time.perf_counter() - t0
+    e = lm.ecfg
+    if lm.serving_dtype != "int8" or not lm.engine.paged:
+        raise RuntimeError(f"gemma3 serves {lm.serving_dtype}, paged "
+                           f"{lm.engine.paged}")
+    print(f"serving {GEMMA3_PATH}: slots={e.max_slots} "
+          f"page_size={e.page_size} pages={e.n_pages} "
+          f"max_seq={e.max_seq_len} chunk={e.decode_chunk} "
+          f"kv_bytes={lm.engine.kv_bytes / 1e9:.2f}GB build_s={t_build:.1f}",
+          flush=True)
+    httpd = serve(mm, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    words = ("gemma three alternates five sliding layers with one global "
+             "layer and serves them all on one card").split()
+    # GEMMA3_LONG tokens (the byte tokenizer spells a space as three
+    # bytes of "▁")
+    long_prompt = " ".join(words[i % len(words)] for i in range(400))
+    while (n := len(lm.tokenizer.encode(long_prompt))) > GEMMA3_LONG:
+        long_prompt = long_prompt[:-max(1, (n - GEMMA3_LONG) // 3)]
+    # greedy over the raw logits (no repeat penalty), so that the
+    # teacher-forced forward's argmax is the served token
+    opts = {"temperature": 0, "num_predict": 32, "repeat_penalty": 1.0}
+    gen_prompts = [long_prompt] + [
+        " ".join(words[(3 * i + j) % len(words)] for j in range(10 + 5 * i))
+        for i in range(1, 4)]
+    chats = [[{"role": "system", "content": "answer briefly"},
+              {"role": "user", "content": " ".join(words[i:i + 6])},
+              {"role": "assistant", "content": " ".join(words[i + 2:i + 5])},
+              {"role": "user", "content": f"and then {words[i + 7]}?"}]
+             for i in range(4)]
+    out = None
+    try:
+        http(port, "/api/chat", {"model": "gemma3", "stream": False,
+                                 "options": opts, "messages": [
+                                     {"role": "user", "content": "hi"}]})
+        for name in cuda_build.launches:
+            cuda_build.launches[name] = 0
+        t0 = time.perf_counter()
+        # raw prompts (no template; an empty context, so that the final
+        # frame carries the tokens): no two of them, nor a chat, share 16
+        # tokens, so none stitches a prefix another one donated and each
+        # is admitted from position 0, as the cross-check replays it
+        calls = ([lambda p=p: http(port, "/api/generate", {
+            "model": "gemma3", "prompt": p, "raw": True, "context": [],
+            "options": opts})
+            for p in gen_prompts]
+            + [lambda m=m: http(port, "/api/chat", {
+                "model": "gemma3", "messages": m, "options": opts})
+               for m in chats])
+        results, wall = concurrent(calls)
+        launches = dict(cuda_build.launches)
+        finals = [frames[-1] for _, frames, _ in results]
+        for i, f in enumerate(finals):
+            if not f.get("done") or f.get("eval_count") != 32:
+                raise RuntimeError(f"path 12 request {i} ended {f}")
+        missing = [k for k in GEMMA3_COUNTERS if launches[k] <= 0]
+        stray = [k for k in GEMMA3_ABSENT if launches[k] != 0]
+        if missing or stray:
+            raise RuntimeError(f"path 12 launches: missing {missing}, "
+                               f"stray {stray} ({launches})")
+        long_n = finals[0]["prompt_eval_count"]
+        if long_n <= cfg.sliding_window + 256:
+            raise RuntimeError(f"the long prompt took {long_n} tokens")
+        n_tok = sum(f["eval_count"] for f in finals)
+        ttft = sorted(f["prompt_eval_duration"] / 1e6 for f in finals)
+        chat_text = ["".join(fr.get("message", {}).get("content", "")
+                             for fr in frames)
+                     for _, frames, _ in results[4:]]
+        out = {"model": "gemma3", "layers": cfg.n_layers,
+               "weights": lm.serving_dtype, "kv": "int8", "paged": True,
+               "requests": len(finals), "wall_s": wall,
+               "generated_tokens": n_tok, "aggregate_tok_s": n_tok / wall,
+               "ttft_ms": ttft, "kv_bytes": lm.engine.kv_bytes,
+               "prompt_tokens": [f["prompt_eval_count"] for f in finals],
+               "chat_chars": [len(t) for t in chat_text],
+               "launches": launches}
+        print(f"serving {GEMMA3_PATH}: {len(finals)} requests (4 "
+              f"/api/generate, one of {long_n} prompt tokens; 4 /api/chat) "
+              f"x 32 tokens in {wall:.3f} s: {n_tok / wall:.1f} tok/s "
+              f"aggregate; TTFT ms median {ttft[len(ttft) // 2]:.1f} max "
+              f"{ttft[-1]:.1f}; launches {launches}", flush=True)
+    except BaseException:
+        close_serving(torch, details, out=None, mm=mm, httpd=httpd, lm=lm)
+        raise
+    httpd.shutdown()
+    httpd.server_close()
+    mm.shutdown()
+    out["step"] = step_breakdown(torch, lm.engine)
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"path 12 peak memory {out['peak_memory_bytes'] / 1e9:.2f} GB; "
+          f"kernels a step {out['step']['kernel_launches_per_step']}",
+          flush=True)
+    # the long request's served tokens against the engine's calls for it
+    # replayed teacher-forced on the kernel path: the same tokens at every
+    # step (the plain path is held at 6 layers in FAMILY_CHECKS)
+    ids = finals[0]["context"][:long_n]
+    served = finals[0]["context"][long_n:]
+    _, replayed = teacher_forced(
+        torch, cfg, lm.engine.params, ids, len(served) - 1, "int8",
+        teacher=served, engine=lm.engine, piece=lm.scheduler.prefill_chunk)
+    equal = sum(a == b for a, b in zip(served, replayed))
+    out["replay"] = {"prompt_tokens": long_n, "served_tokens": served,
+                     "replayed_tokens": replayed, "equal": equal}
+    print(f"path 12 replay ({long_n}-token prompt in "
+          f"{lm.scheduler.prefill_chunk}-token pieces, {len(served)} served "
+          f"tokens, teacher-forced on the kernel path): equal at "
+          f"{equal}/{len(served)} steps", flush=True)
+    if replayed != served:
+        raise RuntimeError(f"path 12: served tokens {served} differ from "
+                           f"the replayed kernel path's {replayed}")
+    details["gemma3"] = out
+    del lm
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# gemma3's two-layer cut keeps one layer of each kind: layer 0 sliding
+# (window 1024, the local rope), layer 1 full attention with the global
+# rope (theta 1e6, linear factor 8), as its layers 5, 11, ... are
+GEMMA3_CUT = {"n_layers": 2, "sliding_pattern": 2}
+# the two-layer, full-width cross-checks of the other dense families:
+# (preset, config cut, weight bits, KV pool, paged, prompt tokens,
+# environment, the kernels the kernel path must launch)
+FAMILY_CHECKS = (
+    ("gemma3", GEMMA3_CUT, 8, "int8", True, 1500, {}, ("qmm",)),
+    ("qwen3", None, 4, "int8", True, 200, {},
+     ("flash_prefill", "paged_decode", "qmm4")),
+    ("gemma2", None, 4, "int8", True, 4200, {}, ("qmm4",)),
+    ("starcoder2", None, 8, "int8", True, 200, {},
+     ("flash_prefill", "paged_decode", "qmm")),
+    ("starcoder2", None, 8, "int8", True, 200, {"TPU_PAGED_V3": "0"},
+     ("flash_prefill", "paged_decode_v2", "qmm")),
+    ("starcoder2", None, 8, "int8", True, 200, {"TPU_PAGED_V4": "1"},
+     ("flash_prefill", "paged_decode_v4", "qmm")),
+    ("starcoder2", None, 8, "bfloat16", False, 200, {},
+     ("flash_prefill", "decode_attention", "qmm")),
+    ("phi", None, 8, "int8", True, 200, {},
+     ("flash_prefill", "paged_decode", "qmm")),
+    ("gemma", None, 4, "int8", True, 200, {},
+     ("flash_prefill", "paged_decode", "qmm4")))
+
+
+def family_cross_checks(torch, details):
+    for model, cut, bits, kv, paged, n, env, expect in FAMILY_CHECKS:
+        with mock.patch.dict(os.environ, env):
+            cross_check(torch, details, model, bits, kv, paged=paged,
+                        n_prompt=n, expect=expect, cut=cut)
+
+
+DRIFT_DEPTHS = (2, 6, 12, 34)
+
+
+def drift_sweep(torch, details):
+    """gemma3 at full width, int8 weights, an int8 pool, at each depth of
+    ``DRIFT_DEPTHS`` (the first layers of one 34-layer draw): a
+    1500-token prompt and 16 greedy steps on the kernel path, then the
+    plain path and the control teacher-forced on its tokens. The control
+    is the plain path with each int8 product summed over two halves of K
+    in f32: the same function, rounded at the same points, its sums in
+    another order. Prints the largest logit difference of kernel against
+    plain and of plain against control at each depth; decides nothing."""
+    from ollama_operator_tpu_torch.models.config import get_config
+    from ollama_operator_tpu_torch.ops import quant as Q
+    cfg = get_config("gemma3")
+    params = Q.quantize_params(dense_params(torch, cfg), bits=8)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    ids = torch.randint(0, cfg.vocab_size, (GEMMA3_LONG,),
+                        generator=gen).tolist()
+    saved, rows = Q.matmul, []
+    for depth in DRIFT_DEPTHS:
+        c = dataclasses.replace(cfg, n_layers=depth)
+        p = dict(params, layers={
+            k: ({kk: vv[:depth] for kk, vv in v.items()}
+                if isinstance(v, dict) else v[:depth])
+            for k, v in params["layers"].items()})
+        lk, sk = teacher_forced(torch, c, p, ids, 16, "int8")
+        got = []
+        for split in (1, 2):
+            Q.matmul = functools.partial(plain_matmul, split=split)
+            try:
+                got.append(teacher_forced(torch, c, p, ids, 16, "int8",
+                                          teacher=sk))
+            finally:
+                Q.matmul = saved
+        (lp, sp), (lc, _) = got
+        row = {"layers": depth,
+               "kernel_vs_plain": (lk - lp).abs().max().item(),
+               "plain_vs_control": (lp - lc).abs().max().item(),
+               "logit_scale": lp.abs().max().item(),
+               "tokens_equal": sum(a == b for a, b in zip(sk, sp))}
+        rows.append(row)
+        print(f"drift gemma3 int8, {depth} layers: logits max |kernel - "
+              f"plain| {row['kernel_vs_plain']:.4g}, |plain - control| "
+              f"{row['plain_vs_control']:.4g} (max |logit| "
+              f"{row['logit_scale']:.4g}); kernel and plain tokens equal "
+              f"at {row['tokens_equal']}/17 steps", flush=True)
+    details["drift"] = rows
+    del params
+    torch.cuda.empty_cache()
+
+
 def _final(stream):
     final = None
     for _piece, res in stream:
@@ -3080,8 +3560,19 @@ def main() -> int:
                     help="stop after building and checking the kernels")
     ap.add_argument("--baseline", default=None, metavar="DIR",
                     help="a checkout of another commit: also time its "
-                         "paged-decode wrappers (K6, K4, K5) at each paged "
-                         "row, and fail unless its K6 gives the same bits")
+                         "paged-decode (K6, K4, K5), flash-prefill (K1) "
+                         "and dense-decode (K2, K3) wrappers at their rows, "
+                         "and fail unless each gives the same bits where "
+                         "that commit takes the shape")
+    ap.add_argument("--families-only", action="store_true",
+                    help="build the kernels, then run path 12 (gemma3 at "
+                         "full depth) and the other families' cross-checks "
+                         "alone; no result line")
+    ap.add_argument("--drift", action="store_true",
+                    help="build the kernels, then print gemma3's logit "
+                         "differences, kernel against plain and plain "
+                         "against another order of its sums, at 2, 6, 12 "
+                         "and 34 layers; no result line")
     ap.add_argument("--gguf-only", action="store_true",
                     help="build the kernels, then run paths 9, 10 and 11 "
                          "(the pulled GGUF model, its chat and structured "
@@ -3189,6 +3680,28 @@ def main() -> int:
             e.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=library_ms, shape=shape)
 
+    if args.families_only:
+        try:
+            gemma3_phase(torch, details)
+            family_cross_checks(torch, details)
+        except Exception as e:  # noqa: BLE001 — the phase's failure
+            import traceback
+            traceback.print_exc()
+            return fail(f"path 12 and the family cross-checks: {e!r}")
+        write_details(out_dir, details)
+        print("families-only run (path 12, the family cross-checks): no "
+              "kernel rows; no result", flush=True)
+        return 4
+    if args.drift:
+        try:
+            drift_sweep(torch, details)
+        except Exception as e:  # noqa: BLE001 — the sweep's failure
+            import traceback
+            traceback.print_exc()
+            return fail(f"drift sweep: {e!r}")
+        write_details(out_dir, details)
+        print("drift run: no kernel rows; no result", flush=True)
+        return 4
     if args.gguf_only:
         workdir = tempfile.mkdtemp(prefix="chip_smoke_gguf_")
         try:
@@ -3285,6 +3798,12 @@ def main() -> int:
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
         # 9. path 11's replay cross-check in this process
         replay_cross_check(torch, details, card, tokenizer)
+        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        # 10. path 12: gemma3 at full width and depth, then the other
+        # dense families' two-layer cross-checks
+        launches_by_path[GEMMA3_PATH] = gemma3_phase(torch, details)
+        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        family_cross_checks(torch, details)
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
     except Exception as e:  # noqa: BLE001 — every phase failure is fatal
         import traceback

@@ -14,7 +14,7 @@
 //
 // What bounds it on the card: bytes. Each live cache row (hd bf16 of K and
 // of V) is read once per (slot, kv head) and feeds 4 * G * hd operations,
-// i.e. at most 8 operations a byte for G <= 8, far below the card's ~295.
+// i.e. at most 16 operations a byte for G <= 16, far below the card's ~295.
 //
 // Design. The TPU kernels walk fixed blocks of up to 512 rows in grid order
 // and skip those past q_pos; here a CTA walks exactly the live rows
@@ -36,9 +36,9 @@
 // order, so a repeat gives the same bits. The grid depends on S and the
 // chunk size only, never on the lengths, so no length is read back to the
 // host. GQA (K2) at hd a multiple of 16 up to 128 scores and sums on
-// tensor cores (decode_mma_kernel: the group's G query rows are the rows of
-// a 16-row mma tile, as in the flash-prefill kernel); other head dims take
-// the scalar kernel below.
+// tensor cores (decode_mma_kernel: the group's G <= 16 query rows are the
+// rows of a 16-row mma tile, as in the flash-prefill kernel); other head
+// dims take the scalar kernel below, for groups of at most 8.
 //
 // MHA (K3): the TPU kernel tiles 8 heads a program because a G = 1 program
 // leaves 7/8 of the MXU's rows idle; here the scalar warp-tile code runs
@@ -337,20 +337,25 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // GQA decode on tensor cores (HD a multiple of 16, at most 128). One CTA of
-// 4 warps per (kv head, slot, chunk); the G <= 8 query rows of the group are
-// the rows of a 16-row mma tile (rows G .. 15 zero), kept by every warp as
-// A fragments for the whole walk. A warp takes the chunk's 32-row tiles
+// 4 warps per (kv head, slot, chunk); the G <= 16 query rows of the group
+// are the rows of a 16-row mma tile (rows G .. 15 zero), kept by every warp
+// as A fragments for the whole walk. A warp takes the chunk's 32-row tiles
 // round robin, copies each tile's K and V rows into its own shared buffers
 // (rows past the live range zero-filled, 16-byte row padding so the 8 rows
 // an ldmatrix phase reads fall on distinct banks), S = Q . K^T with K read
 // by ldmatrix, and O += P . V with V read by ldmatrix.trans, as the
 // flash-prefill kernel does. The S accumulator fragment is the P operand
 // fragment: a row's max and sum are two xor shuffles in a quad, and packing
-// it to bf16 pairs is the p rounding (l takes p unrounded). Only the first 8
-// rows can be query rows, so rows 8 .. 15 of P are zero and never exp'd.
-// The warps' (m, l, acc) are merged through shared memory and stored as the
-// chunk's partial, which merge_chunks combines.
-template <int HD>
+// it to bf16 pairs is the p rounding (l takes p unrounded). A lane holds
+// rows g and g + 8 of the tile. For G <= 8 (HI false) only the first 8 rows
+// are query rows, so rows 8 .. 15 of P are zero and never exp'd; for G of 9
+// to 16 (HI true) the lane scores, exps and merges both rows, and takes the
+// softcap's division as a multiplication by its reciprocal (hoisted: a
+// division is a call to its slow path, and the second row's state live
+// across those calls spilled). The warps' (m, l, acc) are merged through
+// shared memory and stored as the chunk's partial, which merge_chunks
+// combines.
+template <int HD, bool HI>
 __global__ void __launch_bounds__(128)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -365,6 +370,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KSTEPS = HD / 16;  // k16 steps of Q . K^T
   constexpr int DTILES = HD / 8;   // n8 tiles of the output
   constexpr int NT = TILE / 8;     // n8 tiles of S
+  constexpr int NR = HI ? 2 : 1;   // query rows a lane holds: g, g + 8
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KvH;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -372,6 +378,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: which matrix, row
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int nst = tile_stages(chunk, NW);
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
   __nv_bfloat16* Qs = (__nv_bfloat16*)smem;  // [16][LD]
   __nv_bfloat16* tiles = Qs + 16 * LD;
   // warp w, stage st: K tile at (w * nst + st) * 2 * TILE * LD, V after it
@@ -426,7 +433,13 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int d = 0; d < DTILES; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
-  float m_r = NEG_INF, l_r = 0.f;  // this lane's query row g
+  // this lane's query rows g (index 0) and, for HI, g + 8 (index 1)
+  float m_r[NR], l_r[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    m_r[r] = NEG_INF;
+    l_r[r] = 0.f;
+  }
 
   for (int it = 0; t < ntiles; ++it, t += NW) {
     if (t + NW < ntiles) {
@@ -458,41 +471,63 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // row g's scores (accumulators 0 and 1 of each n-tile): scaled,
-    // soft-capped, keys past hi masked
-    float mx = NEG_INF;
+    // row g's scores (accumulators 0 and 1 of each n-tile), and row
+    // g + 8's (2 and 3) for HI: scaled, soft-capped, keys past hi masked
+    float mx[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) mx[r] = NEG_INF;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
+      for (int e = 0; e < 2 * NR; ++e) {
         float x = s[n][e] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        if (k0 + n * 8 + 2 * t4 + e > hi) x = NEG_INF;
+        if (softcap > 0.f)
+          x = softcap * tanhf(HI ? x * inv_cap : x / softcap);
+        if (k0 + n * 8 + 2 * t4 + (e & 1) > hi) x = NEG_INF;
         s[n][e] = x;
-        mx = fmaxf(mx, x);
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
-    const float m_new = fmaxf(m_r, quad_max(mx));
-    const float alpha = __expf(m_r - m_new);
-    m_r = m_new;
+    float m_new[NR], alpha[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      m_new[r] = fmaxf(m_r[r], quad_max(mx[r]));
+      alpha[r] = __expf(m_r[r] - m_new[r]);
+      m_r[r] = m_new[r];
+    }
 
     // p = exp(s - m) as bf16 A fragments of P . V (k16 step j takes the
-    // key n-tiles 2j and 2j + 1; rows 8 .. 15 zero); l sums p unrounded
+    // key n-tiles 2j and 2j + 1; rows 8 .. 15 zero unless HI); l sums p
+    // unrounded
     uint32_t pf[NT / 2][4];
-    float psum = 0.f;
+    float psum[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) psum[r] = 0.f;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      const float p0 = __expf(s[n][0] - m_new);
-      const float p1 = __expf(s[n][1] - m_new);
-      psum += p0 + p1;
+      const float p0 = __expf(s[n][0] - m_new[0]);
+      const float p1 = __expf(s[n][1] - m_new[0]);
+      psum[0] += p0 + p1;
       pf[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
       pf[n >> 1][(n & 1) * 2 + 1] = 0u;
+      if constexpr (HI) {
+        const float p2 = __expf(s[n][2] - m_new[1]);
+        const float p3 = __expf(s[n][3] - m_new[1]);
+        psum[1] += p2 + p3;
+        pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
     }
-    l_r = l_r * alpha + quad_sum(psum);
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+      l_r[r] = l_r[r] * alpha[r] + quad_sum(psum[r]);
 #pragma unroll
     for (int d = 0; d < DTILES; ++d) {
-      o[d][0] *= alpha;
-      o[d][1] *= alpha;
+      o[d][0] *= alpha[0];
+      o[d][1] *= alpha[0];
+      if constexpr (HI) {
+        o[d][2] *= alpha[1];
+        o[d][3] *= alpha[1];
+      }
     }
 #pragma unroll
     for (int j = 0; j < NT / 2; ++j) {
@@ -512,19 +547,23 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // merge the warps' states through shared memory (the tiles are free):
   // M = max m_w, L = sum l_w e_w, A = sum acc_w e_w, e_w = exp(m_w - M)
   __syncthreads();
-  float* Mw = (float*)tiles;   // [NW][8]
-  float* Lw = Mw + NW * 8;     // [NW][8]
-  float* Aw = Lw + NW * 8;     // [NW][8][HD]
-  if (g < G) {
-    if (t4 == 0) {
-      Mw[warp * 8 + g] = m_r;
-      Lw[warp * 8 + g] = l_r;
-    }
+  float* Mw = (float*)tiles;   // [NW][16]
+  float* Lw = Mw + NW * 16;    // [NW][16]
+  float* Aw = Lw + NW * 16;    // [NW][16][HD]
 #pragma unroll
-    for (int d = 0; d < DTILES; ++d) {
-      float* a = Aw + ((size_t)warp * 8 + g) * HD + d * 8 + 2 * t4;
-      a[0] = o[d][0];
-      a[1] = o[d][1];
+  for (int r = 0; r < NR; ++r) {
+    const int row = g + 8 * r;
+    if (row < G) {
+      if (t4 == 0) {
+        Mw[warp * 16 + row] = m_r[r];
+        Lw[warp * 16 + row] = l_r[r];
+      }
+#pragma unroll
+      for (int d = 0; d < DTILES; ++d) {
+        float* a = Aw + ((size_t)warp * 16 + row) * HD + d * 8 + 2 * t4;
+        a[0] = o[d][2 * r];
+        a[1] = o[d][2 * r + 1];
+      }
     }
   }
   __syncthreads();
@@ -532,13 +571,13 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int gg = idx / HD, d = idx - gg * HD;
     float M = NEG_INF;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, Mw[w * 8 + gg]);
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, Mw[w * 16 + gg]);
     float L = 0.f, A = 0.f;
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
-      const float e = __expf(Mw[w * 8 + gg] - M);
-      L = fmaf(Lw[w * 8 + gg], e, L);
-      A = fmaf(Aw[((size_t)w * 8 + gg) * HD + d], e, A);
+      const float e = __expf(Mw[w * 16 + gg] - M);
+      L = fmaf(Lw[w * 16 + gg], e, L);
+      A = fmaf(Aw[((size_t)w * 16 + gg) * HD + d], e, A);
     }
     part_acc[(run_e + gg) * HD + d] = A;
     if (d == 0) {
@@ -560,6 +599,10 @@ size_t smem_bytes(int G, int hd, int nst) {
   return sizeof(float) * ((size_t)G * hd + (size_t)nw * MAXG * TILE) +
          (size_t)nw * nst * 2 * TILE * tile_pitch(hd);
 }
+
+// The head dims the tensor-core kernel takes (every other one the scalar
+// kernel, whose largest group is 8).
+inline bool mma_head_dim(int hd) { return hd % 16 == 0 && hd <= 128; }
 
 bool valid(int H, int KvH, int maxg, int hd, int S, int chunk) {
   return KvH > 0 && H % KvH == 0 && H / KvH <= maxg && hd % 8 == 0 &&
@@ -604,27 +647,27 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos,
 
 // Dynamic shared memory of decode_mma_kernel with nst staged tiles a warp:
 // Q's 16 rows and the four warps' staged K/V tiles (the merge at the end
-// reuses the tiles).
+// reuses the tiles: its [4][16] (m, l) and [4][16][hd] f32 fit in them).
 inline size_t mma_smem_bytes(int hd, int nst) {
   return sizeof(__nv_bfloat16) * (size_t)(hd + 8) * (16 + 4 * nst * 2 * TILE);
 }
 
-// The tensor-core kernel (K2 at hd a multiple of 16 up to 128): partials,
-// then their merge.
-template <int HD>
+// The tensor-core kernel (K2 at hd a multiple of 16 up to 128; HI for
+// groups above 8): partials, then their merge.
+template <int HD, bool HI>
 int launch_mma(const void* q, const void* k, const void* v, const int* q_pos,
                void* out, float* part_acc, float* part_ml, int B, int H,
                int KvH, int S, long long stride_b, long long stride_h,
                float scale, float softcap, int window, int chunk,
                void* stream) {
   static const cudaError_t cap = cudaFuncSetAttribute(
-      decode_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_mma_kernel<HD, HI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)mma_smem_bytes(HD, 2));
   if (cap != cudaSuccess) return (int)cap;
   const int nchunk = (S + chunk - 1) / chunk;
-  decode_mma_kernel<HD><<<dim3(KvH, B, nchunk), 128,
-                          mma_smem_bytes(HD, tile_stages(chunk, 4)),
-                          (cudaStream_t)stream>>>(
+  decode_mma_kernel<HD, HI><<<dim3(KvH, B, nchunk), 128,
+                              mma_smem_bytes(HD, tile_stages(chunk, 4)),
+                              (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, q_pos, part_acc, part_ml, H, KvH, S,
       (int64_t)stride_b, (int64_t)stride_h, scale, softcap, window, chunk);
@@ -639,7 +682,9 @@ int launch_mma(const void* q, const void* k, const void* v, const int* q_pos,
 // GQA decode (K2). q [B, 1, H, hd] bf16 contiguous; k/v bf16 rows of hd
 // contiguous elements, row j of (b, h) at b * stride_b + h * stride_h +
 // j * hd (16-byte aligned: the wrapper checks); S rows per (b, h); q_pos [B]
-// int32; out [B, 1, H, hd] bf16. H % KvH == 0, H / KvH <= 8, hd % 8 == 0,
+// int32; out [B, 1, H, hd] bf16. H % KvH == 0, H / KvH <= 16 at hd a
+// multiple of 16 up to 128 (the tensor-core kernel) and <= 8 at the other
+// head dims, hd % 8 == 0,
 // hd <= 256. The rows are split in chunks of ``chunk`` (a positive
 // multiple of 32); part_acc [B * nchunk, KvH, H / KvH, hd] and part_ml
 // [B * nchunk, KvH, H / KvH, 2] f32 hold the partials, nchunk =
@@ -654,13 +699,20 @@ extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      long long stride_h, float scale,
                                      float softcap, int window, int chunk,
                                      void* stream) {
-  if (!valid(H, KvH, 8, hd, S, chunk)) return (int)cudaErrorInvalidValue;
+  if (!valid(H, KvH, mma_head_dim(hd) ? 16 : 8, hd, S, chunk))
+    return (int)cudaErrorInvalidValue;
   switch (hd) {
 #define HD_CASE(n)                                                          \
   case n:                                                                   \
-    return launch_mma<n>(q, k, v, q_pos, out, (float*)part_acc,             \
-                         (float*)part_ml, B, H, KvH, S, stride_b, stride_h, \
-                         scale, softcap, window, chunk, stream);
+    return H / KvH > 8                                                      \
+               ? launch_mma<n, true>(q, k, v, q_pos, out, (float*)part_acc, \
+                                     (float*)part_ml, B, H, KvH, S,         \
+                                     stride_b, stride_h, scale, softcap,    \
+                                     window, chunk, stream)                 \
+               : launch_mma<n, false>(q, k, v, q_pos, out,                  \
+                                      (float*)part_acc, (float*)part_ml, B, \
+                                      H, KvH, S, stride_b, stride_h, scale, \
+                                      softcap, window, chunk, stream);
     HD_CASE(16) HD_CASE(32) HD_CASE(48) HD_CASE(64)
     HD_CASE(80) HD_CASE(96) HD_CASE(112) HD_CASE(128)
 #undef HD_CASE

@@ -41,6 +41,15 @@
 // only the four K/V tiles (69.6 KB at hd 128: three CTAs a SM).
 // Probabilities take __expf (ex2.approx of x * log2 e, a few f32 ulps off
 // expf before their rounding to bf16).
+//
+// Head dims above 128 (gemma's 256): a warp's 16 x hd f32 accumulator
+// alone is hd / 2 registers a thread (128 at hd 256), so the Q fragments
+// (another hd / 4) no longer stay in registers: the Q tile keeps its own
+// shared buffer for the whole walk and each k16 step's fragment is
+// ldmatrix'd from it, and the key tile halves to 32 keys (S and P take 16
+// and 8 registers). A CTA then holds Q and the four K/V tiles, 101 KB at
+// hd 256 (two CTAs a SM, 255 registers a thread), and its output leaves
+// through the Q buffer (each warp reads and writes only its own 16 rows).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,8 +58,23 @@
 namespace {
 
 constexpr int BQ = 64;        // query rows per CTA, 16 per warp
-constexpr int BK = 64;        // keys per K/V tile
 constexpr int NTHREADS = 128;
+
+// Q's fragments stay in registers for the whole walk up to hd 128; above
+// it they are read from shared memory at each k16 step
+template <int HD>
+__host__ __device__ constexpr bool q_in_regs() { return HD <= 128; }
+// keys per K/V tile
+template <int HD>
+__host__ __device__ constexpr int key_tile() {
+  return q_in_regs<HD>() ? 64 : 32;
+}
+// dynamic shared memory: the two K/V stages (and the Q tile above hd 128)
+template <int HD>
+constexpr int smem_bytes() {
+  return (4 * key_tile<HD>() + (q_in_regs<HD>() ? 0 : BQ)) * (HD + 8) *
+         (int)sizeof(__nv_bfloat16);
+}
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -113,24 +137,27 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 template <int HD, bool SOFTCAP>
-__global__ void __launch_bounds__(NTHREADS, 3)
+__global__ void __launch_bounds__(NTHREADS, q_in_regs<HD>() ? 3 : 2)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out, int T, int H, int KvH,
                      float scale, float softcap, int window) {
+  constexpr bool QREG = q_in_regs<HD>();
+  constexpr int BK = key_tile<HD>();
   constexpr int LD = HD + 8;       // shared row stride (elements): +16 bytes
   constexpr int CHUNKS = HD / 8;   // 16-byte chunks per row
   constexpr int KSTEPS = HD / 16;  // k16 steps of Q . K^T
   constexpr int DTILES = HD / 8;   // n8 tiles of the output
   constexpr int NT = BK / 8;       // n8 tiles of S
-  static_assert(BQ == BK, "Q and the output are staged in a K tile");
+  static_assert(!QREG || BQ == BK, "Q and the output are staged in a K tile");
   extern __shared__ __align__(16) __nv_bfloat16 smem[];
   __nv_bfloat16* Ks = smem;               // [2][BK][LD]
   __nv_bfloat16* Vs = Ks + 2 * BK * LD;   // [2][BK][LD]
-  // the Q tile lands in the second K stage, free until the second K/V tile
-  // loads; the output goes out through the first
-  __nv_bfloat16* Qs = Ks + BK * LD;
+  // up to hd 128 the Q tile lands in the second K stage, free until the
+  // second K/V tile loads, and the output goes out through the first;
+  // above it Q has its own buffer [BQ][LD] after the V stages
+  __nv_bfloat16* Qs = QREG ? Ks + BK * LD : Vs + 2 * BK * LD;
 
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int h = blockIdx.x;
@@ -177,12 +204,16 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   const int wrow = warp * 16;
-  uint32_t qf[KSTEPS][4];
+  // this lane's ldmatrix row of the warp's Q rows
+  const uint32_t q_addr =
+      smem_u32(Qs + (wrow + (lane & 15)) * LD + (lane >> 4) * 8);
+  uint32_t qf[QREG ? KSTEPS : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int s = 0; s < KSTEPS; ++s)
-    ldmatrix_x4(qf[s], smem_u32(Qs + (wrow + (lane & 15)) * LD + s * 16 +
-                                (lane >> 4) * 8));
-  __syncthreads();  // every warp holds its Q fragments: stage 1 is free
+    for (int s = 0; s < KSTEPS; ++s)
+      ldmatrix_x4(qf[s], q_addr + s * 32);
+    __syncthreads();  // every warp holds its Q fragments: stage 1 is free
+  }
 
   float o[DTILES][4];
 #pragma unroll
@@ -214,13 +245,15 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int st = 0; st < KSTEPS; ++st) {
+      const int qs = QREG ? st : 0;
+      if constexpr (!QREG) ldmatrix_x4(qf[0], q_addr + st * 32);
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t kb[4];
         ldmatrix_x4(kb, smem_u32(ks + (np * 16 + mr + 8 * (mi >> 1)) * LD +
                                  st * 16 + 8 * (mi & 1)));
-        mma_bf16(s[2 * np], qf[st], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[st], kb[2], kb[3]);
+        mma_bf16(s[2 * np], qf[qs], kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qf[qs], kb[2], kb[3]);
       }
     }
 
@@ -297,8 +330,9 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // out = o / max(l, 1e-30) as bf16, staged in this warp's rows of the
-  // first K stage (every warp is past the loop's last barrier)
-  __nv_bfloat16* os = Ks + wrow * LD;
+  // first K stage (every warp is past the loop's last barrier), or of
+  // its own Q rows above hd 128 (no other warp reads them)
+  __nv_bfloat16* os = (QREG ? Ks : Qs) + wrow * LD;
   const float l0 = fmaxf(l_r[0], 1e-30f), l1 = fmaxf(l_r[1], 1e-30f);
 #pragma unroll
   for (int d = 0; d < DTILES; ++d) {
@@ -322,7 +356,7 @@ template <int HD, bool SOFTCAP>
 void launch(const void* q, const void* k, const void* v, void* out, int B,
             int T, int H, int KvH, float scale, float softcap, int window,
             cudaStream_t st) {
-  const int smem = 4 * BK * (HD + 8) * (int)sizeof(__nv_bfloat16);
+  const int smem = smem_bytes<HD>();
   static bool opted_in = false;
   if (!opted_in) {
     cudaFuncSetAttribute(flash_prefill_kernel<HD, SOFTCAP>,
@@ -354,7 +388,7 @@ void launch_hd(const void* q, const void* k, const void* v, void* out, int B,
 
 // q [B, T, H, hd], k/v head-first [B, KvH, T, hd], out [B, T, H, hd]; all
 // bf16, contiguous and 16-byte aligned. hd must be a multiple of 16 and at
-// most 128, and H a multiple of KvH (the wrapper checks). Returns
+// most 256, and H a multiple of KvH (the wrapper checks). Returns
 // cudaGetLastError().
 extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
                                   void* out, int B, int T, int H, int KvH,
@@ -368,6 +402,8 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
     break;
     HD_CASE(16) HD_CASE(32) HD_CASE(48) HD_CASE(64)
     HD_CASE(80) HD_CASE(96) HD_CASE(112) HD_CASE(128)
+    HD_CASE(144) HD_CASE(160) HD_CASE(176) HD_CASE(192)
+    HD_CASE(208) HD_CASE(224) HD_CASE(240) HD_CASE(256)
 #undef HD_CASE
     default:
       return (int)cudaErrorInvalidValue;

@@ -42,7 +42,8 @@ namespace paged {
 
 constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
-constexpr int MAX_G = 8;
+constexpr int MAX_G = 8;       // the scalar page loop's largest group
+constexpr int MAX_G_MMA = 16;  // the tensor-core tile loop's (paged_tiles)
 constexpr int MAX_NC = 2;  // output columns per thread: hd <= 256
 constexpr float NEG_INF = -1e30f;
 

@@ -10,7 +10,7 @@
 // What bounds it on the card: bytes. Each live page is read once per
 // (slot, kv head): ps * hd code bytes for K and for V (half that for int4),
 // plus 2 * ps f32 scales, against G * ps * hd * 2 multiply-adds, i.e. a few
-// operations per byte for G <= 8, far below the card's ~295.
+// operations per byte for G <= 16, far below the card's ~295.
 //
 // Design (the dense-cache kernel's, decode_attention.cu, carried over to
 // pages). The slot's live rows are split over CTAs: the grid is (kv head,

@@ -135,8 +135,10 @@ inline size_t list_bytes(int B) { return sizeof(int) * ((size_t)B + 4); }
 // the list. (At least 3 CTAs a SM, the int8 pool's rings at hd 128 allow
 // no more: with no bound ptxas (CUDA 12.8) held the int4 and the bf16
 // instantiations at 96 registers and spilled 8 to 12 bytes.)
-template <int MAXHD, int POOL>
-__global__ void __launch_bounds__(128, 3)
+// (NQ = 2, the two query column tiles of a group above 8, at 2 CTAs a SM:
+// its second tile's state would not fit the registers of 3.)
+template <int MAXHD, int POOL, int NQ>
+__global__ void __launch_bounds__(128, NQ == 1 ? 3 : 2)
 paged_v4_mma_kernel(Params a, int cp, int chunks, int list_off,
                     int* __restrict__ runs, float* __restrict__ part_acc,
                     float* __restrict__ part_ml) {
@@ -152,9 +154,9 @@ paged_v4_mma_kernel(Params a, int cp, int chunks, int list_off,
     const int b = unit_of(a, cp, ends, n, z);
     chunk_rows(a, a.lengths[b], cp, z, lo, hi);
     const int T0 = lo & ~(TILE - 1);
-    fold_tiles<MAXHD, POOL>(a, b, kvh, lo, hi, T0, (hi - T0) / TILE + 1,
-                            ((int64_t)n * a.KvH + kvh) * G, part_acc,
-                            part_ml, smem);
+    fold_tiles<MAXHD, POOL, NQ>(a, b, kvh, lo, hi, T0, (hi - T0) / TILE + 1,
+                                ((int64_t)n * a.KvH + kvh) * G, part_acc,
+                                part_ml, smem);
   }
 }
 
@@ -203,7 +205,7 @@ merge_v4(const float* __restrict__ part_acc,
                    (int64_t)KvH * G, runs[2 * b + 1], hd, ml);
 }
 
-template <int MAXHD, int POOL>
+template <int MAXHD, int POOL, int NQ>
 int launch_v4_mma(const Params& a, int cp, int chunks, int* runs,
                   float* part_acc, float* part_ml, cudaStream_t s) {
   static size_t granted = 48 << 10;
@@ -212,10 +214,10 @@ int launch_v4_mma(const Params& a, int cp, int chunks, int* runs,
     nw = 2;  // four rings and a long list do not fit (bf16, hd 208)
   const size_t off = mma_smem_bytes<POOL>(a.hd, nw);
   const size_t smem = off + list_bytes(a.B);
-  allow_smem(paged_v4_mma_kernel<MAXHD, POOL>, smem, granted);
-  paged_v4_mma_kernel<MAXHD, POOL><<<dim3(a.KvH, chunks), 32 * nw, smem,
-                                     s>>>(a, cp, chunks, (int)off, runs,
-                                          part_acc, part_ml);
+  allow_smem(paged_v4_mma_kernel<MAXHD, POOL, NQ>, smem, granted);
+  paged_v4_mma_kernel<MAXHD, POOL, NQ><<<dim3(a.KvH, chunks), 32 * nw, smem,
+                                         s>>>(a, cp, chunks, (int)off, runs,
+                                              part_acc, part_ml);
   return (int)cudaGetLastError();
 }
 
@@ -226,10 +228,16 @@ int launch_v4(const Params& a, int cp, int chunks, int* runs,
   const int G = a.H / a.KvH;
   int rc;
   if (paged_tensor_cores(a.hd)) {
-    rc = a.hd <= 128 ? launch_v4_mma<128, POOL>(a, cp, chunks, runs,
-                                                part_acc, part_ml, s)
-                     : launch_v4_mma<256, POOL>(a, cp, chunks, runs,
-                                                part_acc, part_ml, s);
+    // as launch_mma_for (paged_tiles.cuh): NQ = 2 for G > 8 (hd <= 128)
+    if (G > 8)
+      rc = launch_v4_mma<128, POOL, 2>(a, cp, chunks, runs, part_acc,
+                                       part_ml, s);
+    else if (a.hd <= 128)
+      rc = launch_v4_mma<128, POOL, 1>(a, cp, chunks, runs, part_acc,
+                                       part_ml, s);
+    else
+      rc = launch_v4_mma<256, POOL, 1>(a, cp, chunks, runs, part_acc,
+                                       part_ml, s);
   } else {
     static size_t granted = 48 << 10;
     const size_t off = sizeof(float) * smem_floats(G, a.hd, a.ps, sizeof(T));

@@ -9,9 +9,12 @@
 // entry) and scales into its own ring of STAGES shared buffers with
 // cp.async (16-byte pieces of raw codes, rows outside [lo, hi] zero-filled),
 // so the next tiles' copies are in flight while this one computes. Kᵀ is
-// the A operand (keys as the 16 rows of an m16n8k16 tile, the G <= 8 query
-// rows as its 8 columns), so a G = 1 group wastes 7/8 of a tile, not 15/16:
-// S^T = K . Q^T, then O^T += V^T . P^T. The codes are widened when the
+// the A operand (keys as the 16 rows of an m16n8k16 tile, the query rows
+// as its 8 columns), so a G = 1 group wastes 7/8 of a tile, not 15/16:
+// S^T = K . Q^T, then O^T += V^T . P^T. A group of 9 to 16 rows (NQ = 2:
+// starcoder2's 12) takes two n8 column tiles of Q^T, S^T, P^T and O^T,
+// each K and V fragment feeding both; NQ = 1 is the G <= 8 loop, whose
+// arithmetic is the same as before the second tile existed. The codes are widened when the
 // fragments are built, exactly (int8 and int4 codes are integers bf16
 // holds): an int8 byte goes into the mantissa of 2^23 and comes out as f32,
 // whose upper half is the bf16 code; an int4 nibble goes into the mantissa
@@ -117,11 +120,12 @@ __host__ __device__ inline int stage_bytes(int hd) {
 }
 
 // Dynamic shared memory of a CTA of nw warps: the rings, reused at the end
-// for the warps' (m, l, acc) [nw][8][2 + hd].
+// for the warps' (m, l, acc) [nw][8 NQ][2 + hd] (at most 16 query rows; the
+// rings are always the larger).
 template <int POOL>
 inline size_t mma_smem_bytes(int hd, int nw) {
   const size_t rings = (size_t)nw * STAGES * stage_bytes<POOL>(hd);
-  const size_t merge = sizeof(float) * nw * 8 * (2 + (size_t)hd);
+  const size_t merge = sizeof(float) * nw * 16 * (2 + (size_t)hd);
   return rings > merge ? rings : merge;
 }
 
@@ -229,31 +233,40 @@ __device__ __forceinline__ void v_frags(const uint32_t (&w)[4],
   }
 }
 
-// The heads, head dims and pages the paged-decode entries take (ops/paged.py
-// paged_shape_error states the same limits): H % KvH == 0 with H / KvH <=
-// 8, hd % 4 == 0 and hd <= 256, 1 <= ps <= 128 (even for int4), and an
-// attended width 1 <= nblk <= NBLK.
-inline bool paged_shape_ok(int B, int H, int KvH, int hd, int ps, bool pack4,
-                           int NBLK, int nblk) {
-  return B >= 1 && KvH > 0 && H % KvH == 0 && H / KvH <= MAX_G &&
-         hd % 4 == 0 && hd <= 256 && ps >= 1 && ps <= 128 &&
-         !(pack4 && ps % 2) && nblk >= 1 && nblk <= NBLK;
-}
-
 // The head dims the paged kernels run on the tensor cores (fold_tiles);
 // the others take the scalar page loop.
 inline int paged_tensor_cores(int hd) {
   return hd > 0 && hd % 16 == 0 && hd <= 256;
 }
 
+// The largest group the entries take at head dim hd: MAX_G_MMA (16) on the
+// tensor cores up to hd 128 (the one instantiation with two query column
+// tiles, NQ = 2), MAX_G (8) at every other head dim.
+inline int paged_max_group(int hd) {
+  return paged_tensor_cores(hd) && hd <= 128 ? MAX_G_MMA : MAX_G;
+}
+
+// The heads, head dims and pages the paged-decode entries take (ops/paged.py
+// paged_shape_error states the same limits): H % KvH == 0 with H / KvH <=
+// paged_max_group(hd), hd % 4 == 0 and hd <= 256, 1 <= ps <= 128 (even for
+// int4), and an attended width 1 <= nblk <= NBLK.
+inline bool paged_shape_ok(int B, int H, int KvH, int hd, int ps, bool pack4,
+                           int NBLK, int nblk) {
+  return B >= 1 && KvH > 0 && H % KvH == 0 &&
+         H / KvH <= paged_max_group(hd) &&
+         hd % 4 == 0 && hd <= 256 && ps >= 1 && ps <= 128 &&
+         !(pack4 && ps % 2) && nblk >= 1 && nblk <= NBLK;
+}
+
 // Fold slot b's tiles [T0 + TILE t for t < ntiles] (T0 a multiple of TILE)
 // for kv head kvh, masked to its live rows [lo, hi], into the partial at
 // entry run_e of part_acc [runs, KvH, G, hd] and part_ml [runs, KvH, G, 2]
 // (its G query rows at run_e .. run_e + G - 1), with every warp of the CTA
-// (hd a multiple of 16 up to MAXHD); ``smem`` holds mma_smem_bytes. Every
-// thread of the CTA calls it; a caller that calls it again first orders
-// the last call's reads of ``smem`` with a __syncthreads.
-template <int MAXHD, int POOL>
+// (hd a multiple of 16 up to MAXHD, G <= 8 NQ); ``smem`` holds
+// mma_smem_bytes. Every thread of the CTA calls it; a caller that calls it
+// again first orders the last call's reads of ``smem`` with a
+// __syncthreads.
+template <int MAXHD, int POOL, int NQ>
 __device__ __forceinline__ void fold_tiles(const Params& a, int b, int kvh,
                                            int lo, int hi, int T0,
                                            int ntiles, int64_t run_e,
@@ -263,6 +276,7 @@ __device__ __forceinline__ void fold_tiles(const Params& a, int b, int kvh,
   constexpr bool QUANT = POOL != BF16;
   constexpr int R = tile_rows<POOL>();
   constexpr int MK = MAXHD / 16;  // k16 steps of S^T, m16 tiles of O^T
+  constexpr int QC = 8 * NQ;      // query columns of S^T (rows of the merge)
   const int hd = a.hd, G = a.H / a.KvH;
   const int nk = hd / 16;
   const int NW = blockDim.x >> 5;
@@ -324,35 +338,46 @@ __device__ __forceinline__ void fold_tiles(const Params& a, int b, int kvh,
     }
   };
 
-  // Q^T as B fragments of every k16 step (query row g; rows >= G zero),
-  // with the code pools' permuted dims
-  uint32_t qf[MK][2];
-  {
+  // Q^T as B fragments of every k16 step, column tile nq (query row
+  // g + 8 nq; rows >= G zero), with the code pools' permuted dims
+  uint32_t qf[MK][NQ][2];
+  static_for<NQ>([&](auto NQI) {
+    constexpr int nq = decltype(NQI)::value;
+    const int qr = g + 8 * nq;
     const __nv_bfloat16* qrow =
-        a.q + ((int64_t)b * a.H + kvh * G + min(g, G - 1)) * hd;
+        a.q + ((int64_t)b * a.H + kvh * G + min(qr, G - 1)) * hd;
     static_for<MK>([&](auto ST) {
       constexpr int st = decltype(ST)::value;
-      qf[st][0] = qf[st][1] = 0u;
-      if (st < nk && g < G) {
+      qf[st][nq][0] = qf[st][nq][1] = 0u;
+      if (st < nk && qr < G) {
         if (QUANT) {
           const uint2 w = *(const uint2*)(qrow + 16 * st + 4 * t4);
-          qf[st][0] = __byte_perm(w.x, w.y, 0x5410);
-          qf[st][1] = __byte_perm(w.x, w.y, 0x7632);
+          qf[st][nq][0] = __byte_perm(w.x, w.y, 0x5410);
+          qf[st][nq][1] = __byte_perm(w.x, w.y, 0x7632);
         } else {
-          qf[st][0] = *(const uint32_t*)(qrow + 16 * st + 2 * t4);
-          qf[st][1] = *(const uint32_t*)(qrow + 16 * st + 2 * t4 + 8);
+          qf[st][nq][0] = *(const uint32_t*)(qrow + 16 * st + 2 * t4);
+          qf[st][nq][1] = *(const uint32_t*)(qrow + 16 * st + 2 * t4 + 8);
         }
       }
     });
-  }
+  });
 
-  float o[MK][4];
+  float o[MK][NQ][4];
 #pragma unroll
   for (int i = 0; i < MK; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float m2[2] = {NEG_INF, NEG_INF};  // query columns 2t4, 2t4 + 1
-  float l2[2] = {0.f, 0.f};          // this lane's share of l
+    for (int nq = 0; nq < NQ; ++nq)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][nq][e] = 0.f;
+  // query columns 8 nq + 2t4 and 8 nq + 2t4 + 1
+  float m2[NQ][2], l2[NQ][2];  // l2: this lane's share of l
+#pragma unroll
+  for (int nq = 0; nq < NQ; ++nq)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      m2[nq][e] = NEG_INF;
+      l2[nq][e] = 0.f;
+    }
   // the softcap's division, hoisted: a division in the tile loop is a
   // call (its slow path) that costs registers across it
   const float scale = a.scale, cap = a.softcap;
@@ -377,11 +402,13 @@ __device__ __forceinline__ void fold_tiles(const Params& a, int b, int kvh,
     const int k0 = T0 + t * TILE;
 
     // S^T = K . Q^T for the tile's two 16-key blocks
-    float s[2][4];
+    float s[2][NQ][4];
     static_for<2>([&](auto KB) {
       constexpr int kb = decltype(KB)::value;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[kb][e] = 0.f;
+      for (int nq = 0; nq < NQ; ++nq)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[kb][nq][e] = 0.f;
       static_for<MK>([&](auto ST) {
         constexpr int st = decltype(ST)::value;
         if (st < nk) {
@@ -408,14 +435,19 @@ __device__ __forceinline__ void fold_tiles(const Params& a, int b, int kvh,
             af[2] = i4_pair(w, 8);
             af[3] = i4_pair(w, 12);
           }
-          mma_bf16(s[kb], af, qf[st][0], qf[st][1]);
+          static_for<NQ>([&](auto NQI) {
+            constexpr int nq = decltype(NQI)::value;
+            mma_bf16(s[kb][nq], af, qf[st][nq][0], qf[st][nq][1]);
+          });
         }
       });
     });
 
     // this lane's keys: rows g and g + 8 of each block; x scale, x key
     // scale, softcap, mask; the tile's max of each query column
-    float mx[2] = {NEG_INF, NEG_INF};
+    float mx[NQ][2];
+#pragma unroll
+    for (int nq = 0; nq < NQ; ++nq) mx[nq][0] = mx[nq][1] = NEG_INF;
 #pragma unroll
     for (int kb = 0; kb < 2; ++kb) {
 #pragma unroll
@@ -423,55 +455,68 @@ __device__ __forceinline__ void fold_tiles(const Params& a, int b, int kvh,
         const int key = 16 * kb + (POOL == INT4 ? 2 * g + h : g + 8 * h);
         const bool ok = k0 + key >= lo && k0 + key <= hi;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float x = s[kb][2 * h + e] * scale;
-          if (QUANT) x = x * kss[key];
-          if (cap > 0.f) x = cap * tanhf(x * inv_cap);
-          x = ok ? x : NEG_INF;
-          s[kb][2 * h + e] = x;
-          mx[e] = fmaxf(mx[e], x);
+        for (int nq = 0; nq < NQ; ++nq) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float x = s[kb][nq][2 * h + e] * scale;
+            if (QUANT) x = x * kss[key];
+            if (cap > 0.f) x = cap * tanhf(x * inv_cap);
+            x = ok ? x : NEG_INF;
+            s[kb][nq][2 * h + e] = x;
+            mx[nq][e] = fmaxf(mx[nq][e], x);
+          }
         }
       }
     }
-    float alpha[2];
+    float alpha[NQ][2];
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v = mx[e];
-      v = fmaxf(v, __shfl_xor_sync(FULL, v, 4));
-      v = fmaxf(v, __shfl_xor_sync(FULL, v, 8));
-      v = fmaxf(v, __shfl_xor_sync(FULL, v, 16));
-      const float m_new = fmaxf(m2[e], v);
-      alpha[e] = __expf(m2[e] - m_new);
-      m2[e] = m_new;
-      l2[e] *= alpha[e];
+    for (int nq = 0; nq < NQ; ++nq) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = mx[nq][e];
+        v = fmaxf(v, __shfl_xor_sync(FULL, v, 4));
+        v = fmaxf(v, __shfl_xor_sync(FULL, v, 8));
+        v = fmaxf(v, __shfl_xor_sync(FULL, v, 16));
+        const float m_new = fmaxf(m2[nq][e], v);
+        alpha[nq][e] = __expf(m2[nq][e] - m_new);
+        m2[nq][e] = m_new;
+        l2[nq][e] *= alpha[nq][e];
+      }
     }
 
     // p = exp(s - m); l sums p, P^T's B fragments take bf16(p x vscale)
-    uint32_t pb[2][2];
+    uint32_t pb[2][NQ][2];
 #pragma unroll
     for (int kb = 0; kb < 2; ++kb) {
-      float pv[4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int key = 16 * kb + (POOL == INT4 ? 2 * g + h : g + 8 * h);
-        const bool ok = k0 + key >= lo && k0 + key <= hi;
-        const float vsc = QUANT ? vss[key] : 1.f;
+      for (int nq = 0; nq < NQ; ++nq) {
+        float pv[4];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = ok ? __expf(s[kb][2 * h + e] - m2[e]) : 0.f;
-          l2[e] += p;
-          pv[2 * h + e] = p * vsc;
+        for (int h = 0; h < 2; ++h) {
+          const int key = 16 * kb + (POOL == INT4 ? 2 * g + h : g + 8 * h);
+          const bool ok = k0 + key >= lo && k0 + key <= hi;
+          const float vsc = QUANT ? vss[key] : 1.f;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p =
+                ok ? __expf(s[kb][nq][2 * h + e] - m2[nq][e]) : 0.f;
+            l2[nq][e] += p;
+            pv[2 * h + e] = p * vsc;
+          }
         }
+        pb[kb][nq][0] = movmatrix_trans(pack_bf16(pv[0], pv[1]));
+        pb[kb][nq][1] = movmatrix_trans(pack_bf16(pv[2], pv[3]));
       }
-      pb[kb][0] = movmatrix_trans(pack_bf16(pv[0], pv[1]));
-      pb[kb][1] = movmatrix_trans(pack_bf16(pv[2], pv[3]));
     }
     static_for<MK>([&](auto I) {
       constexpr int i = decltype(I)::value;
-      o[i][0] *= alpha[0];
-      o[i][1] *= alpha[1];
-      o[i][2] *= alpha[0];
-      o[i][3] *= alpha[1];
+#pragma unroll
+      for (int nq = 0; nq < NQ; ++nq) {
+        o[i][nq][0] *= alpha[nq][0];
+        o[i][nq][1] *= alpha[nq][1];
+        o[i][nq][2] *= alpha[nq][0];
+        o[i][nq][3] *= alpha[nq][1];
+      }
     });
 
     // O^T += V^T . P^T
@@ -484,7 +529,9 @@ __device__ __forceinline__ void fold_tiles(const Params& a, int b, int kvh,
             uint32_t af[4];
             ldmatrix_x4_trans(af, vt + (16 * kb + mr + 8 * (mi >> 1)) * pitch +
                                       2 * (16 * i + 8 * (mi & 1)));
-            mma_bf16(o[i], af, pb[kb][0], pb[kb][1]);
+#pragma unroll
+            for (int nq = 0; nq < NQ; ++nq)
+              mma_bf16(o[i][nq], af, pb[kb][nq][0], pb[kb][nq][1]);
           }
         });
       } else {
@@ -504,8 +551,11 @@ __device__ __forceinline__ void fold_tiles(const Params& a, int b, int kvh,
             for (int k = 0; k < NV; ++k)
               w[k] = *(const uint32_t*)(vr[k] + 4 * (g + 8 * j));
             v_frags<POOL>(w, a0, a1);
-            mma_bf16(o[2 * j], a0, pb[kb][0], pb[kb][1]);
-            mma_bf16(o[2 * j + 1], a1, pb[kb][0], pb[kb][1]);
+#pragma unroll
+            for (int nq = 0; nq < NQ; ++nq) {
+              mma_bf16(o[2 * j][nq], a0, pb[kb][nq][0], pb[kb][nq][1]);
+              mma_bf16(o[2 * j + 1][nq], a1, pb[kb][nq][0], pb[kb][nq][1]);
+            }
           } else if (j == hd / 32 && (hd & 16)) {
             // hd % 32 == 16: the last tile from half-words
             uint32_t w[4] = {0u, 0u, 0u, 0u}, a0[4], a1[4];
@@ -513,7 +563,9 @@ __device__ __forceinline__ void fold_tiles(const Params& a, int b, int kvh,
             for (int k = 0; k < NV; ++k)
               w[k] = *(const uint16_t*)(vr[k] + 32 * j + 2 * g);
             v_frags<POOL>(w, a0, a1);
-            mma_bf16(o[2 * j], a0, pb[kb][0], pb[kb][1]);
+#pragma unroll
+            for (int nq = 0; nq < NQ; ++nq)
+              mma_bf16(o[2 * j][nq], a0, pb[kb][nq][0], pb[kb][nq][1]);
           }
         });
       }
@@ -525,20 +577,26 @@ __device__ __forceinline__ void fold_tiles(const Params& a, int b, int kvh,
   // merge the warps' states through shared memory (the rings are free):
   // M = max m_w, L = sum l_w e_w, A = sum acc_w e_w, e_w = exp(m_w - M)
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    l2[e] += __shfl_xor_sync(FULL, l2[e], 4);
-    l2[e] += __shfl_xor_sync(FULL, l2[e], 8);
-    l2[e] += __shfl_xor_sync(FULL, l2[e], 16);
-  }
-  __syncthreads();
-  float* Mw = (float*)smem;   // [NW][8]
-  float* Lw = Mw + NW * 8;    // [NW][8]
-  float* Aw = Lw + NW * 8;    // [NW][8][hd]
-  if (g == 0) {
+  for (int nq = 0; nq < NQ; ++nq) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      Mw[warp * 8 + 2 * t4 + e] = m2[e];
-      Lw[warp * 8 + 2 * t4 + e] = l2[e];
+      l2[nq][e] += __shfl_xor_sync(FULL, l2[nq][e], 4);
+      l2[nq][e] += __shfl_xor_sync(FULL, l2[nq][e], 8);
+      l2[nq][e] += __shfl_xor_sync(FULL, l2[nq][e], 16);
+    }
+  }
+  __syncthreads();
+  float* Mw = (float*)smem;   // [NW][QC]
+  float* Lw = Mw + NW * QC;   // [NW][QC]
+  float* Aw = Lw + NW * QC;   // [NW][QC][hd]
+  if (g == 0) {
+#pragma unroll
+    for (int nq = 0; nq < NQ; ++nq) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        Mw[warp * QC + 8 * nq + 2 * t4 + e] = m2[nq][e];
+        Lw[warp * QC + 8 * nq + 2 * t4 + e] = l2[nq][e];
+      }
     }
   }
   static_for<MK>([&](auto I) {
@@ -547,12 +605,15 @@ __device__ __forceinline__ void fold_tiles(const Params& a, int b, int kvh,
       const int d0 = out_dim<POOL>(i, g, hd);
       const int d1 = d0 + (POOL == BF16 ? 8 : 1);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int qr = 2 * t4 + e;
-        if (qr < G) {
-          float* A = Aw + ((size_t)warp * 8 + qr) * hd;
-          A[d0] = o[i][e];
-          A[d1] = o[i][2 + e];
+      for (int nq = 0; nq < NQ; ++nq) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qr = 8 * nq + 2 * t4 + e;
+          if (qr < G) {
+            float* A = Aw + ((size_t)warp * QC + qr) * hd;
+            A[d0] = o[i][nq][e];
+            A[d1] = o[i][nq][2 + e];
+          }
         }
       }
     }
@@ -561,12 +622,12 @@ __device__ __forceinline__ void fold_tiles(const Params& a, int b, int kvh,
   for (int idx = threadIdx.x; idx < G * hd; idx += blockDim.x) {
     const int gg = idx / hd, d = idx - gg * hd;
     float M = NEG_INF;
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, Mw[w * 8 + gg]);
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, Mw[w * QC + gg]);
     float L = 0.f, A = 0.f;
     for (int w = 0; w < NW; ++w) {
-      const float e = __expf(Mw[w * 8 + gg] - M);
-      L = fmaf(Lw[w * 8 + gg], e, L);
-      A = fmaf(Aw[((size_t)w * 8 + gg) * hd + d], e, A);
+      const float e = __expf(Mw[w * QC + gg] - M);
+      L = fmaf(Lw[w * QC + gg], e, L);
+      A = fmaf(Aw[((size_t)w * QC + gg) * hd + d], e, A);
     }
     part_acc[(run_e + gg) * hd + d] = A;
     if (d == 0) {
@@ -577,9 +638,10 @@ __device__ __forceinline__ void fold_tiles(const Params& a, int b, int kvh,
 }
 
 // One CTA of nw warps per (kv head, slot, chunk); hd a multiple of 16 up to
-// MAXHD. Stores the chunk's partial as run blockIdx.y * gridDim.z +
-// blockIdx.z of part_acc [runs, KvH, G, hd] and part_ml [runs, KvH, G, 2].
-template <int MAXHD, int POOL>
+// MAXHD, G <= 8 NQ. Stores the chunk's partial as run blockIdx.y *
+// gridDim.z + blockIdx.z of part_acc [runs, KvH, G, hd] and part_ml [runs,
+// KvH, G, 2].
+template <int MAXHD, int POOL, int NQ>
 __global__ void __launch_bounds__(128)
 paged_mma_kernel(Params a, int cp, float* __restrict__ part_acc,
                  float* __restrict__ part_ml) {
@@ -598,8 +660,8 @@ paged_mma_kernel(Params a, int cp, float* __restrict__ part_acc,
     return;
   }
   const int T0 = lo & ~(TILE - 1);
-  fold_tiles<MAXHD, POOL>(a, b, kvh, lo, hi, T0, (hi - T0) / TILE + 1,
-                          run_e, part_acc, part_ml, smem);
+  fold_tiles<MAXHD, POOL, NQ>(a, b, kvh, lo, hi, T0, (hi - T0) / TILE + 1,
+                              run_e, part_acc, part_ml, smem);
 }
 
 // hd not a multiple of 16: one CTA of NTHREADS per (kv head, slot, chunk)
@@ -636,16 +698,30 @@ paged_scalar_kernel(Params a, int cp, float* __restrict__ part_acc,
                 part_ml);
 }
 
-template <int MAXHD, int POOL>
+template <int MAXHD, int POOL, int NQ>
 int launch_mma(const Params& a, int cp, int nchunk, float* part_acc,
                float* part_ml, cudaStream_t stream) {
   static size_t granted = 48 << 10;
   const int nw = mma_warps<POOL>(a.hd);
   const size_t smem = mma_smem_bytes<POOL>(a.hd, nw);
-  allow_smem(paged_mma_kernel<MAXHD, POOL>, smem, granted);
-  paged_mma_kernel<MAXHD, POOL><<<dim3(a.KvH, a.B, nchunk), 32 * nw, smem,
-                                  stream>>>(a, cp, part_acc, part_ml);
+  allow_smem(paged_mma_kernel<MAXHD, POOL, NQ>, smem, granted);
+  paged_mma_kernel<MAXHD, POOL, NQ><<<dim3(a.KvH, a.B, nchunk), 32 * nw,
+                                      smem, stream>>>(a, cp, part_acc,
+                                                      part_ml);
   return (int)cudaGetLastError();
+}
+
+// The tensor-core partials at the instantiation for a.hd and the group:
+// MAXHD 128 or 256 with NQ = 1 (G <= 8), or MAXHD 128 with NQ = 2 (G 9 to
+// 16, paged_max_group).
+template <int POOL>
+int launch_mma_for(const Params& a, int cp, int nchunk, float* part_acc,
+                   float* part_ml, cudaStream_t s) {
+  if (a.H / a.KvH > 8)
+    return launch_mma<128, POOL, 2>(a, cp, nchunk, part_acc, part_ml, s);
+  return a.hd <= 128
+             ? launch_mma<128, POOL, 1>(a, cp, nchunk, part_acc, part_ml, s)
+             : launch_mma<256, POOL, 1>(a, cp, nchunk, part_acc, part_ml, s);
 }
 
 // The split call: partials of every (kv head, slot, chunk of cp blocks of
@@ -658,9 +734,7 @@ int launch_split(const Params& a, int cp, float* part_acc, float* part_ml,
   constexpr int POOL = !QUANT ? BF16 : PACK4 ? INT4 : INT8;
   int rc;
   if (paged_tensor_cores(a.hd)) {
-    rc = a.hd <= 128
-             ? launch_mma<128, POOL>(a, cp, nchunk, part_acc, part_ml, s)
-             : launch_mma<256, POOL>(a, cp, nchunk, part_acc, part_ml, s);
+    rc = launch_mma_for<POOL>(a, cp, nchunk, part_acc, part_ml, s);
   } else {
     static size_t granted = 48 << 10;
     const size_t smem =

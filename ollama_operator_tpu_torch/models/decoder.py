@@ -1,4 +1,4 @@
-"""Decoder-only transformer (llama family) in PyTorch.
+"""Decoder-only transformer (the JAX package's dense families) in PyTorch.
 
 Counterpart of ``ollama_operator_tpu/models/decoder.py`` for the paged
 and the dense slot-cache serving paths: ``init_params``,
@@ -10,10 +10,21 @@ package's layout (plain dicts of tensors, layer leaves stacked on a
 leading ``n_layers`` axis, weights ``[K, O]``, quantized leaves as
 ``{"q4", "s"}`` / ``{"q", "s"}`` dicts):
 
-  tok_emb [V, D]   out_norm_w [D]   lm_head [D, V] (absent when tied)
-  layers/ attn_norm_w [L, D]  wq [L, D, H*hd]  wk/wv [L, D, KvH*hd]
-          wo [L, H*hd, D]  mlp_norm_w [L, D]
-          w_gate/w_up [L, D, F]  w_down [L, F, D]  (bq/bk/bv optional)
+  tok_emb [V, D]   out_norm_w [D] (+ out_norm_b, layernorm archs)
+  lm_head [D, V] (absent when tied)   lm_head_b [V] (out_bias archs)
+  layers/ attn_norm_w [L, D] (+ attn_norm_b)  wq [L, D, H*hd]
+          wk/wv [L, D, KvH*hd]  wo [L, H*hd, D]  (bq/bk/bv, bo optional)
+          mlp_norm_w [L, D] (+ mlp_norm_b; absent with parallel_block)
+          w_gate [L, D, F] (gated MLPs)  w_up [L, D, F]  w_down [L, F, D]
+          (b_up [L, F], b_down [L, D] with out_bias)
+          q_norm_w/k_norm_w [L, hd] (qk_norm)
+          post_attn_norm_w/post_ffw_norm_w [L, D] (post_norms)
+
+The block variants are the JAX package's: RMSNorm or LayerNorm (with or
+without biases), qk-norm, gemma2's sandwich norms, phi2's parallel block,
+plain (biased) or gated MLPs, partial rotary, and the alternating
+sliding/full attention of gemma2 and gemma3 with gemma3's dual rope (a
+local theta on the sliding layers).
 
 Layers run as a Python loop (PyTorch is eager; the JAX package scans).
 The KV pools and caches are updated in place (the JAX functions are pure
@@ -29,11 +40,13 @@ attends through the gather + einsum path (``attend_hf`` /
 ``attend_hf_q`` / ``attend_hf_q4``), which the JAX package runs in XLA
 too, so no kernel of its own. A tied LM
 head (``tok_emb.T``) stays a bf16 ``torch.matmul``, as the JAX package
-leaves it outside any Pallas kernel.
+leaves it outside any Pallas kernel. Alternating archs (gemma2, gemma3)
+take no attention kernel on any path, as in the JAX package, whose kernel
+dispatch needs one static window: prefill and dense decode attend through
+the masked einsum, paged decode through the gather + einsum, each layer
+with its own window.
 
-Architecture features outside this slice (layernorm, parallel blocks,
-MoE, alternating sliding attention, qk-norm, sandwich norms, plain MLPs,
-output biases) raise in :func:`check_supported`.
+Mixture-of-experts models raise in :func:`check_supported`.
 """
 
 from __future__ import annotations
@@ -47,12 +60,12 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops import quant as Q
 from ..ops.attention import NEG_INF, cached_attention, chunk_attention
-from ..ops.norms import rms_norm
-from ..ops.attention import attend_hf
+from ..ops.attention import attend_hf, causal_mask
+from ..ops.norms import layer_norm, rms_norm
 from ..ops.paged import _gather_pages, paged_decode_attention
 from ..ops.quant_cache import (INT4_BIAS, attend_hf_q, attend_hf_q4, pack_kv4,
                                pool_codes, quantize_kv, quantize_kv4)
-from ..ops.rope import apply_rope, rope_angles_cfg
+from ..ops.rope import apply_rope, rope_angles, rope_angles_cfg
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -62,19 +75,11 @@ TRASH_PAGE = 0
 
 
 def check_supported(cfg: ModelConfig) -> ModelConfig:
-    """Raise for architecture features this port does not run yet."""
-    missing = [name for name, on in (
-        ("layernorm", cfg.norm_type != "rmsnorm"),
-        ("parallel_block", cfg.parallel_block),
-        ("mixture of experts", cfg.n_experts > 0),
-        ("altern_sliding", cfg.altern_sliding),
-        ("qk_norm", cfg.qk_norm),
-        ("post_norms", cfg.post_norms),
-        ("plain mlp", cfg.mlp_type != "gated"),
-        ("out_bias", cfg.out_bias)) if on]
-    if missing:
+    """Raise for architecture features this port does not run yet: mixture
+    of experts (every dense family runs)."""
+    if cfg.n_experts > 0:
         raise NotImplementedError(
-            f"the torch port does not run {', '.join(missing)} yet")
+            "the torch port does not run mixture of experts yet")
     return cfg
 
 
@@ -102,19 +107,42 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    ln_bias = cfg.norm_type == "layernorm" and cfg.norm_bias
     layers = {"attn_norm_w": ones(L, D),
               "wq": w(L, D, cfg.q_dim), "wk": w(L, D, cfg.kv_dim),
               "wv": w(L, D, cfg.kv_dim), "wo": w(L, cfg.q_dim, D),
-              "w_up": w(L, D, Fd), "w_down": w(L, Fd, D),
-              "mlp_norm_w": ones(L, D), "w_gate": w(L, D, Fd)}
+              "w_up": w(L, D, Fd), "w_down": w(L, Fd, D)}
+    if ln_bias:
+        layers["attn_norm_b"] = zeros(L, D)
+    if not cfg.parallel_block:
+        layers["mlp_norm_w"] = ones(L, D)
+        if ln_bias:
+            layers["mlp_norm_b"] = zeros(L, D)
+    if cfg.mlp_type == "gated":
+        layers["w_gate"] = w(L, D, Fd)
     if cfg.attn_bias:
         for k, n in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
                      ("bv", cfg.kv_dim)):
-            layers[k] = torch.zeros((L, n), dtype=dtype, device=device)
+            layers[k] = zeros(L, n)
+    if cfg.out_bias:
+        layers.update(bo=zeros(L, D), b_up=zeros(L, Fd), b_down=zeros(L, D))
+    if cfg.qk_norm:
+        layers.update(q_norm_w=ones(L, cfg.head_dim),
+                      k_norm_w=ones(L, cfg.head_dim))
+    if cfg.post_norms:
+        layers.update(post_attn_norm_w=ones(L, D),
+                      post_ffw_norm_w=ones(L, D))
     params: Params = {"tok_emb": w(V, D), "out_norm_w": ones(D),
                       "layers": layers}
+    if ln_bias:
+        params["out_norm_b"] = zeros(D)
     if not cfg.tie_embeddings:
         params["lm_head"] = w(D, V)
+    if cfg.out_bias:
+        params["lm_head_b"] = zeros(V)
     return params
 
 
@@ -128,8 +156,47 @@ def _attn_scale(cfg: ModelConfig) -> float:
     return 1.0 / math.sqrt(cfg.attn_scale or cfg.head_dim)
 
 
-def _norm(cfg: ModelConfig, x, w):
+def _norm(cfg: ModelConfig, x, w, b=None):
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, w, b, cfg.norm_eps)
     return rms_norm(x, w, cfg.norm_eps, cfg.norm_weight_offset)
+
+
+def _is_full_layer(cfg: ModelConfig, i: int) -> bool:
+    """Alternating attention: layer i attends in full iff i % pattern ==
+    pattern - 1 (gemma2: odd layers; gemma3: every 6th)."""
+    return i % cfg.sliding_pattern == cfg.sliding_pattern - 1
+
+
+def _layer_window(cfg: ModelConfig, i: int) -> int:
+    """Layer i's sliding window (0 = full attention): an alternating
+    arch's full layers attend everything, every other layer takes the
+    config's window."""
+    if cfg.altern_sliding and _is_full_layer(cfg, i):
+        return 0
+    return cfg.sliding_window
+
+
+def _rope_pair(positions, cfg: ModelConfig):
+    """(cos, sin, cos_l, sin_l): the global table with the model's scaling
+    and, for dual-rope archs (gemma3), the unscaled local-theta table
+    (None otherwise)."""
+    cos, sin = rope_angles_cfg(positions, cfg)
+    if not cfg.rope_local_theta:
+        return cos, sin, None, None
+    cos_l, sin_l = rope_angles(positions, cfg.rotary_dim,
+                               cfg.rope_local_theta)
+    return cos, sin, cos_l, sin_l
+
+
+def _layer_rope(cfg: ModelConfig, i: int, rope):
+    """Layer i's (cos, sin): a dual-rope arch's sliding layers rotate at
+    the local theta, its full layers (and every layer of the others) at
+    the global one."""
+    cos, sin, cos_l, sin_l = rope
+    if cos_l is None or _is_full_layer(cfg, i):
+        return cos, sin
+    return cos_l, sin_l
 
 
 def _act(cfg: ModelConfig, x):
@@ -154,20 +221,52 @@ def _qkv(cfg: ModelConfig, lp, h, cos, sin):
     q = q.reshape(B, T, cfg.n_heads, cfg.head_dim)
     k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        # per-head RMS (gemma3 stores the weight as w - 1, qwen3 as w)
+        q = rms_norm(q, lp["q_norm_w"], cfg.norm_eps, cfg.norm_weight_offset)
+        k = rms_norm(k, lp["k_norm_w"], cfg.norm_eps, cfg.norm_weight_offset)
     return (apply_rope(q, cos, sin, cfg.rotary_dim),
             apply_rope(k, cos, sin, cfg.rotary_dim), v)
 
 
 def _mlp(cfg: ModelConfig, lp, x):
-    g = _act(cfg, Q.matmul(x, lp["w_gate"]))
+    if cfg.mlp_type == "gated":
+        g = _act(cfg, Q.matmul(x, lp["w_gate"]))
+        u = Q.matmul(x, lp["w_up"])
+        return Q.matmul(g * u, lp["w_down"])
     u = Q.matmul(x, lp["w_up"])
-    return Q.matmul(g * u, lp["w_down"])
+    if "b_up" in lp:
+        u = u + lp["b_up"]
+    d = Q.matmul(_act(cfg, u), lp["w_down"])
+    if "b_down" in lp:
+        d = d + lp["b_down"]
+    return d
 
 
-def _residual(cfg: ModelConfig, lp, x, attn):
+def _proj_out(cfg: ModelConfig, lp, attn):
+    """attn [B, T, H, hd] → the output projection [B, T, D] (+ bo)."""
+    B, T = attn.shape[:2]
+    o = Q.matmul(attn.reshape(B, T, -1), lp["wo"])
+    if "bo" in lp:
+        o = o + lp["bo"]
+    return o
+
+
+def _residual(cfg: ModelConfig, lp, x, h, attn):
+    """The block's residual adds after attention: ``h`` the attention
+    input (normed x), which a parallel block's MLP reads too; sandwich
+    norms (post_norms) norm the attention and MLP outputs before their
+    adds."""
     rm = cfg.residual_multiplier or 1.0
+    if cfg.post_norms:
+        attn = _norm(cfg, attn, lp["post_attn_norm_w"])
+    if cfg.parallel_block:
+        return x + attn + _mlp(cfg, lp, h)
     x = x + rm * attn
-    return x + rm * _mlp(cfg, lp, _norm(cfg, x, lp["mlp_norm_w"]))
+    m = _mlp(cfg, lp, _norm(cfg, x, lp["mlp_norm_w"], lp.get("mlp_norm_b")))
+    if cfg.post_norms:
+        m = _norm(cfg, m, lp["post_ffw_norm_w"])
+    return x + rm * m
 
 
 def _embed(cfg: ModelConfig, params: Params, tokens):
@@ -195,14 +294,16 @@ def _mm_f32(x, w):
 
 
 def _unembed(cfg: ModelConfig, params: Params, x):
-    """Final norm + LM head → f32 logits."""
-    x = _norm(cfg, x, params["out_norm_w"])
+    """Final norm + LM head (+ its bias) → f32 logits."""
+    x = _norm(cfg, x, params["out_norm_w"], params.get("out_norm_b"))
     if not cfg.tie_embeddings and Q.is_quantized(params["lm_head"]):
         logits = Q.matmul(x, params["lm_head"], out_dtype=torch.float32)
     else:
         head = (params["tok_emb"].t() if cfg.tie_embeddings
                 else params["lm_head"])
         logits = _mm_f32(x, head)
+    if "lm_head_b" in params:
+        logits = logits + params["lm_head_b"].float()
     if cfg.logit_scale:
         logits = logits / cfg.logit_scale
     if cfg.logit_softcap:
@@ -222,17 +323,26 @@ def prefill_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor
     B, T = tokens.shape
     scale = _attn_scale(cfg)
     positions = torch.arange(T, device=tokens.device).expand(B, T)
-    cos, sin = rope_angles_cfg(positions, cfg)
+    rope = _rope_pair(positions, cfg)
+    if cfg.altern_sliding:
+        # each layer's window rides its mask (the JAX package's einsum)
+        masks = {w: causal_mask(T, T, 0, w, device=tokens.device)
+                 for w in {_layer_window(cfg, i)
+                           for i in range(cfg.n_layers)}}
     x = _embed(cfg, params, tokens)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        h = _norm(cfg, x, lp["attn_norm_w"])
-        q, k, v = _qkv(cfg, lp, h, cos, sin)
+        h = _norm(cfg, x, lp["attn_norm_w"], lp.get("attn_norm_b"))
+        q, k, v = _qkv(cfg, lp, h, *_layer_rope(cfg, i, rope))
         k = k.transpose(1, 2)                          # [B, KvH, T, hd]
         v = v.transpose(1, 2)
-        attn = chunk_attention(cfg, q, k, v, scale)
-        x = _residual(cfg, lp, x, Q.matmul(attn.reshape(B, T, -1), lp["wo"]))
+        if cfg.altern_sliding:
+            attn = attend_hf(q, k, v, masks[_layer_window(cfg, i)], scale,
+                             cfg.attn_softcap)
+        else:
+            attn = chunk_attention(cfg, q, k, v, scale)
+        x = _residual(cfg, lp, x, h, _proj_out(cfg, lp, attn))
         ks.append(k)
         vs.append(v)
     return x, torch.stack(ks), torch.stack(vs)
@@ -396,9 +506,15 @@ def forward_with_cache_paged(params: Params, cfg: ModelConfig,
     positions = lengths.long()[:, None]                     # [B, 1]
     if T > 1:
         positions = positions + torch.arange(T, device=tokens.device)
-        mask = _window_mask(positions, attn_blocks * ps, cfg.sliding_window)
+    # T > 1 and alternating archs attend the first attn_blocks pages
+    # through the gather + einsum, under each layer's window
+    gather = T > 1 or cfg.altern_sliding
+    if gather:
+        masks = {w: _window_mask(positions, attn_blocks * ps, w)
+                 for w in {_layer_window(cfg, i)
+                           for i in range(cfg.n_layers)}}
         tbl = tables[:, :attn_blocks].long()
-    cos, sin = rope_angles_cfg(positions, cfg)
+    rope = _rope_pair(positions, cfg)
     NBLK = tables.shape[1]
     blk = positions // ps
     pg_w = torch.where(blk < NBLK,
@@ -408,18 +524,18 @@ def forward_with_cache_paged(params: Params, cfg: ModelConfig,
     x = _embed(cfg, params, tokens)
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        h = _norm(cfg, x, lp["attn_norm_w"])
-        q, k, v = _qkv(cfg, lp, h, cos, sin)
+        h = _norm(cfg, x, lp["attn_norm_w"], lp.get("attn_norm_b"))
+        q, k, v = _qkv(cfg, lp, h, *_layer_rope(cfg, i, rope))
         _scatter_kv_pools(k_pool, v_pool, i, k.transpose(1, 2),
                           v.transpose(1, 2), pg_w, off_w)
-        if T == 1:
+        if gather:
+            attn = _paged_gather_attend(cfg, q, k_pool, v_pool, i, tbl,
+                                        masks[_layer_window(cfg, i)], scale)
+        else:
             attn = paged_decode_attention(
                 q, k_pool, v_pool, i, tables, lengths, scale,
                 cfg.attn_softcap, cfg.sliding_window, nblk=attn_blocks)
-        else:
-            attn = _paged_gather_attend(cfg, q, k_pool, v_pool, i, tbl,
-                                        mask, scale)
-        x = _residual(cfg, lp, x, Q.matmul(attn.reshape(B, T, -1), lp["wo"]))
+        x = _residual(cfg, lp, x, h, _proj_out(cfg, lp, attn))
     return (x if hidden else _unembed(cfg, params, x)), k_pool, v_pool
 
 
@@ -484,8 +600,9 @@ def forward_with_cache(params: Params, cfg: ModelConfig,
     if T > 1:
         q_pos = q_pos + torch.arange(T, device=dev, dtype=q_pos.dtype)
     positions = q_pos.long()
-    cos, sin = rope_angles_cfg(positions, cfg)
-    mask = _window_mask(positions, A, cfg.sliding_window)  # [B, 1, T, A]
+    rope = _rope_pair(positions, cfg)
+    masks = {w: _window_mask(positions, A, w)               # [B, 1, T, A]
+             for w in {_layer_window(cfg, i) for i in range(cfg.n_layers)}}
     bx = torch.arange(B, device=dev)[:, None, None]
     hx = torch.arange(KvH, device=dev)[None, :, None]
     pos_w = positions.clamp(max=S - 1)[:, None, :]          # [B, 1, T]
@@ -493,10 +610,11 @@ def forward_with_cache(params: Params, cfg: ModelConfig,
     x = _embed(cfg, params, tokens)
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        h = _norm(cfg, x, lp["attn_norm_w"])
-        q, k, v = _qkv(cfg, lp, h, cos, sin)
+        h = _norm(cfg, x, lp["attn_norm_w"], lp.get("attn_norm_b"))
+        q, k, v = _qkv(cfg, lp, h, *_layer_rope(cfg, i, rope))
         k = k.transpose(1, 2)                              # [B, KvH, T, hd]
         v = v.transpose(1, 2)
+        mask = masks[_layer_window(cfg, i)]
         if quant:
             for cache, val in ((k_cache, k), (v_cache, v)):
                 codes, scales = quantize_kv(val)
@@ -509,7 +627,14 @@ def forward_with_cache(params: Params, cfg: ModelConfig,
         else:
             _dense_write(k_cache, i, k, bx, hx, pos_w, keep[..., None])
             _dense_write(v_cache, i, v, bx, hx, pos_w, keep[..., None])
-            attn = cached_attention(cfg, q, k_cache[i], v_cache[i], mask,
-                                    q_pos, scale, attn_len=A)
-        x = _residual(cfg, lp, x, Q.matmul(attn.reshape(B, T, -1), lp["wo"]))
+            if cfg.altern_sliding:
+                # the layer's window rides the mask (the JAX package's
+                # einsum): no decode kernel
+                attn = attend_hf(q, k_cache[i, :, :, :A],
+                                 v_cache[i, :, :, :A], mask, scale,
+                                 cfg.attn_softcap)
+            else:
+                attn = cached_attention(cfg, q, k_cache[i], v_cache[i],
+                                        mask, q_pos, scale, attn_len=A)
+        x = _residual(cfg, lp, x, h, _proj_out(cfg, lp, attn))
     return (x if hidden else _unembed(cfg, params, x)), k_cache, v_cache

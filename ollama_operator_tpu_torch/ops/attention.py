@@ -104,13 +104,24 @@ def flash_prefill_plain(q, k, v, scale: float, softcap: float = 0.0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd).to(q.dtype)
 
 
+def flash_prefill_shape_error(H: int, KvH: int, hd: int):
+    """Why the flash-prefill kernel cannot take these heads, or None: H a
+    multiple of KvH, and hd a multiple of 16 (the TPU kernel's rule,
+    ``prefill_tileable``) up to 256 (the kernel's instantiations)."""
+    if KvH <= 0 or H % KvH:
+        return f"H={H} KvH={KvH}: H must be a multiple of KvH"
+    if hd % 16 or not 16 <= hd <= 256:
+        return f"hd={hd}: must be a multiple of 16, at most 256"
+    return None
+
+
 def flash_prefill(q, k, v, scale: float, softcap: float = 0.0,
                   sliding_window: int = 0):
     """Causal GQA self-attention over a fresh chunk (positions [0, T)).
 
     q [B, T, H, hd], k/v head-first [B, KvH, T, hd] → [B, T, H, hd]. On
     the card this launches ``csrc/flash_prefill.cu`` (bf16, hd a multiple
-    of 16 up to 128) and raises on anything it does not take; on the CPU
+    of 16 up to 256) and raises on anything it does not take; on the CPU
     it runs :func:`flash_prefill_plain`."""
     if not cuda_build.on_card(q, k, v):
         return flash_prefill_plain(q, k, v, scale, softcap, sliding_window)
@@ -121,10 +132,10 @@ def flash_prefill(q, k, v, scale: float, softcap: float = 0.0,
     if k.shape != (B, KvH, T, hd) or v.shape != k.shape:
         raise ValueError(f"k/v shape {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
-    # hd a multiple of 16 up to 128: the TPU kernel's own rule
-    if T < 1 or H % KvH or hd % 16 or hd > 128:
+    why = flash_prefill_shape_error(H, KvH, hd)
+    if T < 1 or why:
         raise ValueError(f"flash_prefill kernel: T={T} H={H} KvH={KvH} "
-                         f"hd={hd} unsupported")
+                         f"hd={hd} unsupported ({why or 'T < 1'})")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_prefill kernel: operands must be 16-byte "
@@ -220,6 +231,28 @@ def decode_chunk_rows(q_pos: int, S: int, window: int, chunk: int):
             for z in range(-(-S // chunk))]
 
 
+def decode_max_group(hd: int) -> int:
+    """The largest GQA group the decode kernels (K2 on the dense cache; K6,
+    K4 and K5 on pages) take at head dim ``hd``: 16, the rows of one
+    m16n8k16 tile (the columns of two n8 tiles in the paged loop), at hd a
+    multiple of 16 up to 128; 8 at every other head dim."""
+    return 16 if hd % 16 == 0 and 16 <= hd <= 128 else 8
+
+
+def decode_shape_error(H: int, KvH: int, hd: int):
+    """Why the dense-cache decode kernels cannot take these heads, or
+    None: H a multiple of KvH with H / KvH <= 16 at hd a multiple of 16
+    up to 128 (the tensor-core kernel) and <= 8 at the other head dims
+    (the scalar kernel), hd % 8 == 0 and hd <= 256."""
+    G = decode_max_group(hd)
+    if KvH <= 0 or H % KvH or H // KvH > G:
+        return (f"H={H} KvH={KvH} hd={hd}: the group H / KvH must be at "
+                f"most {G}")
+    if hd % 8 or not 8 <= hd <= 256:
+        return f"hd={hd}: must be a multiple of 8, at most 256"
+    return None
+
+
 def _decode_launch(mha: bool, q, k_cache, v_cache, q_pos, scale: float,
                    softcap: float, sliding_window: int):
     """Launch one entry of ``csrc/decode_attention.cu``; raises on anything
@@ -234,8 +267,8 @@ def _decode_launch(mha: bool, q, k_cache, v_cache, q_pos, scale: float,
                         f"bf16 cache; got {tuple(q.shape)} {q.dtype}, "
                         f"cache {k_cache.dtype}")
     if (k_cache.shape != (B, KvH, S, hd) or v_cache.shape != k_cache.shape
-            or H % KvH or H // KvH > 8 or (mha and KvH != H) or hd % 8
-            or hd > 256 or S < 1):
+            or decode_shape_error(H, KvH, hd) or (mha and KvH != H)
+            or S < 1):
         raise ValueError(f"{name} kernel: q {tuple(q.shape)}, cache "
                          f"{tuple(k_cache.shape)} unsupported")
     strides = k_cache.stride()
@@ -283,8 +316,8 @@ def decode_attention(q, k_cache, v_cache, q_pos, scale: float,
     q [B, 1, H, hd]; k_cache/v_cache [B, KvH, S, hd]; q_pos [B] int32, the
     query's absolute position (its own K/V already written there) → [B, 1,
     H, hd] (q.dtype). On the card this launches the GQA entry of
-    ``csrc/decode_attention.cu`` (bf16; H / KvH <= 8, hd % 8 == 0,
-    hd <= 256; any S), which splits the rows in chunks of
+    ``csrc/decode_attention.cu`` (bf16; the heads of
+    :func:`decode_shape_error`; any S), which splits the rows in chunks of
     ``DECODE_CHUNK``, reads only the live ones and merges the chunks in a
     second launch, and raises on anything it does not take; on the CPU it
     runs :func:`decode_attention_plain`."""

@@ -18,3 +18,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
     y = xf * torch.rsqrt(var + eps)
     y = y * (weight_offset + weight.float())
     return y.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias, eps: float
+               ) -> torch.Tensor:
+    """LayerNorm with f32 accumulation, output in the input's dtype;
+    ``bias=None`` is the bias-free variant (command-r stores no LN
+    biases)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)

@@ -51,7 +51,7 @@ import os
 import torch
 
 from . import cuda_build
-from .attention import NEG_INF, softcap_scores
+from .attention import NEG_INF, decode_max_group, softcap_scores
 from .quant_cache import pool_codes, unpack_kv4
 
 ROUTES = ("v2", "v3", "v4")
@@ -71,10 +71,13 @@ def paged_route() -> str:
 def paged_shape_error(H: int, KvH: int, hd: int, ps: int, quant4: bool):
     """Why the paged-decode kernels cannot take these heads and pages, or
     None. The three kernels share their limits: H a multiple of KvH with
-    H / KvH <= 8, hd % 4 == 0 and hd <= 256, ps <= 128, and ps even for an
-    int4 pool."""
-    if KvH <= 0 or H % KvH or H // KvH > 8:
-        return f"H={H} KvH={KvH}: the group H / KvH must be at most 8"
+    H / KvH at most :func:`~.attention.decode_max_group` (16 at hd a
+    multiple of 16 up to 128, else 8), hd % 4 == 0 and hd <= 256,
+    ps <= 128, and ps even for an int4 pool."""
+    G = decode_max_group(hd)
+    if KvH <= 0 or H % KvH or H // KvH > G:
+        return (f"H={H} KvH={KvH} hd={hd}: the group H / KvH must be at "
+                f"most {G}")
     if hd % 4 or hd > 256:
         return f"hd={hd}: must be a multiple of 4, at most 256"
     if ps > 128 or (quant4 and ps % 2):

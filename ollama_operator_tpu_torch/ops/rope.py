@@ -83,6 +83,19 @@ def scaled_inv_freq(rotary_dim: int, theta: float, *,
     return tuple(np.asarray(inv_freq, np.float32).tolist()), float(mscale)
 
 
+def rope_angles(positions: torch.Tensor, rotary_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [..] int → (cos, sin) [.., rotary_dim//2] f32 at base
+    ``theta`` with no scaling, the rates computed in f32 as the JAX
+    package's ``rope_angles`` computes them: the local-theta table of the
+    dual-rope archs (gemma3's sliding layers)."""
+    half = rotary_dim // 2
+    inv = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                        device=positions.device) / half))
+    angles = positions.float()[..., None] * inv
+    return torch.cos(angles), torch.sin(angles)
+
+
 def rope_angles_cfg(positions: torch.Tensor, cfg
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions [..] int → (cos, sin) [.., rotary_dim//2] f32 on the

@@ -497,6 +497,12 @@ class Scheduler:
         self._thread.join(timeout=10)
         if self._wd_req is not None:
             self._wd_req.put(None)
+            if self._wd_thread is not None:
+                # joined (bounded: a helper in a wedged wait is left), so
+                # no daemon thread wakes into the interpreter's exit: a
+                # server's SIGTERM then ended in "terminate called without
+                # an active exception" (SIGABRT) about one exit in twenty
+                self._wd_thread.join(timeout=10)
             self._wd_thread = None
         for req in self._detach_all():
             req.stats.t_done = time.monotonic()

@@ -821,6 +821,11 @@ class ModelManager:
 
     def shutdown(self):
         self._reaper_stop.set()
+        reaper = getattr(self, "_reaper", None)
+        if reaper is not None and reaper is not threading.current_thread():
+            # joined, as the scheduler joins its threads, so that no daemon
+            # thread is left to wake into the interpreter's exit
+            reaper.join(timeout=10)
         with self._lock:
             models = list(self._models.values())
             self._models.clear()

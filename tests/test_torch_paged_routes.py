@@ -103,7 +103,7 @@ def test_resolve_paged_default_under_the_v3_knob(monkeypatch):
 
 
 @pytest.mark.parametrize("over,ps,dtype,why", [
-    ({"n_heads": 32, "n_kv_heads": 2}, 64, torch.int8, "group"),
+    ({"n_heads": 34, "n_kv_heads": 2}, 64, torch.int8, "group"),
     ({"head_dim": 18}, 64, torch.int8, "hd=18"),
     ({"head_dim": 264}, 64, torch.bfloat16, "hd=264"),
     ({}, 256, torch.int8, "page size 256"),
@@ -124,7 +124,9 @@ def test_limits_are_the_kernels():
     assert tpaged.paged_shape_error(24, 8, 128, 128, True) is None
     assert tpaged.paged_shape_error(8, 8, 256, 2, True) is None
     assert tpaged.paged_shape_error(8, 3, 64, 8, False)          # H % KvH
-    assert tpaged.paged_shape_error(18, 2, 64, 8, False)         # G = 9
+    assert tpaged.paged_shape_error(24, 2, 128, 128, False) is None  # G 12
+    assert tpaged.paged_shape_error(34, 2, 64, 8, False)         # G = 17
+    assert tpaged.paged_shape_error(18, 2, 72, 8, False)         # G 9, hd 72
     assert tpaged.paged_shape_error(8, 8, 64, 7, True)           # odd int4
 
 

@@ -98,10 +98,10 @@ def registry(tmp_path_factory):
     reg.add_model("library", "bert", "latest", open(_header_gguf(
         str(d / "bert.gguf"), "bert", **dims,
         **{"attention.head_count": 4}), "rb").read())
-    reg.add_model("library", "qwen3", "latest", open(_header_gguf(
-        str(d / "qwen3.gguf"), "qwen3", **dims,
-        **{"attention.head_count": 4, "attention.head_count_kv": 2}),
-        "rb").read())
+    reg.add_model("library", "moe", "latest", open(_header_gguf(
+        str(d / "moe.gguf"), "qwen3moe", **dims,
+        **{"attention.head_count": 4, "attention.head_count_kv": 2,
+           "expert_count": 4, "expert_used_count": 2}), "rb").read())
     url = reg.start()
     yield reg, url.split("://", 1)[1]
     reg.stop()
@@ -333,7 +333,7 @@ def test_store_only_refuses_generation(servers, registry):
 
 @pytest.mark.parametrize("name,what", [
     ("adapter", "ADAPTER"), ("projector", "PROJECTOR"),
-    ("bert", "embedding model"), ("qwen3", "qk_norm")])
+    ("bert", "embedding model"), ("moe", "mixture of experts")])
 def test_unported_models_are_refused(tmp_path, registry, name, what):
     _reg, host = registry
     mm = tapp.ModelManager(str(tmp_path / "s"), cache_dir=str(
