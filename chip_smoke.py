@@ -198,8 +198,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    are counted as not decidable); the restart and replay times are
    printed.
 
-10. Path 12, gemma3 at full width and depth (``gemma3_phase``; 34
-    layers, dim 2560, 8/4 heads, hd 256, tied vocab 262208, random bf16
+10. Path 12, gemma3 at full width and 12 of its 34 layers
+    (``gemma3_phase``; ``GEMMA3_LAYERS``, cut for the run's time: layers
+    5 and 11 attend in full; dim 2560, 8/4 heads, hd 256, tied vocab
+    262208, random bf16
     weights from the seed through ``ModelManager.preload``, which serves
     int8 weights (K7), on the server's int8 paged pool, 64 slots of
     128-row pages): 4 raw /api/generate requests (one of 1500 tokens,
@@ -210,14 +212,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
     TTFT, the decode step (``step_breakdown``), peak memory; then the
     long request's calls replayed teacher-forced on the kernel path
     (``teacher_forced``), whose tokens must equal the served ones at
-    every step. Then the dense families' two-layer, full-width
+    every step. Then the other families' two-layer, full-width
     cross-checks, kernel path against plain path (``FAMILY_CHECKS``:
-    gemma3 at a 1500-token prompt, cut to one sliding and one
+    mixture of experts first, with bf16 experts, and each check's router
+    choices compared token by token (``router_flips``; a flip not
+    explained by a near-tie fails it; the plain path takes the kernel
+    path's experts, as it takes its tokens): qwen3moe at qwen3:30b-a3b's widths
+    on the bf16 dense cache through K1 and K2 (G 8), qwen2moe at
+    Qwen1.5-MoE-A2.7B's (shared expert, attention biases) with
+    ``TPU_MHA_KERNEL=1`` through K1 and K3, and mixtral with int4
+    attention projections through K1, K2 and K8; then gemma3 at a
+    1500-token prompt, cut to one sliding and one
     full-attention layer with the global rope; qwen3 int4 through K1,
     K6, K8; gemma2 int4 at a 4200-token prompt; starcoder2 int8 at its
     group of 12 through K6, K4, K5 and, on the dense bf16 cache, K2; phi
     int8 at hd 80; gemma int4 through K1 at hd 256), each kernel's count
     above 0.
+
+11. Path 13, qwen3moe (qwen3:30b-a3b) at full width and depth
+    (``moe_phase``; 48 layers, dim 2048, 32/4 heads, hd 128, qk-norm, 128
+    experts of 768, top-8 renormalised, untied vocab 151936: 30.53e9
+    parameters, 61.06 GB of random bf16 weights from the seed, made on
+    the card one slice at a time) through ``ModelManager.preload``, which
+    serves it in bf16 on the dense int8 slot cache (8 slots, as the JAX
+    package serves MoE), behind the HTTP server: 8 concurrent greedy raw
+    /api/generate requests of 96-316 prompt tokens (two of them in two
+    256-token pieces) and 32 tokens, then a repeat over a parked prefix;
+    K1's count above 0, every other kernel's 0 (the int8 dense cache
+    decodes through ``attend_hf_q``); tok/s, TTFT, the memory allocated
+    before and the peak after, the decode step (``step_breakdown``), and
+    the longest and shortest request's served tokens against the engine's
+    calls for them replayed teacher-forced on the card
+    (``dense_replay``), equal at every step. Phase 2 also times one
+    qwen3moe MoE layer (``moe_layer_times``: N = 8 and 256, not a TPU
+    kernel) against its bound.
 
 Then it prints one JSON line ``{"kernels": [...]}`` (``launches`` summed
 over the serving paths, per path in ``launches_by_path``), the
@@ -226,7 +254,8 @@ over the serving paths, per path in ``launches_by_path``), the
 compiler's register report (``ptxas.txt``) are written to DIR;
 ``--kernels-only`` stops after phase 2; ``--gguf-only`` runs phase 1 and
 then phases 7, 8 and 9 alone, ``--families-only`` phase 1 and then phase
-10 alone, ``--drift`` phase 1 and then gemma3's logit differences at 2,
+10 alone, ``--moe-only`` phase 1, the MoE layer, the MoE cross-checks and
+phase 11 alone, ``--drift`` phase 1 and then gemma3's logit differences at 2,
 6, 12 and 34 layers (``drift_sweep``) (each exits 4 by design: no
 result line).
 """
@@ -263,6 +292,21 @@ NO_SPILL_KERNELS = ("qmm", "decode_attention", "paged_decode",
 # gemma2/gemma3/gemma 256, phi 80): the paged kernels must run each on
 # their tensor-core path
 SERVED_HEAD_DIMS = (128, 96, 256, 80)
+# the mixture-of-experts families at their published widths, where the
+# repo has no preset: qwen3:30b-a3b (Qwen3-30B-A3B: 48 layers, 128 experts
+# of 768, top-8 renormalised) and Qwen1.5-MoE-A2.7B (qwen2moe: 60 experts
+# of 1408, top-4 as they are, a shared expert of 5632); ffn_dim is the
+# experts' width
+MOE_CONFIGS = {
+    "qwen3moe": dict(vocab_size=151936, dim=2048, n_layers=48, n_heads=32,
+                     n_kv_heads=4, head_dim=128, ffn_dim=768, n_experts=128,
+                     n_experts_used=8, qk_norm=True, rope_theta=1e6,
+                     norm_eps=1e-6, max_seq_len=40960),
+    "qwen2moe": dict(vocab_size=151936, dim=2048, n_layers=24, n_heads=16,
+                     n_kv_heads=16, head_dim=128, ffn_dim=1408,
+                     n_experts=60, n_experts_used=4, moe_renorm=False,
+                     n_shared_ffn=5632, attn_bias=True, rope_theta=1e6,
+                     norm_eps=1e-6, max_seq_len=8192)}
 
 
 def fail(msg: str) -> int:
@@ -537,16 +581,18 @@ def kernel_phases(torch, timer, report, baseline=None):
                    base_a and (lambda: base_a.flash_prefill(*args)), out))
         del q, k, v, out, ref, band, qh, kr, vr
 
-    # -- flash prefill at the head dims and groups the other dense families
+    # -- flash prefill at the head dims and groups the other families
     # bring: gemma's prefill chunk (MHA 16/16, hd 256; K1 above
     # hd 128 keeps Q in shared memory and walks 32-key tiles), hd 256 with
-    # GQA, gemma2's softcap 50 and a 128-key window, and starcoder2's heads
+    # GQA, gemma2's softcap 50 and a 128-key window, starcoder2's heads
     # (24 over 2 kv heads, G = 12) under its 4096 window (T = 512: it does
-    # not bite). SDPA has no softcap: no library time there
+    # not bite), and qwen3moe's 256-token piece (32 over 4 kv heads). SDPA
+    # has no softcap: no library time there
     for B, T, H, KvH, hd, window, softcap, what in (
             (1, 512, 16, 16, 256, 0, 0.0, "gemma"),
             (1, 512, 16, 8, 256, 128, 50.0, "hd 256, softcap, window"),
-            (1, 512, 24, 2, 128, 4096, 0.0, "starcoder2, G 12")):
+            (1, 512, 24, 2, 128, 4096, 0.0, "starcoder2, G 12"),
+            (1, 256, 32, 4, 128, 0, 0.0, "qwen3moe's chunk, G 8")):
         q, k, v = (randn(B, T, H, hd), randn(B, KvH, T, hd),
                    randn(B, KvH, T, hd))
         scale = hd ** -0.5
@@ -806,6 +852,9 @@ def kernel_phases(torch, timer, report, baseline=None):
     for window in (0, 2047):
         dense_cases.append(("decode_attention", 24, 2, 128, window, 0.0,
                             spread, False, None))
+    # qwen3moe's heads on its dense cache (32 over 4 kv heads, G = 8)
+    dense_cases.append(("decode_attention", 32, 4, 128, 0, 0.0, spread,
+                        False, None))
     for (name, H, KvH, hd, window, softcap, lengths, main,
          knob) in dense_cases:
         fn, plain, replaces = kinds[name]
@@ -1223,13 +1272,21 @@ def close_serving(torch, details, out, mm, httpd, lm, grammar=False):
     torch.cuda.empty_cache()
 
 
+# the steps of step_breakdown's profiled dispatch: the profiler's cost
+# grows with the kernels it records (~116 s for 16 steps of path 13's
+# 7300 kernels a step on a slow host), so it records fewer steps than the
+# timed dispatch
+PROFILED_STEPS = 4
+
+
 def step_breakdown(torch, engine, n_slots: int = 8, n: int = 16,
                    tokenizer=None) -> dict:
     """One decode dispatch of ``n`` steps for ``n_slots`` greedy slots
     (200-token prompts), straight on the engine after its scheduler has
     stopped: the host clock for enqueueing it and for finishing it, and
-    the device's busy time from ``torch.profiler`` (the kernels' own
-    times; "not measured" when the profiler records none). With
+    the device's busy time from ``torch.profiler`` over a further
+    dispatch of ``PROFILED_STEPS`` steps (the kernels' own times; "not
+    measured" when the profiler records none). With
     ``tokenizer``, the same dispatch again with slot 0 on a device-table
     JSON grammar (an 8-state ``GrammarTable`` of the tokenizer, the slot
     at its start state): its kernels a step and busy time."""
@@ -1257,15 +1314,18 @@ def step_breakdown(torch, engine, n_slots: int = 8, n: int = 16,
     def profiled():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            engine.decode_n_launch(n).wait()
+            engine.decode_n_launch(PROFILED_STEPS).wait()
         return [e for e in prof.key_averages()
                 if getattr(e, "device_type", None) == cuda]
 
+    t_prof = time.perf_counter()
     kernels = profiled()
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
+    t_prof = time.perf_counter() - t_prof
+    m = PROFILED_STEPS
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / m
     by_name = collections.Counter()
     for e in kernels:    # names cut to 100 characters, their times summed
-        by_name[e.key[:100]] += dev_us(e) / 1e3 / n
+        by_name[e.key[:100]] += dev_us(e) / 1e3 / m
     grammar = None
     if tokenizer is not None:
         from ollama_operator_tpu_torch.ops.constrain import (GrammarTable,
@@ -1284,9 +1344,9 @@ def step_breakdown(torch, engine, n_slots: int = 8, n: int = 16,
         g_wall = time.perf_counter() - t0
         engine.set_mask(0, gt.mask[0], gid=0)
         gk = profiled()
-        g_ms = sum(dev_us(e) for e in gk) / 1e3 / n
+        g_ms = sum(dev_us(e) for e in gk) / 1e3 / m
         grammar = {"kernel_launches_per_step": (
-            sum(e.count for e in gk) / n if gk else "not measured"),
+            sum(e.count for e in gk) / m if gk else "not measured"),
             "device_busy_ms_per_step": g_ms if gk else "not measured",
             "host_enqueue_ms_per_step": g_enqueue * 1e3 / n,
             "wall_ms_per_step": g_wall * 1e3 / n}
@@ -1298,9 +1358,10 @@ def step_breakdown(torch, engine, n_slots: int = 8, n: int = 16,
            "device_busy_ms_per_step": busy_ms if kernels else "not measured",
            "device_busy_share": (busy_ms / (t_wall * 1e3 / n)
                                  if kernels else "not measured"),
-           "kernel_launches_per_step": (sum(e.count for e in kernels) / n
+           "kernel_launches_per_step": (sum(e.count for e in kernels) / m
                                         if kernels else "not measured"),
            "top_kernels_ms_per_step": dict(by_name.most_common(8)),
+           "profiled_dispatch_s": t_prof,
            "one_slot_on_a_json_grammar": grammar}
     print(f"decode step ({n_slots} slots, {n} steps): host enqueue "
           f"{out['host_enqueue_ms_per_step']:.2f} ms/step, wall "
@@ -1430,26 +1491,67 @@ def teacher_forced(torch, cfg, params, ids, steps: int, kv_dtype: str,
     return out, [int(t) for t in out.argmax(-1)]
 
 
+def model_config(name: str):
+    """A preset's config, or one of ``MOE_CONFIGS`` (no preset)."""
+    from ollama_operator_tpu_torch.models.config import (ModelConfig,
+                                                         get_config)
+    if name in MOE_CONFIGS:
+        return ModelConfig(arch="llama", **MOE_CONFIGS[name]).validate()
+    return get_config(name)
+
+
+def router_flips(cfg, kernel, plain) -> dict:
+    """The tokens whose selected experts differ between the kernel path's
+    router calls and the plain path's (the same calls, in order: a
+    layer's prefill or step), each call's rows a token. A flip is
+    explained when, at that token, the plain path's gap between its k-th
+    and (k+1)-th router logits is no wider than the largest difference
+    between two experts' moves from the plain path's logits to the kernel
+    path's (max - min of the logits' differences): an expert a can
+    overtake an expert b only where its logit rose by at least their gap
+    more than b's did."""
+    k = cfg.n_experts_used
+    flips = explained = tokens = 0
+    worst = []
+    for (lk, ik), (lp, ip) in zip(kernel, plain):
+        tokens += ik.shape[0]
+        rows = (ik.sort(-1).values != ip.sort(-1).values).any(-1)
+        if not rows.any():
+            continue
+        top = lp[rows].topk(k + 1, dim=-1).values
+        gap = top[:, k - 1] - top[:, k]
+        d = lk[rows] - lp[rows]
+        diff = d.amax(-1) - d.amin(-1)
+        flips += int(rows.sum())
+        explained += int((gap <= diff).sum())
+        worst += [(g, d) for g, d in zip(gap.tolist(), diff.tolist())]
+    return {"token_layers": tokens, "flips": flips, "explained": explained,
+            "gap_and_logit_diff": worst[:16]}
+
+
 def cross_check(torch, details, model: str, bits: int, kv_dtype: str,
                 paged: bool = True, n_prompt: int = 200, expect=(),
                 cut=None):
     """Two layers (or the config fields ``cut`` sets) at full width:
-    kernel path vs plain path on the card, ``bits``-bit weights on a
-    ``kv_dtype`` page pool (``paged``) or dense slot cache, an
-    ``n_prompt``-token prompt and 16 greedy steps (``teacher_forced``;
-    the plain path is fed the kernel path's tokens). ``expect``: the
-    kernel counters the kernel path must raise above 0 (counted from 0
-    just before it)."""
+    kernel path vs plain path on the card, ``bits``-bit weights (16:
+    dense bf16) on a ``kv_dtype`` page pool (``paged``) or dense slot
+    cache, an ``n_prompt``-token prompt and 16 greedy steps
+    (``teacher_forced``; the plain path is fed the kernel path's tokens).
+    ``expect``: the kernel counters the kernel path must raise above 0
+    (counted from 0 just before it). A mixture-of-experts model's plain
+    path takes the kernel path's experts, and the router choices of the
+    two are compared (``router_flips``): an unexplained flip fails the
+    check."""
     from ollama_operator_tpu_torch.models import decoder
-    from ollama_operator_tpu_torch.models.config import get_config
     from ollama_operator_tpu_torch.ops import attention as A
     from ollama_operator_tpu_torch.ops import paged as PG
     from ollama_operator_tpu_torch.ops import quant as Q
-    cfg = dataclasses.replace(get_config(model),
+    cfg = dataclasses.replace(model_config(model),
                               **(cut or {"n_layers": 2}))
     layers = cfg.n_layers
-    params = Q.quantize_params(dense_params(torch, cfg), bits=bits)
-    mm_name = "qmm4" if bits == 4 else "qmm"
+    params = dense_params(torch, cfg)
+    if bits != 16:
+        params = Q.quantize_params(params, bits=bits)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     ids = torch.randint(0, cfg.vocab_size, (n_prompt,),
                         generator=gen).tolist()
@@ -1458,8 +1560,10 @@ def cross_check(torch, details, model: str, bits: int, kv_dtype: str,
         return A.flash_prefill_plain(q, k, v, scale, cfg.attn_softcap,
                                      cfg.sliding_window)
 
-    plain_fns = {mm_name: (Q, "matmul", plain_matmul),
-                 "flash_prefill": (decoder, "chunk_attention", plain_chunk)}
+    plain_fns = {"flash_prefill": (decoder, "chunk_attention", plain_chunk)}
+    if bits != 16:
+        plain_fns["qmm4" if bits == 4 else "qmm"] = (Q, "matmul",
+                                                     plain_matmul)
     if paged:
         plain_fns["paged_decode"] = (decoder, "paged_decode_attention",
                                      PG.paged_decode_attention_plain)
@@ -1469,24 +1573,50 @@ def cross_check(torch, details, model: str, bits: int, kv_dtype: str,
         plain_fns["mha_decode"] = (A, "mha_decode_attention",
                                    A.mha_decode_attention_plain)
 
-    def run(plain=(), teacher=None):
+    route = decoder._moe_route
+
+    def run(plain=(), teacher=None, routes=None, forced=None):
         """``teacher_forced`` with the names in ``plain`` on their plain
-        versions."""
+        versions; each router call's (logits, its own top-k experts)
+        appended to ``routes``. With ``forced`` (the kernel path's
+        ``routes``) each router call takes the experts the kernel path's
+        same call chose, gated from this path's own logits: as the plain
+        path is fed the kernel path's tokens, it is fed its routing, so
+        that a near-tie flip of an expert (counted by ``router_flips``)
+        does not stand in for the kernels' difference."""
         saved = {n: getattr(m, a) for n, (m, a, _) in plain_fns.items()}
         for n in plain:
             m, a, f = plain_fns[n]
             setattr(m, a, f)
+        calls = iter(forced or ())
+
+        def recorded(c, lp, xf):
+            topw, topi = route(c, lp, xf)
+            logits = decoder._mm_f32(xf, lp["router"])
+            if routes is not None:
+                routes.append((logits, topi))
+            if forced is not None:
+                topi = next(calls)[1]
+                topw = (torch.softmax(logits.gather(1, topi), dim=-1)
+                        if c.moe_renorm else
+                        torch.softmax(logits, dim=-1).gather(1, topi))
+            return topw, topi
+        if routes is not None or forced is not None:
+            decoder._moe_route = recorded
         try:
             return teacher_forced(torch, cfg, params, ids, 16, kv_dtype,
                                   paged=paged, teacher=teacher)
         finally:
+            decoder._moe_route = route
             for n, (m, a, _) in plain_fns.items():
                 setattr(m, a, saved[n])
 
     from ollama_operator_tpu_torch.ops import cuda_build
+    moe = bool(cfg.n_experts)
+    rk, rp = ([], []) if moe else (None, None)
     for name in cuda_build.launches:
         cuda_build.launches[name] = 0
-    lk, sk = run()
+    lk, sk = run(routes=rk)
     launched = {k: v for k, v in cuda_build.launches.items() if v}
     missing = [k for k in expect if launched.get(k, 0) <= 0]
     if missing:
@@ -1494,7 +1624,8 @@ def cross_check(torch, details, model: str, bits: int, kv_dtype: str,
                            f"{missing} ({launched})")
     # the plain path is fed the kernel path's tokens, so both see the same
     # inputs at every step
-    lp, sp = run(plain=tuple(plain_fns), teacher=sk)
+    lp, sp = run(plain=tuple(plain_fns), teacher=sk, routes=rp, forced=rk)
+    flips = router_flips(cfg, rk, rp) if moe else None
     step_err = (lk - lp).abs().amax(dim=-1).tolist()
     err = max(step_err)
     scale = lp.abs().max().item()
@@ -1508,13 +1639,14 @@ def cross_check(torch, details, model: str, bits: int, kv_dtype: str,
     # distribution that bf16 rounding may break either way, and is listed.
     ties = [i for i in range(len(sk)) if gaps[i] <= 2 * step_err[i]]
     bad = [i for i in range(len(sk)) if sk[i] != sp[i] and i not in ties]
-    route = PG.paged_route() if paged else None
-    tag = (f"{model} int{bits} weights, {kv_dtype} "
-           f"{f'paged ({route})' if paged else 'dense'} KV")
+    proute = PG.paged_route() if paged else None
+    weights = "bf16" if bits == 16 else f"int{bits}"
+    tag = (f"{model} {weights} weights, {kv_dtype} "
+           f"{f'paged ({proute})' if paged else 'dense'} KV")
     details.setdefault("cross_check", []).append({
-        "model": model, "layers": layers, "weights": f"int{bits}",
-        "kv": kv_dtype, "paged": paged, "route": route,
-        "kernels": sorted(plain_fns),
+        "model": model, "layers": layers, "weights": weights,
+        "kv": kv_dtype, "paged": paged, "route": proute,
+        "kernels": sorted(plain_fns), "router_flips": flips,
         "prompt_tokens": n_prompt, "launches": launched,
         "logit_max_abs_err": err, "logit_scale": scale, "tol": tol,
         "step_err": step_err, "plain_top2_gap": gaps,
@@ -1525,12 +1657,18 @@ def cross_check(torch, details, model: str, bits: int, kv_dtype: str,
           f"|err| {err:.4g} (tol {tol:.4g}, max |logit| {scale:.4g}); per "
           f"step {[round(e, 4) for e in step_err]}; tokens equal at "
           f"{sum(a == b for a, b in zip(sk, sp))}/{len(sk)} steps; "
-          f"near-tie steps {ties} (gaps {[round(gaps[i], 4) for i in ties]})",
-          flush=True)
+          f"near-tie steps {ties} (gaps {[round(gaps[i], 4) for i in ties]})"
+          + ("" if flips is None else
+             f"; router flips {flips['flips']} of {flips['token_layers']} "
+             f"token-layers, {flips['explained']} explained by a gap no "
+             f"wider than two experts' logit moves"), flush=True)
+    if flips and flips["explained"] < flips["flips"]:
+        raise RuntimeError(f"cross-check of {model}: router flips not "
+                           f"explained by a near-tie ({flips})")
     if bad or not err <= tol:
         # which kernel's plain version alone moves the kernel path?
         for name in plain_fns:
-            lx, _ = run(plain=(name,), teacher=sk)
+            lx, _ = run(plain=(name,), teacher=sk, forced=rk)
             e = (lk - lx).abs().amax(dim=-1).tolist()
             print(f"  with plain {name} only: per step "
                   f"{[round(x, 4) for x in e]}", flush=True)
@@ -2444,11 +2582,13 @@ def chat_phase(card: str, ms, ref: str) -> dict:
         return ms.get("/api/ps")["models"][0]["prefix_cache"]
 
     # (a) 8 conversations, two turns. A turn: the measured streamed round;
-    # then a non-streamed twin of each request, a one-token twin, and a
-    # streamed twin, which all extend the same cached prefix (the whole
-    # prompt but its last token) and so run the same computation: the
-    # streamed twin's text must equal the non-streamed one's, and its
-    # first frame must be the first token's text alone
+    # then, on the second turn (the longer cached prefix; the first's
+    # twins were cut for the run's time), a non-streamed twin of each
+    # request, a one-token twin, and a streamed twin, which all extend the
+    # same cached prefix (the whole prompt but its last token) and so run
+    # the same computation: the streamed twin's text must equal the
+    # non-streamed one's, and its first frame must be the first token's
+    # text alone
     chat([{"role": "system", "content": system},
           {"role": "user", "content": "warm up"}], False,
          options={"num_predict": 4})()
@@ -2461,33 +2601,41 @@ def chat_phase(card: str, ms, ref: str) -> dict:
         hits0 = ps_prefix()
         rounds, wall = concurrent([chat(c, True) for c in convs])
         hits1 = ps_prefix()
-        twins, _ = concurrent([chat(c, False) for c in convs])
-        ones, _ = concurrent([chat(c, False, options={"num_predict": 1})
-                              for c in convs])
-        again, _ = concurrent([chat(c, True) for c in convs])
+        twinned = turn == 1
+        if twinned:
+            twins, _ = concurrent([chat(c, False) for c in convs])
+            ones, _ = concurrent([chat(c, False,
+                                       options={"num_predict": 1})
+                                  for c in convs])
+            again, _ = concurrent([chat(c, True) for c in convs])
         rec = {"ttft_ms": [], "frames": [], "eval_count": [],
                "prompt_tokens": [], "wall_s": wall}
+        answers = []
         for i in range(8):
             _, frames, times = rounds[i]
             fin = frames[-1]
             n = fin["eval_count"]
             if not fin["done"] or n != 64:
                 raise RuntimeError(f"chat {i} turn {turn} ended {fin}")
-            for fr in (frames, again[i][1]):
+            for fr in (frames, again[i][1]) if twinned else (frames,):
                 if len(fr) - 1 > -(-fr[-1]["eval_count"] // 16) + 2:
                     raise RuntimeError(f"chat {i}: {len(fr) - 1} frames "
                                        f"for {fr[-1]['eval_count']} tokens")
-            text = "".join(f["message"]["content"] for f in again[i][1][:-1])
-            want = twins[i][1][0]["message"]["content"]
-            if text != want:
-                raise RuntimeError(f"chat {i} turn {turn}: the stream's text "
-                                   f"differs from the same request not "
-                                   f"streamed")
-            first = ones[i][1][0]["message"]["content"]
-            if ("\ufffd" not in first
-                    and again[i][1][0]["message"]["content"] != first):
-                raise RuntimeError(f"chat {i} turn {turn}: the first frame "
-                                   f"is not the first token alone")
+            answers.append("".join(f["message"]["content"]
+                                   for f in frames[:-1]))
+            if twinned:
+                text = "".join(f["message"]["content"]
+                               for f in again[i][1][:-1])
+                want = twins[i][1][0]["message"]["content"]
+                if text != want:
+                    raise RuntimeError(f"chat {i} turn {turn}: the stream's "
+                                       f"text differs from the same request "
+                                       f"not streamed")
+                first = ones[i][1][0]["message"]["content"]
+                if ("\ufffd" not in first
+                        and again[i][1][0]["message"]["content"] != first):
+                    raise RuntimeError(f"chat {i} turn {turn}: the first "
+                                       f"frame is not the first token alone")
             rec["ttft_ms"].append(times[0] * 1e3)
             rec["frames"].append(len(frames) - 1)
             rec["eval_count"].append(n)
@@ -2495,10 +2643,9 @@ def chat_phase(card: str, ms, ref: str) -> dict:
         rec["tok_s"] = sum(rec["eval_count"]) / wall
         rec["reused_tokens"] = hits1["hit_tokens"] - hits0["hit_tokens"]
         rec["prefilled_tokens"] = hits1["miss_tokens"] - hits0["miss_tokens"]
-        rec["stream_equals_twin"] = "8/8"
+        rec["stream_equals_twin"] = "8/8" if twinned else "not run"
         turns.append(rec)
-        convs = [c + [{"role": "assistant",
-                       "content": twins[i][1][0]["message"]["content"]},
+        convs = [c + [{"role": "assistant", "content": answers[i]},
                       {"role": "user", "content": "and then what"}]
                  for i, c in enumerate(convs)]
         t = sorted(rec["ttft_ms"])
@@ -2574,10 +2721,12 @@ def chat_phase(card: str, ms, ref: str) -> dict:
         outputs.append((label, fin["response"], fin["done_reason"],
                         None if label.startswith("json") else PERSON_SCHEMA))
     # most greedy json outputs of these weights stop after a few tokens,
-    # inside one dispatch: find a prompt whose output runs to num_predict
-    # for the json tok/s alone and beside 7 free requests
+    # inside one dispatch: look for a prompt whose output runs to
+    # num_predict for the json tok/s alone and beside 7 free requests
+    # (six prompts, for the run's time: runs on the H100 found none among
+    # sixteen)
     json_prompt = None
-    for i in range(16):
+    for i in range(6):
         prompt = " ".join(words[(3 * i + j) % len(words)]
                           for j in range(4 + i % 9))
         fin = gen(prompt, "json")()[1][-1]
@@ -3297,7 +3446,10 @@ def grammar_cross_check(torch, details, card: str, tokenizer) -> dict:
 
 # -- path 12: gemma3 at full width and depth -----------------------------
 
-GEMMA3_PATH = "gemma3 int8 paged (gather + einsum) KV, full depth"
+GEMMA3_PATH = "gemma3 int8 paged (gather + einsum) KV, 12 layers"
+# path 12's depth: 12 of gemma3's 34 layers (two full-attention layers,
+# 5 and 11, among ten sliding ones), cut for the run's time; the replay
+# check holds at any depth
 # the gemma turn format, as the gemma3 image's template renders it: the
 # chat turns for /api/chat, one user turn around the bare prompt for
 # /api/generate
@@ -3313,12 +3465,14 @@ GEMMA_TEMPLATE = (
 GEMMA3_COUNTERS = ("qmm",)
 GEMMA3_ABSENT = ("flash_prefill", "qmm4") + PAGED_COUNTERS + DENSE_COUNTERS
 GEMMA3_LONG = 1500      # the long prompt's tokens
+GEMMA3_LAYERS = 12
 
 
 def gemma3_phase(torch, details) -> dict:
-    """Path 12: gemma3 (34 layers, dim 2560, 8/4 heads, hd 256, tied vocab
-    262208) with random bf16 weights from the seed, through
-    ``ModelManager.preload`` at the server's defaults (int8 weights, K7;
+    """Path 12: gemma3 at ``GEMMA3_LAYERS`` of its 34 layers (dim 2560,
+    8/4 heads, hd 256, tied vocab 262208) with random bf16 weights from
+    the seed, through ``ModelManager.preload`` at the server's defaults
+    (int8 weights, the dtype its full depth resolves to, K7;
     an int8 paged pool of 64 slots, 128-row pages, 768 pages), behind the
     HTTP server with the gemma template: 8 concurrent greedy requests of
     32 tokens, four on /api/generate (one a 1500-token prompt, which goes
@@ -3332,12 +3486,15 @@ def gemma3_phase(torch, details) -> dict:
     from ollama_operator_tpu_torch.models.config import get_config
     from ollama_operator_tpu_torch.ops import cuda_build
     from ollama_operator_tpu_torch.server.app import ModelManager, serve
-    cfg = get_config("gemma3")
+    from ollama_operator_tpu_torch.runtime.engine import resolve_engine_dtype
+    full = get_config("gemma3")
+    cfg = dataclasses.replace(full, n_layers=GEMMA3_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = dense_params(torch, cfg)
     mm = ModelManager()
     lm = mm.preload("gemma3", cfg, params, byte_tokenizer(cfg.vocab_size),
+                    dtype=resolve_engine_dtype(full, "cuda"),
                     template=GEMMA_TEMPLATE, kv_dtype="int8")
     del params
     torch.cuda.synchronize()
@@ -3464,10 +3621,21 @@ def gemma3_phase(torch, details) -> dict:
 # (window 1024, the local rope), layer 1 full attention with the global
 # rope (theta 1e6, linear factor 8), as its layers 5, 11, ... are
 GEMMA3_CUT = {"n_layers": 2, "sliding_pattern": 2}
-# the two-layer, full-width cross-checks of the other dense families:
-# (preset, config cut, weight bits, KV pool, paged, prompt tokens,
-# environment, the kernels the kernel path must launch)
+# the two-layer, full-width cross-checks of the other families: (preset
+# or ``MOE_CONFIGS`` name, config cut, weight bits (16: dense bf16), KV
+# pool, paged, prompt tokens, environment, the kernels the kernel path
+# must launch). The mixture-of-experts ones first: qwen3moe on the bf16
+# dense cache (K1 at 32/4 heads, K2 at G 8), qwen2moe with its shared
+# expert and attention biases through K3 (MHA 16/16), mixtral with int4
+# attention projections (K8) beside its dense bf16 experts
+MOE_FAMILIES = ("qwen3moe", "qwen2moe", "mixtral")
 FAMILY_CHECKS = (
+    ("qwen3moe", None, 16, "bfloat16", False, 200, {},
+     ("flash_prefill", "decode_attention")),
+    ("qwen2moe", None, 16, "bfloat16", False, 200, {"TPU_MHA_KERNEL": "1"},
+     ("flash_prefill", "mha_decode")),
+    ("mixtral", None, 4, "bfloat16", False, 200, {},
+     ("flash_prefill", "decode_attention", "qmm4")),
     ("gemma3", GEMMA3_CUT, 8, "int8", True, 1500, {}, ("qmm",)),
     ("qwen3", None, 4, "int8", True, 200, {},
      ("flash_prefill", "paged_decode", "qmm4")),
@@ -3486,11 +3654,277 @@ FAMILY_CHECKS = (
      ("flash_prefill", "paged_decode", "qmm4")))
 
 
-def family_cross_checks(torch, details):
+def family_cross_checks(torch, details, families=None):
+    """``FAMILY_CHECKS``, or those of the names in ``families``."""
     for model, cut, bits, kv, paged, n, env, expect in FAMILY_CHECKS:
+        if families is not None and model not in families:
+            continue
         with mock.patch.dict(os.environ, env):
             cross_check(torch, details, model, bits, kv, paged=paged,
                         n_prompt=n, expect=expect, cut=cut)
+
+
+def moe_layer_times(torch, timer, details):
+    """One qwen3moe layer's ``_moe_mlp`` (128 experts of 768, top-8, bf16
+    weights from the seed) at N = 8 tokens (a decode step of 8 slots) and
+    N = 256 (a chunked piece), in the "einsum" form the serving path takes
+    there, and at 256 in the "scan" form: the device time (the kernel
+    timer: L2 flushed first) against the least time for the work, the
+    larger of the bytes it must move (every expert's weights: the einsum
+    reads all 128; the scan the experts the tokens chose) over 3.35 TB/s
+    and its bf16 operations over 989 TFLOP/s. Not a TPU kernel: the JAX
+    package computes it outside any Pallas kernel."""
+    from ollama_operator_tpu_torch.models import decoder
+    cfg = model_config("qwen3moe")
+    E, D, Fd = cfg.n_experts, cfg.dim, cfg.ffn_dim
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * 0.02).to(torch.bfloat16)
+    lp = {"router": w(D, E), "we_gate": w(E, D, Fd), "we_up": w(E, D, Fd),
+          "we_down": w(E, Fd, D)}
+    expert_bytes = 3 * D * Fd * 2
+    rows = []
+    for n, form in ((8, "einsum"), (256, "einsum"), (256, "scan")):
+        c = dataclasses.replace(cfg, moe_impl=form)
+        x = w(1, n, D) * 50.0
+        topi = decoder._moe_route(c, lp, x[0])[1]
+        used = E if form == "einsum" else int(topi.unique().numel())
+        mult = E if form == "einsum" else n * cfg.n_experts_used
+        flops = 2 * n * D * E + 3 * 2 * mult * D * Fd
+        nbytes = used * expert_bytes + D * E * 2 + 2 * 2 * n * D
+        ms = timer(lambda: decoder._moe_mlp(c, lp, x))
+        b_ms, b_by = bound(nbytes, flops)
+        rows.append({"tokens": n, "form": form, "experts_read": used,
+                     "ms": ms, "bound_ms": b_ms, "bound_by": b_by})
+        print(f"qwen3moe MoE layer (_moe_mlp, {form}) at N={n}: {ms:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by}: {used} experts' "
+              f"{used * expert_bytes / 1e9:.3f} GB); x48 layers "
+              f"{48 * ms:.2f} ms", flush=True)
+    details["moe_layer"] = rows
+    del lp
+    torch.cuda.empty_cache()
+
+
+def dense_replay(torch, engine, ids, teacher, piece: int):
+    """The calls a dense-cache ``engine`` made for a request admitted from
+    position 0, replayed teacher-forced on the card: the prompt ``ids`` in
+    ``piece``-token pieces (a prefill and an insert, then extends over the
+    slot's first ``bucket_for(start + bucket)`` rows, each padded to the
+    engine's bucket), the first token from the last prompt row's hidden
+    state alone, then one step a token of ``teacher`` (fed the served
+    token, the previous argmax's place) in a batch of the engine's slot
+    count (row 0; the others idle at length 0) over the first
+    ``bucket_for(len(ids) + chunk + steps)`` rows, the width the engine's
+    dispatch attends for the request as the longest slot. Each matmul
+    takes the row count, and so the form, the served one took. Returns
+    the argmax tokens, the first token's and one a step."""
+    from ollama_operator_tpu_torch.models import decoder
+    cfg, params, dev = engine.cfg, engine.params, engine.device
+    n, steps, rows = len(ids), len(teacher) - 1, engine.n_slots
+    bucket_for = engine.bucket_for
+    A = min(bucket_for(n + engine.ecfg.decode_chunk + steps), engine.max_seq)
+    shp = (cfg.n_layers, rows, cfg.n_kv_heads, A, cfg.head_dim)
+    if isinstance(engine.kv.k, dict):
+        kc, vc = ({"q": torch.zeros(shp, dtype=torch.int8, device=dev),
+                   "s": torch.zeros(shp[:-1], device=dev)} for _ in "kv")
+    else:
+        kc, vc = (torch.zeros(shp, dtype=engine.kv.k.dtype, device=dev)
+                  for _ in "kv")
+
+    def padded(toks):
+        out = torch.zeros((1, bucket_for(len(toks))), dtype=torch.long,
+                          device=dev)
+        out[0, :len(toks)] = torch.tensor(toks, device=dev)
+        return out
+
+    def slot_rows(c, width):
+        if isinstance(c, dict):
+            return {k: t[:, :1, :, :width] for k, t in c.items()}
+        return c[:, :1, :, :width]
+    first = min(piece, n)
+    x, ks, vs = decoder.prefill_hidden(params, cfg, padded(ids[:first]))
+    decoder.dense_insert(kc, vc, ks, vs, 0)
+    last = x[:, first - 1]
+    for start in range(first, n, piece):
+        tail = ids[start:start + piece]
+        toks = padded(tail)
+        width = bucket_for(start + toks.shape[1])
+        x, _, _ = decoder.forward_with_cache(
+            params, cfg, toks, slot_rows(kc, width), slot_rows(vc, width),
+            torch.tensor([start], dtype=torch.int32, device=dev),
+            hidden=True)
+        last = x[:, len(tail) - 1]
+    out = [int(decoder._unembed(cfg, params, last)[0].argmax())]
+    lengths = torch.zeros(rows, dtype=torch.int32, device=dev)
+    toks = torch.zeros((rows, 1), dtype=torch.long, device=dev)
+    for step in range(steps):
+        lengths[0] = n + step
+        toks[0, 0] = int(teacher[step])
+        lg, _, _ = decoder.forward_with_cache(params, cfg, toks, kc, vc,
+                                              lengths, attn_len=A)
+        out.append(int(lg[0, 0].argmax()))
+    return out
+
+
+MOE_PATH = "qwen3moe bf16, dense int8 KV (8 slots), full depth"
+# path 13's kernels: K1 at every prefill and piece; the int8 dense cache
+# decodes through attend_hf_q (no kernel, as in the JAX package) and the
+# bf16 weights take no dequant matmul
+MOE_COUNTERS = ("flash_prefill",)
+MOE_ABSENT = ("qmm", "qmm4") + PAGED_COUNTERS + DENSE_COUNTERS
+MOE_PROMPTS = (96, 127, 158, 190, 221, 253, 284, 316)   # prompt tokens
+
+
+def moe_phase(torch, details) -> dict:
+    """Path 13: qwen3moe (qwen3:30b-a3b) at full width and depth — 48
+    layers, dim 2048, 32/4 heads, hd 128, qk-norm, 128 experts of 768,
+    top-8 renormalised, untied vocab 151936 — with random bf16 weights
+    from the seed (61.06 GB) through ``ModelManager.preload``, which
+    serves them in bf16 on the dense int8 slot cache (8 slots) at
+    max_seq_len 4096, behind the HTTP server: 8 concurrent greedy
+    /api/generate requests of 96-316 prompt tokens (two past 256: two
+    chunked pieces) and 32 tokens, then a repeat over a parked prefix.
+    K1's count above 0, every other kernel's 0. Then the decode step
+    (``step_breakdown``), and the longest and the shortest request's
+    served tokens against the engine's calls for them replayed
+    teacher-forced on the card (``dense_replay``). Returns the requests'
+    launch counts."""
+    import gc
+
+    from ollama_operator_tpu_torch.ops import cuda_build
+    from ollama_operator_tpu_torch.server.app import ModelManager, serve
+    cfg = model_config("qwen3moe")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = dense_params(torch, cfg)
+    weight_bytes = sum(v.numel() * v.element_size() for v in (
+        *params["layers"].values(),
+        *(v for k, v in params.items() if k != "layers")))
+    mm = ModelManager()
+    lm = mm.preload("qwen3moe", cfg, params, byte_tokenizer(cfg.vocab_size),
+                    template="{{ .Prompt }}")
+    del params
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    e = lm.ecfg
+    if (lm.serving_dtype != "bfloat16" or lm.engine.paged
+            or e.cache_dtype is not torch.int8 or e.max_slots != 8):
+        raise RuntimeError(f"qwen3moe serves {lm.serving_dtype} weights, "
+                           f"paged {lm.engine.paged}, {e.cache_dtype} KV, "
+                           f"{e.max_slots} slots")
+    print(f"serving {MOE_PATH}: {cfg.n_params / 1e9:.2f}e9 parameters, "
+          f"weights {weight_bytes / 1e9:.2f} GB; slots={e.max_slots} "
+          f"max_seq={e.max_seq_len} chunk={e.decode_chunk} "
+          f"kv_bytes={lm.engine.kv_bytes / 1e9:.2f}GB; memory allocated "
+          f"before {before / 1e9:.2f} GB, after the build "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; "
+          f"build_s={t_build:.1f}", flush=True)
+    httpd = serve(mm, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    words = ("experts route every token to eight of one hundred twenty "
+             "eight feed forward blocks on one card").split()
+    leads = ("alpha", "bravo", "charlie", "delta", "echo", "foxtrot",
+             "golf", "hotel")
+    prompts = []
+    for i, want in enumerate(MOE_PROMPTS):
+        # distinct first words: no two prompts (nor the warm-up) share a
+        # parked prefix, so each is admitted from position 0
+        p = leads[i] + " " + " ".join(words[(3 * i + j) % len(words)]
+                                      for j in range(120))
+        while (n := len(lm.tokenizer.encode(p))) > want:
+            p = p[:-max(1, (n - want) // 3)]
+        prompts.append(p)
+    # greedy over the raw logits (no repeat penalty), so that the
+    # replay's argmax is the served token
+    opts = {"temperature": 0, "num_predict": 32, "repeat_penalty": 1.0}
+    out = None
+    try:
+        post(port, {"model": "qwen3moe", "prompt": "warm up", "raw": True,
+                    "stream": False, "options": opts})
+        for name in cuda_build.launches:
+            cuda_build.launches[name] = 0
+        results, wall = concurrent([
+            lambda p=p: post(port, {"model": "qwen3moe", "prompt": p,
+                                    "raw": True, "context": [],
+                                    "options": opts}) for p in prompts])
+        launches = dict(cuda_build.launches)
+        for i, r in enumerate(results):
+            if not r.get("done") or r.get("eval_count") != 32:
+                raise RuntimeError(f"path 13 request {i} ended {r}")
+        missing = [k for k in MOE_COUNTERS if launches[k] <= 0]
+        stray = [k for k in MOE_ABSENT if launches[k] != 0]
+        if missing or stray:
+            raise RuntimeError(f"path 13 launches: missing {missing}, "
+                               f"stray {stray} ({launches})")
+        rep = lm.generate(prompts[3], opts)
+        if rep.reused_tokens <= 0:
+            raise RuntimeError("path 13's repeat reused no parked prefix")
+        n_tok = sum(r["eval_count"] for r in results)
+        ttft = sorted(r["prompt_eval_duration"] / 1e6 for r in results)
+        out = {"model": "qwen3moe", "layers": cfg.n_layers,
+               "n_params": cfg.n_params, "weight_bytes": weight_bytes,
+               "weights": lm.serving_dtype, "kv": "int8", "paged": False,
+               "requests": len(results), "wall_s": wall,
+               "generated_tokens": n_tok, "aggregate_tok_s": n_tok / wall,
+               "ttft_ms": ttft, "kv_bytes": lm.engine.kv_bytes,
+               "prompt_tokens": [r["prompt_eval_count"] for r in results],
+               "repeat_reused_tokens": rep.reused_tokens,
+               "memory_before_bytes": before, "build_s": t_build,
+               "launches": launches}
+        print(f"serving {MOE_PATH}: {len(results)} requests (prompt tokens "
+              f"{out['prompt_tokens']}) x 32 tokens in {wall:.3f} s: "
+              f"{n_tok / wall:.1f} tok/s aggregate; TTFT ms median "
+              f"{ttft[len(ttft) // 2]:.1f} max {ttft[-1]:.1f}; launches "
+              f"{launches}; the repeat reused {rep.reused_tokens} tokens",
+              flush=True)
+    except BaseException:
+        close_serving(torch, details, out=None, mm=mm, httpd=httpd, lm=lm)
+        raise
+    httpd.shutdown()
+    httpd.server_close()
+    mm.shutdown()
+    t_served = time.perf_counter()
+    out["served_s"] = t_served - t0
+    out["step"] = step_breakdown(torch, lm.engine)
+    out["step_s"] = time.perf_counter() - t_served
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"path 13 memory: {before / 1e9:.2f} GB allocated before, peak "
+          f"{out['peak_memory_bytes'] / 1e9:.2f} GB; kernels a step "
+          f"{out['step']['kernel_launches_per_step']}", flush=True)
+    # the longest (two pieces) and the shortest request's served tokens
+    # against the engine's calls for them replayed teacher-forced
+    out["replay"] = []
+    for i in (len(results) - 1, 0):
+        n = results[i]["prompt_eval_count"]
+        ids, served = results[i]["context"][:n], results[i]["context"][n:]
+        replayed = dense_replay(torch, lm.engine, ids, served,
+                                lm.scheduler.prefill_chunk)
+        equal = sum(a == b for a, b in zip(served, replayed))
+        out["replay"].append({"prompt_tokens": n, "served_tokens": served,
+                              "replayed_tokens": replayed, "equal": equal})
+        print(f"path 13 replay ({n}-token prompt in "
+              f"{lm.scheduler.prefill_chunk}-token pieces, {len(served)} "
+              f"served tokens, teacher-forced on the card): equal at "
+              f"{equal}/{len(served)} steps", flush=True)
+        if replayed != served:
+            raise RuntimeError(f"path 13: served tokens {served} differ "
+                               f"from the replayed engine calls' "
+                               f"{replayed}")
+    out["replay_s"] = time.perf_counter() - t_served - out["step_s"]
+    print(f"path 13 times: build and serve {out['served_s']:.1f} s, decode "
+          f"step {out['step_s']:.1f} s (its profiled dispatch "
+          f"{out['step']['profiled_dispatch_s']:.1f} s), replays "
+          f"{out['replay_s']:.1f} s", flush=True)
+    details["qwen3moe"] = out
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 DRIFT_DEPTHS = (2, 6, 12, 34)
@@ -3566,13 +4000,17 @@ def main() -> int:
                          "that commit takes the shape")
     ap.add_argument("--families-only", action="store_true",
                     help="build the kernels, then run path 12 (gemma3 at "
-                         "full depth) and the other families' cross-checks "
+                         "12 layers) and the other families' cross-checks "
                          "alone; no result line")
     ap.add_argument("--drift", action="store_true",
                     help="build the kernels, then print gemma3's logit "
                          "differences, kernel against plain and plain "
                          "against another order of its sums, at 2, 6, 12 "
                          "and 34 layers; no result line")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="build the kernels, then time one MoE layer and "
+                         "run the mixture-of-experts cross-checks and path "
+                         "13 (qwen3moe at full depth) alone; no result line")
     ap.add_argument("--gguf-only", action="store_true",
                     help="build the kernels, then run paths 9, 10 and 11 "
                          "(the pulled GGUF model, its chat and structured "
@@ -3641,6 +4079,12 @@ def main() -> int:
 
     rows, entries = [], {}
 
+    def lap(phase: str):
+        """The time since the build started, printed and recorded."""
+        took = time.perf_counter() - t0
+        details.setdefault("elapsed_s", {})[phase] = took
+        print(f"elapsed {took:.1f} s (after {phase})", flush=True)
+
     def report(name, source, replaces, check, ms, plain_ms, library_ms,
                bound_ms, bound_by, shape="", main=True, host_us=None,
                baseline=None):
@@ -3692,6 +4136,19 @@ def main() -> int:
         print("families-only run (path 12, the family cross-checks): no "
               "kernel rows; no result", flush=True)
         return 4
+    if args.moe_only:
+        try:
+            moe_layer_times(torch, Timer(torch), details)
+            family_cross_checks(torch, details, MOE_FAMILIES)
+            moe_phase(torch, details)
+        except Exception as e:  # noqa: BLE001 — the phase's failure
+            import traceback
+            traceback.print_exc()
+            return fail(f"the MoE checks and path 13: {e!r}")
+        write_details(out_dir, details)
+        print("moe-only run (the MoE layer, the MoE cross-checks, path 13): "
+              "no kernel rows; no result", flush=True)
+        return 4
     if args.drift:
         try:
             drift_sweep(torch, details)
@@ -3724,13 +4181,14 @@ def main() -> int:
         baseline = (load_baseline_paged(args.baseline) if args.baseline
                     else None)
         kernel_phases(torch, timer, report, baseline)
+        moe_layer_times(torch, timer, details)
         torch.cuda.synchronize()
     except Exception as e:  # noqa: BLE001 — every phase failure is fatal
         import traceback
         traceback.print_exc()
         return fail(f"kernel phase: {e!r}")
     details["kernel_rows"] = rows
-    print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+    lap("kernels")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         return fail(f"kernels disagree with their plain versions: {bad}")
@@ -3756,7 +4214,7 @@ def main() -> int:
                 # path 1 stays loaded for the prefix-and-chunk phase
                 got, kept = got
             launches_by_path[path] = got
-            print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+            lap(f"path {i + 1}")
         # 5. prefix reuse and chunked prefill on path 1, then its decode
         # step and its teardown
         try:
@@ -3764,14 +4222,14 @@ def main() -> int:
         finally:
             close_serving(torch, details, *kept, grammar=True)
             kept = None
-        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        lap("prefix phase (5)")
         prefix_cross_check(torch, details, "llama3.1", 4, "int8", 1000,
                            exact_gate=True)
         prefix_cross_check(torch, details, "llama3.2:3b", 8, "int4", 1001,
                            exact_gate=False)
         prefix_cross_check(torch, details, "llama3.1", 4, "bfloat16", 1000,
                            exact_gate=True)
-        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        lap("prefix cross-checks (6)")
         cross_check(torch, details, "llama3.1", 4, "int8")
         cross_check(torch, details, "llama3.2:3b", 8, "int4")
         cross_check(torch, details, "llama3.2:3b", 8, "bfloat16",
@@ -3782,7 +4240,7 @@ def main() -> int:
             cross_check(torch, details, "llama3.1", 4, "int8")
         with mock.patch.dict(os.environ, {"TPU_PAGED_V4": "1"}):
             cross_check(torch, details, "phi3", 8, "int8")
-        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        lap("cross-checks (4)")
         # 7. path 9: the pulled GGUF model, served by the port's processes,
         # and path 10 on the same server
         workdir = tempfile.mkdtemp(prefix="chip_smoke_gguf_")
@@ -3792,19 +4250,23 @@ def main() -> int:
              tokenizer) = gguf_phase(torch, details, card, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
-        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        lap("paths 9-11")
         # 8. path 10's grammar cross-check in this process
         grammar_cross_check(torch, details, card, tokenizer)
-        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        lap("grammar cross-check")
         # 9. path 11's replay cross-check in this process
         replay_cross_check(torch, details, card, tokenizer)
-        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        lap("replay cross-check")
         # 10. path 12: gemma3 at full width and depth, then the other
         # dense families' two-layer cross-checks
         launches_by_path[GEMMA3_PATH] = gemma3_phase(torch, details)
-        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        lap("path 12")
         family_cross_checks(torch, details)
-        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        lap("family cross-checks")
+        # 11. path 13: qwen3moe at full width and depth (61 GB of bf16
+        # weights: every earlier path has released the card)
+        launches_by_path[MOE_PATH] = moe_phase(torch, details)
+        lap("path 13")
     except Exception as e:  # noqa: BLE001 — every phase failure is fatal
         import traceback
         traceback.print_exc()

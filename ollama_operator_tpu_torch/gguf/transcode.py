@@ -339,6 +339,43 @@ def _dq(f: GGUFFile, name: str) -> np.ndarray:
     return DQ.dequantize_tensor(f, f.tensors[name])
 
 
+def _expert_leaves(f: GGUFFile, cfg: ModelConfig, stack, cast
+                   ) -> Dict[str, Any]:
+    """The mixture-of-experts leaves, as the JAX transcode maps them: the
+    router ``ffn_gate_inp`` [E, D] → [D, E]; merged ``ffn_{gate,up}_exps``
+    [E, F, D] → [E, D, F] and ``ffn_down_exps`` [E, D, F] → [E, F, D] (a
+    transpose per expert, to the dense path's [in, out]), or the legacy
+    split ``ffn_{gate,up,down}.{e}`` tensors of pre-merge GGUFs stacked
+    the same way; qwen2moe's shared expert ``ffn_*_shexp`` and its gate
+    ``ffn_gate_inp_shexp``. A GGUF without them raises ``KeyError``
+    naming the first missing tensor."""
+    L, E = cfg.n_layers, cfg.n_experts
+    eT = lambda a: a.transpose(0, 2, 1)  # noqa: E731
+    T_ = lambda a: a.T  # noqa: E731
+    out = {"router": stack("blk.{}.ffn_gate_inp.weight", T_)}
+    for key, part in (("we_gate", "gate"), ("we_up", "up"),
+                      ("we_down", "down")):
+        merged = f"blk.{{}}.ffn_{part}_exps.weight"
+        split = f"blk.{{}}.ffn_{part}.{{}}.weight"
+        if merged.format(0) in f.tensors:
+            out[key] = stack(merged, eT)
+        elif split.format(0, 0) in f.tensors:
+            out[key] = np.stack([np.stack([cast(_dq(f, split.format(i, e)).T)
+                                           for e in range(E)])
+                                 for i in range(L)])
+        else:
+            raise KeyError(f"missing tensor {merged.format(0)} (or the "
+                           f"split {split.format(0, 0)}) of a {E}-expert "
+                           f"model")
+    if "blk.0.ffn_gate_shexp.weight" in f.tensors:
+        for key, name in (("we_sh_gate", "ffn_gate_shexp"),
+                          ("we_sh_up", "ffn_up_shexp"),
+                          ("we_sh_down", "ffn_down_shexp"),
+                          ("sh_gate", "ffn_gate_inp_shexp")):
+            out[key] = stack(f"blk.{{}}.{name}.weight", T_)
+    return out
+
+
 def load_params(f: GGUFFile, cfg: Optional[ModelConfig] = None,
                 dtype="bfloat16") -> Dict[str, Any]:
     """Dequantise + remap every tensor into the decoder param tree (numpy,
@@ -390,9 +427,6 @@ def load_params(f: GGUFFile, cfg: Optional[ModelConfig] = None,
     }
     fused_gate_up = (cfg.mlp_type == "gated" and not cfg.n_experts
                      and "blk.0.ffn_gate.weight" not in f.tensors)
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "mixture-of-experts tensors are not mapped by the torch port")
     if fused_gate_up:
         # phi3-family: ffn_up holds [gate; up] fused ([2F, D]); split so
         # the decoder's separate projections serve unchanged
@@ -406,9 +440,10 @@ def load_params(f: GGUFFile, cfg: Optional[ModelConfig] = None,
             us.append(cast(w[F:].T))
         layers["w_gate"] = np.stack(gs)
         layers["w_up"] = np.stack(us)
-    else:
+    elif not cfg.n_experts:
         layers["w_up"] = stack("blk.{}.ffn_up.weight", T_)
-    layers["w_down"] = stack("blk.{}.ffn_down.weight", T_)
+    if not cfg.n_experts:
+        layers["w_down"] = stack("blk.{}.ffn_down.weight", T_)
     if "blk.0.attn_qkv.weight" in f.tensors:  # fused qkv (phi2, phi3)
         q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
         wq, wk, wv, bq, bk, bv = [], [], [], [], [], []
@@ -445,7 +480,9 @@ def load_params(f: GGUFFile, cfg: Optional[ModelConfig] = None,
         layers["mlp_norm_w"] = stack("blk.{}.ffn_norm.weight")
         if cfg.norm_type == "layernorm" and cfg.norm_bias:
             layers["mlp_norm_b"] = stack("blk.{}.ffn_norm.bias")
-    if cfg.mlp_type == "gated" and not fused_gate_up:
+    if cfg.n_experts:
+        layers.update(_expert_leaves(f, cfg, stack, cast))
+    elif cfg.mlp_type == "gated" and not fused_gate_up:
         layers["w_gate"] = stack("blk.{}.ffn_gate.weight", T_)
     if cfg.out_bias:
         layers["bo"] = stack("blk.{}.attn_output.bias")

@@ -171,6 +171,14 @@ class ModelConfig:
         return self
 
 
+def resolve_moe_impl(cfg: ModelConfig) -> str:
+    """The MoE layout an engine serves ``cfg`` with: the JAX package's
+    ``resolve_moe_impl`` with no mesh. Its one rule (the einsum layout
+    whenever the experts are sharded over an "ep" axis) needs a mesh, and
+    the port serves one device, so the configured ``moe_impl`` stands."""
+    return cfg.moe_impl
+
+
 def _mk(**kw) -> ModelConfig:
     return ModelConfig(**kw).validate()
 

@@ -17,6 +17,10 @@ leading ``n_layers`` axis, weights ``[K, O]``, quantized leaves as
           mlp_norm_w [L, D] (+ mlp_norm_b; absent with parallel_block)
           w_gate [L, D, F] (gated MLPs)  w_up [L, D, F]  w_down [L, F, D]
           (b_up [L, F], b_down [L, D] with out_bias)
+          mixture of experts instead of w_gate/w_up/w_down: router [L, D, E]
+          we_gate/we_up [L, E, D, F]  we_down [L, E, F, D]  (qwen2moe's
+          shared expert: we_sh_gate/we_sh_up [L, D, Fs]  we_sh_down
+          [L, Fs, D]  sh_gate [L, D, 1])
           q_norm_w/k_norm_w [L, hd] (qk_norm)
           post_attn_norm_w/post_ffw_norm_w [L, D] (post_norms)
 
@@ -46,7 +50,10 @@ dispatch needs one static window: prefill and dense decode attend through
 the masked einsum, paged decode through the gather + einsum, each layer
 with its own window.
 
-Mixture-of-experts models raise in :func:`check_supported`.
+Mixture-of-experts MLPs (mixtral, qwen2moe, qwen3moe) route each token
+to its top-k experts (:func:`_moe_gates`) and run the experts as plain
+matmuls (:func:`_moe_mlp`), as the JAX package runs them outside any
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -75,11 +82,10 @@ TRASH_PAGE = 0
 
 
 def check_supported(cfg: ModelConfig) -> ModelConfig:
-    """Raise for architecture features this port does not run yet: mixture
-    of experts (every dense family runs)."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "the torch port does not run mixture of experts yet")
+    """Raise ``NotImplementedError`` (which the model manager answers with
+    501) for an architecture the port does not run, else return ``cfg``.
+    It raises for none: every one the JAX decoder runs (each dense family
+    and mixture of experts) runs here."""
     return cfg
 
 
@@ -113,15 +119,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ln_bias = cfg.norm_type == "layernorm" and cfg.norm_bias
     layers = {"attn_norm_w": ones(L, D),
               "wq": w(L, D, cfg.q_dim), "wk": w(L, D, cfg.kv_dim),
-              "wv": w(L, D, cfg.kv_dim), "wo": w(L, cfg.q_dim, D),
-              "w_up": w(L, D, Fd), "w_down": w(L, Fd, D)}
+              "wv": w(L, D, cfg.kv_dim), "wo": w(L, cfg.q_dim, D)}
+    if cfg.n_experts:
+        E = cfg.n_experts
+        layers.update(router=w(L, D, E), we_gate=w(L, E, D, Fd),
+                      we_up=w(L, E, D, Fd), we_down=w(L, E, Fd, D))
+        if cfg.n_shared_ffn:
+            Fs = cfg.n_shared_ffn
+            layers.update(we_sh_gate=w(L, D, Fs), we_sh_up=w(L, D, Fs),
+                          we_sh_down=w(L, Fs, D), sh_gate=w(L, D, 1))
+    else:
+        layers.update(w_up=w(L, D, Fd), w_down=w(L, Fd, D))
     if ln_bias:
         layers["attn_norm_b"] = zeros(L, D)
     if not cfg.parallel_block:
         layers["mlp_norm_w"] = ones(L, D)
         if ln_bias:
             layers["mlp_norm_b"] = zeros(L, D)
-    if cfg.mlp_type == "gated":
+    if cfg.mlp_type == "gated" and not cfg.n_experts:
         layers["w_gate"] = w(L, D, Fd)
     if cfg.attn_bias:
         for k, n in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
@@ -229,7 +244,101 @@ def _qkv(cfg: ModelConfig, lp, h, cos, sin):
             apply_rope(k, cos, sin, cfg.rotary_dim), v)
 
 
+# the token count up to which an "auto" MoE layer runs the batched
+# ("einsum") form; the loop over experts ("scan") above it
+MOE_EINSUM_MAX_TOKENS = 256
+
+
+def _moe_route(cfg: ModelConfig, lp, xf):
+    """The router of :func:`_moe_gates`: (top-k gates [N, k] f32, their
+    experts [N, k]). Router logits are summed in f32 from the operands as
+    they are (``_mm_f32``): a logit rounded to bf16 would flip top-k
+    choices at near-ties. With ``moe_renorm`` (mixtral, qwen3moe) the
+    softmax runs over the selected logits; without it (qwen2moe) the
+    top-k of the full softmax are kept as they are."""
+    logits = _mm_f32(xf, lp["router"])                      # [N, E] f32
+    if cfg.moe_renorm:
+        topw, topi = torch.topk(logits, cfg.n_experts_used, dim=-1)
+        return torch.softmax(topw, dim=-1), topi
+    return torch.topk(torch.softmax(logits, dim=-1), cfg.n_experts_used,
+                      dim=-1)
+
+
+def _moe_gates(cfg: ModelConfig, lp, xf):
+    """xf [N, D] → the top-k gates scattered into a dense [N, E] f32
+    matrix (exactly 0 for the experts a token did not select), as the JAX
+    package's ``_moe_gates``."""
+    topw, topi = _moe_route(cfg, lp, xf)
+    gates = torch.zeros((xf.shape[0], cfg.n_experts), dtype=torch.float32,
+                        device=xf.device)
+    return gates.scatter_(1, topi, topw)
+
+
+def _moe_scan(cfg: ModelConfig, lp, xf, topw, topi):
+    """The "scan" form: a loop over the experts with an [n_e, F] working
+    set, each expert computed for the n_e tokens routed to it only (an
+    unselected gate is exactly 0, so the other tokens add nothing) and
+    added in expert order, as the JAX scan adds every expert in turn. One
+    host sync a layer (the tokens per expert)."""
+    N, k = topi.shape
+    flat = topi.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=cfg.n_experts).tolist()
+    rows, gate = order // k, topw.reshape(-1)[order]
+    y = torch.zeros((N, xf.shape[1]), dtype=torch.float32, device=xf.device)
+    start = 0
+    for e, n in enumerate(counts):
+        if not n:
+            continue
+        t = rows[start:start + n]
+        xe = xf[t]
+        he = _act(cfg, xe @ lp["we_gate"][e]) * (xe @ lp["we_up"][e])
+        y.index_add_(0, t, gate[start:start + n, None]
+                     * (he @ lp["we_down"][e]).float())
+        start += n
+    return y
+
+
+def _moe_mlp(cfg: ModelConfig, lp, x):
+    """Sparse mixture-of-experts gated MLP, exact (no token dropped), with
+    the JAX package's ``_moe_mlp``'s points of rounding: each expert's
+    ``act(x @ we_gate) * (x @ we_up) @ we_down`` in the weights' dtype,
+    widened to f32 and weighted by its gate in f32; qwen2moe's shared
+    expert widened to f32 and scaled by the f32 sigmoid of ``x @
+    sh_gate``; the sum narrowed to x's dtype once.
+
+    "einsum" (``moe_impl``; "auto" up to ``MOE_EINSUM_MAX_TOKENS`` tokens:
+    decode and chunked pieces): every expert over every token, batched
+    over the stacked experts, then each token's top-k outputs gathered
+    and weighted (the other gates are 0). "scan" (above it):
+    :func:`_moe_scan`. The experts are plain PyTorch matmuls: the JAX
+    package runs them outside any Pallas kernel."""
+    B, T, D = x.shape
+    N = B * T
+    xf = x.reshape(N, D)
+    topw, topi = _moe_route(cfg, lp, xf)
+    impl = cfg.moe_impl
+    if impl == "auto":
+        impl = "einsum" if N <= MOE_EINSUM_MAX_TOKENS else "scan"
+    if impl == "einsum":
+        h = torch.matmul(xf, lp["we_gate"])                 # [E, N, F]
+        u = torch.matmul(xf, lp["we_up"])
+        o = torch.matmul(_act(cfg, h) * u, lp["we_down"])   # [E, N, D]
+        sel = o[topi, torch.arange(N, device=x.device)[:, None]]
+        y = (topw[..., None] * sel.float()).sum(1)          # [N, D] f32
+    else:
+        y = _moe_scan(cfg, lp, xf, topw, topi)
+    if "we_sh_gate" in lp:
+        # qwen2moe's shared expert: every token, scaled by its own gate
+        hs = _act(cfg, xf @ lp["we_sh_gate"]) * (xf @ lp["we_sh_up"])
+        sg = torch.sigmoid((xf @ lp["sh_gate"]).float())   # [N, 1]
+        y = y + sg * (hs @ lp["we_sh_down"]).float()
+    return y.to(x.dtype).reshape(B, T, D)
+
+
 def _mlp(cfg: ModelConfig, lp, x):
+    if cfg.n_experts:
+        return _moe_mlp(cfg, lp, x)
     if cfg.mlp_type == "gated":
         g = _act(cfg, Q.matmul(x, lp["w_gate"]))
         u = Q.matmul(x, lp["w_up"])

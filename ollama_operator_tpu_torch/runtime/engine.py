@@ -50,7 +50,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import decoder
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, resolve_moe_impl
 from ..ops import sampling
 from ..ops.paged import paged_route, paged_shape_error
 from .faults import FAULTS
@@ -447,6 +447,8 @@ class Engine:
                  EngineConfig(), device="cuda"):
         self.device = resolve_device(device)
         decoder.check_supported(cfg)
+        if cfg.n_experts:
+            cfg = dataclasses.replace(cfg, moe_impl=resolve_moe_impl(cfg))
         self.cfg, self.ecfg, self.params = cfg, ecfg, params
         emb = params["tok_emb"]
         if emb.device.type != self.device.type:

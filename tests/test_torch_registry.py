@@ -13,9 +13,10 @@ vocabulary) with template and params layers on the loopback.
   codes and keys on the same store;
 - the keep-alive reaper unloads an idle store model (a stepped clock), and
   the next request loads it again;
-- a model with an adapter or projector layer, an encoder, and an arch the
-  port's decoder refuses are each refused with 501; a store-only manager
-  refuses generation with 503.
+- a model with an adapter or projector layer and an encoder are each
+  refused with 501 (a mixture-of-experts GGUF serves:
+  ``tests/test_torch_moe_gguf.py``); a store-only manager refuses
+  generation with 503.
 """
 
 import json
@@ -98,10 +99,6 @@ def registry(tmp_path_factory):
     reg.add_model("library", "bert", "latest", open(_header_gguf(
         str(d / "bert.gguf"), "bert", **dims,
         **{"attention.head_count": 4}), "rb").read())
-    reg.add_model("library", "moe", "latest", open(_header_gguf(
-        str(d / "moe.gguf"), "qwen3moe", **dims,
-        **{"attention.head_count": 4, "attention.head_count_kv": 2,
-           "expert_count": 4, "expert_used_count": 2}), "rb").read())
     url = reg.start()
     yield reg, url.split("://", 1)[1]
     reg.stop()
@@ -333,7 +330,7 @@ def test_store_only_refuses_generation(servers, registry):
 
 @pytest.mark.parametrize("name,what", [
     ("adapter", "ADAPTER"), ("projector", "PROJECTOR"),
-    ("bert", "embedding model"), ("moe", "mixture of experts")])
+    ("bert", "embedding model")])
 def test_unported_models_are_refused(tmp_path, registry, name, what):
     _reg, host = registry
     mm = tapp.ModelManager(str(tmp_path / "s"), cache_dir=str(

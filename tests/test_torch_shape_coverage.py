@@ -3,9 +3,10 @@ path reaches on the card, on the CPU (a kernel refusal shows only at the
 first prefill or decode on the card: gemma's hd 256 at K1 and
 starcoder2's group of 12 at the decode kernels did).
 
-For every preset ``check_supported`` accepts, at the engine's default
-pool on the card (``resolve_serving_defaults``: int8 pages of its page
-size): ``flash_prefill``'s head rule where the path prefills through K1
+For every preset (``check_supported`` accepts them all, mixture of
+experts among them), at the engine's default pool on the card
+(``resolve_serving_defaults``: int8 pages of its page size; MoE resolves
+the dense slot cache): ``flash_prefill``'s head rule where the path prefills through K1
 (every arch but the alternating ones, which attend through the einsum),
 ``paged_shape_error`` for the paged-decode kernels (K4, K5, K6; the
 engine checks the same at construction), and the dense-cache decode
@@ -29,22 +30,28 @@ from ollama_operator_tpu_torch.runtime.engine import (EngineConfig,
                                                       resolve_serving_defaults)
 
 
-def served(name):
-    try:
-        check_supported(PRESETS[name])
-    except NotImplementedError:
-        return False
-    return True
+SERVED = sorted(PRESETS)
+# the MoE families at their published widths (no preset: qwen3:30b-a3b,
+# Qwen1.5-MoE-A2.7B), as chip_smoke.py serves and cross-checks them
+MOE_WIDTHS = {
+    "qwen3moe": dataclasses.replace(
+        PRESETS["mixtral"], vocab_size=151936, dim=2048, n_layers=48,
+        n_heads=32, n_kv_heads=4, head_dim=128, ffn_dim=768, n_experts=128,
+        n_experts_used=8, qk_norm=True, max_seq_len=40960),
+    "qwen2moe": dataclasses.replace(
+        PRESETS["mixtral"], vocab_size=151936, dim=2048, n_layers=24,
+        n_heads=16, n_kv_heads=16, head_dim=128, ffn_dim=1408, n_experts=60,
+        n_experts_used=4, moe_renorm=False, n_shared_ffn=5632,
+        attn_bias=True, max_seq_len=8192)}
 
 
-SERVED = sorted(n for n in PRESETS if served(n))
-
-
-def test_only_moe_is_refused():
-    refused = sorted(set(PRESETS) - set(SERVED))
-    assert refused and all(PRESETS[n].n_experts for n in refused)
-    with pytest.raises(NotImplementedError, match="mixture of experts"):
-        check_supported(PRESETS["mixtral"])
+def test_every_preset_is_supported():
+    """``check_supported`` refuses nothing the JAX decoder runs: every
+    preset, the mixture-of-experts ones among them, and the MoE families
+    at their published widths."""
+    assert any(PRESETS[n].n_experts for n in SERVED)
+    for cfg in [PRESETS[n] for n in SERVED] + list(MOE_WIDTHS.values()):
+        assert check_supported(cfg) is cfg
 
 
 @pytest.mark.parametrize("name", SERVED)
@@ -54,12 +61,41 @@ def test_kernel_shape_rules_take_every_served_preset(name):
     ecfg = resolve_serving_defaults(
         EngineConfig(max_slots=0, paged=None, page_size=0,
                      max_seq_len=4096), cfg, "cuda")
-    assert ecfg.paged
+    # mixture of experts serves on the dense slot cache, as the JAX
+    # package serves it; every other preset pages
+    assert ecfg.paged == (not cfg.n_experts)
     if not cfg.altern_sliding:
         assert flash_prefill_shape_error(H, KvH, hd) is None
     assert paged_shape_error(H, KvH, hd, ecfg.page_size, False) is None
     assert paged_shape_error(H, KvH, hd, ecfg.page_size, True) is None
     assert decode_shape_error(H, KvH, hd) is None
+
+
+@pytest.mark.parametrize("name", sorted(MOE_WIDTHS))
+def test_moe_widths_take_their_kernels_on_the_dense_cache(name):
+    """qwen3moe (32/4 heads: K1, K2 at G 8) and qwen2moe (16/16: K1, K3)
+    at their published widths: the dense slot cache of 8 slots, bf16
+    weights on the card, and K1's and the decode kernels' head rules."""
+    cfg = MOE_WIDTHS[name].validate()
+    H, KvH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ecfg = resolve_serving_defaults(
+        EngineConfig(max_slots=0, paged=None, page_size=0, decode_chunk=0,
+                     max_seq_len=4096), cfg, "cuda")
+    assert (ecfg.paged, ecfg.max_slots, ecfg.decode_chunk) == (False, 8, 32)
+    assert resolve_engine_dtype(cfg, "cuda") == "bfloat16"
+    assert flash_prefill_shape_error(H, KvH, hd) is None
+    assert decode_shape_error(H, KvH, hd) is None
+    assert (H // KvH) == (8 if name == "qwen3moe" else 1)
+
+
+def test_moe_parameter_counts():
+    """The sizes the one-card MoE path rests on (``ModelConfig.n_params``,
+    which counts the routed experts and the router, not qwen2moe's shared
+    expert): qwen3:30b-a3b 30.53e9 (61.06 GB in bf16), Qwen1.5-MoE-A2.7B's
+    routed part 13.49e9; mixtral 46.70e9, over one card's 80 GB in bf16."""
+    assert round(MOE_WIDTHS["qwen3moe"].n_params / 1e7) == 3053
+    assert round(MOE_WIDTHS["qwen2moe"].n_params / 1e7) == 1349
+    assert round(PRESETS["mixtral"].n_params / 1e7) == 4670
 
 
 def test_refusals_name_the_limit():
