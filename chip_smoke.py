@@ -247,6 +247,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
     qwen3moe MoE layer (``moe_layer_times``: N = 8 and 256, not a TPU
     kernel) against its bound.
 
+Path 14 (embeddings): (a) on path 9's restarted server,
+after path 10, /api/embed of 64 texts of 20..500 tokens (length buckets
+32..512, each one padded batch: K1 and K7 at up to 64 x 512 rows), K1's
+and K7's /api/ps counts above 0; one text through /api/embed,
+/api/embeddings and /v1/embeddings beside 8 generate streams, the three
+vectors equal and within cosine 0.999 of its batch row; (c) on the same
+server, mxbai-embed-large at full width and depth (24 layers, dim 1024,
+a 0.67 GB f16 BERT GGUF written from the seed) uploaded through
+/api/blobs, created by ``files``, copied, shown, loaded, /api/embed of 64
+texts (some cut at 512 tokens), /api/generate 400, and 4 texts' vectors
+within cosine 0.9999 of the port's f32 forward of the same GGUF on the
+CPU; (b) after paths 9-11, two-layer full-width embedding cross-checks
+(llama3.1 int4, llama3.2:3b int8, a [32, 512] batch: K8 and K7 at 16384
+rows) of the kernel path against the plain path, and kernel rows for K1
+and K7 at (a)'s largest bucket and K8 at (b)'s; (d) in path 13, one
+embed of 8 texts on the full qwen3moe. Each part's seconds are printed
+and recorded (``embed_path.elapsed_s``).
+
 Then it prints one JSON line ``{"kernels": [...]}`` (``launches`` summed
 over the serving paths, per path in ``launches_by_path``), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -256,7 +274,9 @@ compiler's register report (``ptxas.txt``) are written to DIR;
 then phases 7, 8 and 9 alone, ``--families-only`` phase 1 and then phase
 10 alone, ``--moe-only`` phase 1, the MoE layer, the MoE cross-checks and
 phase 11 alone, ``--drift`` phase 1 and then gemma3's logit differences at 2,
-6, 12 and 34 layers (``drift_sweep``) (each exits 4 by design: no
+6, 12 and 34 layers (``drift_sweep``), ``--embed-only`` phase 1 and then
+path 14 alone (its server's model uploaded and created instead of
+pulled, (d) on qwen3moe cut to 4 layers) (each exits 4 by design: no
 result line).
 """
 
@@ -2283,9 +2303,11 @@ def gguf_phase(torch, details, card: str, workdir: str):
     requests, restart the server to load from the transcode cache, and
     hold its greedy streams against ``ModelManager.preload`` of the same
     ``load_model`` tree in this process; path 10 (``chat_phase``) runs on
-    the restarted server before it stops. Returns the launch counts of
-    path 9's 8 requests and of path 10, each read from the server's
-    /api/ps just before and just after them, and the GGUF's tokenizer."""
+    the restarted server before it stops, then path 14 (a) and (c)
+    (``embed_server_phases``). Returns the launch counts of path 9's 8
+    requests, of path 10, of path 11 and of path 14 (a), each read from
+    the server's /api/ps just before and just after them, and the GGUF's
+    tokenizer."""
     from ollama_operator_tpu_torch.convert import params_from_numpy
     from ollama_operator_tpu_torch.gguf.transcode import load_model
     from ollama_operator_tpu_torch.models.config import get_config
@@ -2305,6 +2327,7 @@ def gguf_phase(torch, details, card: str, workdir: str):
     g = write_gguf_model(os.path.join(workdir, "model.gguf"), cfg)
     out["gguf_bytes"] = g["bytes"]
     out["write_gguf_s"] = time.perf_counter() - t0
+    gguf_tok = gguf_tokenizer(g["path"])
     for name, text in (("template", CHAT_TEMPLATE),
                        ("params", json.dumps({"temperature": 0})),
                        ("config", json.dumps({"model_format": "gguf"}))):
@@ -2415,6 +2438,9 @@ def gguf_phase(torch, details, card: str, workdir: str):
                   for p in prompts]
         # path 10 on the same server
         chat = chat_phase(card, ms2, ref)
+        # path 14 (a) and (c) on the same server
+        emb = embed_server_phases(torch, details, card, ms2, ref, gguf_tok,
+                                  workdir)
         if ms2.stop() != 0:
             raise RuntimeError(f"model server stopped badly: {ms2.tail()}")
         # path 11 on a third start (from the cache), with 4 slots; it
@@ -2489,7 +2515,8 @@ def gguf_phase(torch, details, card: str, workdir: str):
     details["gguf_path"] = out
     details["chat_path"] = chat
     details["lifecycle_path"] = life
-    return launches, chat["launches"], life["launches"], tokenizer
+    return (launches, chat["launches"], life["launches"], tokenizer,
+            emb["launches"])
 
 
 # ---------------------------------------------------------------------------
@@ -3916,6 +3943,11 @@ def moe_phase(torch, details) -> dict:
                                f"from the replayed engine calls' "
                                f"{replayed}")
     out["replay_s"] = time.perf_counter() - t_served - out["step_s"]
+    # path 14 (d) on the same model
+    t0 = time.perf_counter()
+    ep = details.setdefault("embed_path", {})
+    ep["d"] = moe_embed(torch, lm)
+    ep.setdefault("elapsed_s", {})["d"] = time.perf_counter() - t0
     print(f"path 13 times: build and serve {out['served_s']:.1f} s, decode "
           f"step {out['step_s']:.1f} s (its profiled dispatch "
           f"{out['step']['profiled_dispatch_s']:.1f} s), replays "
@@ -3926,6 +3958,628 @@ def moe_phase(torch, details) -> dict:
     torch.cuda.empty_cache()
     return launches
 
+
+# ---------------------------------------------------------------------------
+# 12. Path 14: embeddings — decoder embeddings on path 9's server (a),
+# two-layer kernel-against-plain embedding cross-checks (b), a BERT
+# encoder (mxbai-embed-large) uploaded, created, copied and served (c),
+# and one embed on path 13's qwen3moe (d)
+# ---------------------------------------------------------------------------
+
+EMBED_PATH = "llama3.2:3b GGUF, embeddings: int8 weights, K1 + K7 over " \
+             "padded buckets"
+EMBED_MOE_PATH = "qwen3moe bf16 embeddings (path 14 (d))"
+EMBED_COUNTERS = ("flash_prefill", "qmm")
+EMBED_TEXTS = 64
+# mixedbread-ai/mxbai-embed-large-v1 (BERT-large): 24 layers, dim 1024, 16
+# heads, ffn 4096, 512 positions, 2 token types, vocab 30522, CLS pooling
+MXBAI = dict(n_layers=24, dim=1024, n_heads=16, ffn_dim=4096,
+             max_seq_len=512, n_token_types=2, vocab_size=30522)
+MXBAI_NAME = "mxbai-embed-large:latest"
+
+
+def bucket_of(n: int) -> int:
+    """The decoder embed's length bucket of an n-token text."""
+    return max(16, 1 << (max(n, 1) - 1).bit_length())
+
+
+def cosine_rows(a, b):
+    """Per-row cosine similarity and max |a - b| / max |b| of two [N, D]
+    arrays."""
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    cos = (a * b).sum(1) / np.maximum(
+        np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1), 1e-30)
+    rel = np.abs(a - b).max(1) / np.maximum(np.abs(b).max(1), 1e-30)
+    return cos, rel
+
+
+def embed_phase(card: str, ms, ref: str, tokenizer) -> dict:
+    """Path 14 (a) on path 9's server (llama3.2:3b, int8 weights, the
+    paged engine): /api/embed of ``EMBED_TEXTS`` texts whose token lengths
+    are drawn from the seed over 20..500 (length buckets 32..512 of up to
+    64 rows); K1 and K7 must launch (their /api/ps counts rise). Then,
+    beside 8 running generate streams, one text through /api/embed,
+    /api/embeddings and /v1/embeddings: the three vectors equal, and
+    equal within tolerance (cosine >= 0.999, max |delta| <= 3% of max
+    |x|) to its row in the batch, which ran in another bucket size."""
+    import numpy as np
+
+    from ollama_operator_tpu_torch.models.config import get_config
+    rng = np.random.default_rng(SEED + 14)
+    want = rng.integers(20, 501, EMBED_TEXTS)
+    # n - 1 words of the vocabulary's whole-word pieces, and the BOS
+    texts = [" ".join(GGUF_WORDS[(i + j) % len(GGUF_WORDS)]
+                      for j in range(n - 1)) for i, n in enumerate(want)]
+    lens = [len(tokenizer.encode(t)) for t in texts]
+    buckets = collections.Counter(bucket_of(n) for n in lens)
+    shapes = {T: 1 << (c - 1).bit_length() for T, c in buckets.items()}
+    before = ms.launches()
+    t0 = time.perf_counter()
+    status, _, body = call(ms.port, "/api/embed",
+                           {"model": ref, "input": texts})
+    wall = time.perf_counter() - t0
+    after = ms.launches()
+    launches = {k: after[k] - before[k] for k in after}
+    if status != 200:
+        raise RuntimeError(f"path 14 (a): /api/embed answered {status}: "
+                           f"{body}")
+    vecs = np.asarray(body["embeddings"], np.float32)
+    dim = get_config(GGUF_MODEL).dim
+    if vecs.shape != (EMBED_TEXTS, dim) or not np.isfinite(vecs).all():
+        raise RuntimeError(f"path 14 (a): embeddings of shape {vecs.shape}, "
+                           f"finite {np.isfinite(vecs).all()}")
+    missing = [k for k in EMBED_COUNTERS if launches[k] <= 0]
+    stray = [k for k in GGUF_ABSENT if launches[k] != 0]
+    if missing or stray:
+        raise RuntimeError(f"path 14 (a) launches {launches}: not launched "
+                           f"{missing}, of another path {stray}")
+    # one text, three routes, beside 8 running generate streams
+    k = int(np.argmax([n if bucket_of(n) == 256 else 0 for n in lens]))
+    gen = [lambda i=i: post(ms.port, {
+        "model": ref, "prompt": " ".join(GGUF_WORDS[i:] + GGUF_WORDS[:i]),
+        "options": {"temperature": 0, "num_predict": 64}})
+        for i in range(8)]
+    routes = [
+        lambda: call(ms.port, "/api/embed", {"model": ref,
+                                             "input": [texts[k]]}),
+        lambda: call(ms.port, "/api/embeddings", {"model": ref,
+                                                  "prompt": texts[k]}),
+        lambda: call(ms.port, "/v1/embeddings", {"model": ref,
+                                                 "input": texts[k]})]
+    results, busy_wall = concurrent(
+        gen + [lambda: (time.sleep(1.0), [r() for r in routes])[1]])
+    for i, r in enumerate(results[:8]):
+        if not r.get("done") or r.get("eval_count") != 64:
+            raise RuntimeError(f"path 14 (a): generate {i} ended {r}")
+    got = results[8]
+    if any(s != 200 for s, _, _ in got):
+        raise RuntimeError(f"path 14 (a): routes answered "
+                           f"{[(s, b) for s, _, b in got]}")
+    three = np.asarray([got[0][2]["embeddings"][0], got[1][2]["embedding"],
+                        got[2][2]["data"][0]["embedding"]], np.float32)
+    spread = float(np.abs(three - three[0]).max())
+    cos, rel = cosine_rows(three[:1], vecs[k:k + 1])
+    out = {"texts": EMBED_TEXTS, "token_lengths": lens,
+           "tokens": int(sum(lens)), "buckets": {str(T): [c, shapes[T]]
+                                                 for T, c in
+                                                 sorted(buckets.items())},
+           "wall_s": wall, "texts_per_s": EMBED_TEXTS / wall,
+           "tokens_per_s": sum(lens) / wall, "launches": launches,
+           "alone_text": k, "alone_tokens": lens[k],
+           "routes_max_abs_spread": spread,
+           "alone_vs_batch_cosine": float(cos[0]),
+           "alone_vs_batch_rel": float(rel[0]),
+           "beside_8_streams_wall_s": busy_wall}
+    print(f"path 14 (a) [{card}]: /api/embed of {EMBED_TEXTS} texts "
+          f"({sum(lens)} tokens; bucket: (texts, rows) "
+          f"{out['buckets']}) in {wall:.3f} s: {out['texts_per_s']:.1f} "
+          f"texts/s, {out['tokens_per_s']:.0f} tokens/s; launches "
+          f"{launches}; one {lens[k]}-token text through the three routes "
+          f"beside 8 generate streams: spread {spread:.3g}, against its "
+          f"batch row cosine {cos[0]:.6f}, max |delta| {rel[0]:.3%} of max "
+          f"|x|", flush=True)
+    if spread > 1e-5 * float(np.abs(three).max()):
+        raise RuntimeError(f"path 14 (a): the three routes differ "
+                           f"({spread})")
+    if not (cos[0] >= 0.999 and rel[0] <= 0.03):
+        raise RuntimeError(f"path 14 (a): the text alone differs from its "
+                           f"batch row (cosine {cos[0]}, {rel[0]:.3%})")
+    return out
+
+
+def embed_cross_check(torch, details, model: str, bits: int,
+                      n_texts: int = 32, T: int = 512) -> dict:
+    """Path 14 (b): two layers at full width, ``bits``-bit weights:
+    ``decoder.embed_forward`` over one [n_texts, T] batch (valid lengths
+    drawn from the seed over T/2+1..T) on the kernel path (K1, and K8 or
+    K7 at N = n_texts * T rows) and on the plain path (their plain
+    versions), each row's pooled vector at cosine >= 0.999 and max
+    |delta| <= 3% of its max |x|. Returns the kernel path's launches."""
+    from ollama_operator_tpu_torch.models import decoder
+    from ollama_operator_tpu_torch.ops import attention as A
+    from ollama_operator_tpu_torch.ops import cuda_build
+    from ollama_operator_tpu_torch.ops import quant as Q
+    cfg = dataclasses.replace(model_config(model), n_layers=2)
+    params = Q.quantize_params(dense_params(torch, cfg), bits=bits)
+    g = torch.Generator(device="cuda").manual_seed(SEED + bits)
+    toks = torch.randint(0, cfg.vocab_size, (n_texts, T), generator=g,
+                         device="cuda")
+    lens = torch.randint(T // 2 + 1, T + 1, (n_texts,), generator=g,
+                         device="cuda")
+
+    def plain_chunk(cfg, q, k, v, scale):
+        return A.flash_prefill_plain(q, k, v, scale, cfg.attn_softcap,
+                                     cfg.sliding_window)
+
+    for name in cuda_build.launches:
+        cuda_build.launches[name] = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        got = decoder.embed_forward(params, cfg, toks, lens)
+        torch.cuda.synchronize()
+        t_kernel = time.perf_counter() - t0
+        launched = {k: v for k, v in cuda_build.launches.items() if v}
+        with mock.patch.object(decoder, "chunk_attention", plain_chunk), \
+                mock.patch.object(Q, "matmul", plain_matmul):
+            want = decoder.embed_forward(params, cfg, toks, lens)
+    cos, rel = cosine_rows(got.cpu().numpy(), want.cpu().numpy())
+    kname = "qmm4" if bits == 4 else "qmm"
+    out = {"model": model, "layers": 2, "weights": f"int{bits}",
+           "rows": n_texts, "T": T, "N": n_texts * T, "launches": launched,
+           "min_cosine": float(cos.min()), "max_rel": float(rel.max()),
+           "kernel_path_s": t_kernel}
+    details.setdefault("embed_path", {}).setdefault("cross_checks",
+                                                    []).append(out)
+    print(f"path 14 (b) {model} int{bits} (2 layers, full width, "
+          f"[{n_texts}, {T}] batch, N = {n_texts * T}): launches "
+          f"{launched}; kernel vs plain pooled rows: min cosine "
+          f"{cos.min():.6f}, max |delta| {rel.max():.3%} of max |x|",
+          flush=True)
+    if launched.get("flash_prefill", 0) <= 0 or launched.get(kname, 0) <= 0:
+        raise RuntimeError(f"path 14 (b) {model}: kernels not launched "
+                           f"({launched})")
+    if not (cos.min() >= 0.999 and rel.max() <= 0.03):
+        raise RuntimeError(f"path 14 (b) {model}: kernel and plain pooled "
+                           f"vectors disagree ({cos.min()}, {rel.max()})")
+    del params, got, want
+    torch.cuda.empty_cache()
+    return launched
+
+
+def embed_kernel_rows(torch, timer, report, k1_rows: int, k8_rows: int,
+                      T: int = 512):
+    """Kernel rows at the embedding shapes: K1 at path 14 (a)'s largest
+    bucket (``k1_rows`` texts x T, llama3.2:3b's 24/8 heads), K7 at its
+    w_gate (N = k1_rows * T), K8 at (b)'s llama3.1 w_gate (N = k8_rows *
+    T); each against its plain version (K1 every query row within 1% of
+    its largest output, K7/K8 max |err| <= 1e-3 over f32 outputs), beside
+    its bound and its library call (SDPA, the bf16 matmul on the
+    dequantized weight). Returns the new rows."""
+    import torch.nn.functional as F
+    from ollama_operator_tpu_torch.ops import attention as A
+    from ollama_operator_tpu_torch.ops import quant as Q
+    g = torch.Generator(device="cuda").manual_seed(SEED + 140)
+    bf = torch.bfloat16
+    start = len(report.rows)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(bf)
+
+    B, H, KvH, hd = k1_rows, 24, 8, 128
+    q, k, v = randn(B, T, H, hd), randn(B, KvH, T, hd), randn(B, KvH, T, hd)
+    scale = hd ** -0.5
+    out = A.flash_prefill(q, k, v, scale)
+    ref = A.flash_prefill_plain(q, k, v, scale)
+    d = (out.float() - ref.float()).reshape(B * T, -1).abs().amax(1)
+    tol = 1e-2 * ref.float().reshape(B * T, -1).abs().amax(1)
+    w = int((d / tol.clamp(min=1e-30)).argmax())
+    check = (d[w].item(), tol[w].item(), d.max().item(), f"query {w}",
+             (out != ref).float().mean().item())
+    qh = q.transpose(1, 2)
+    kr = k.repeat_interleave(H // KvH, dim=1)
+    vr = v.repeat_interleave(H // KvH, dim=1)
+    report("flash_prefill", "csrc/flash_prefill.cu",
+           "ollama_operator_tpu/ops/pallas/flash.py:134", check,
+           timer(lambda: A.flash_prefill(q, k, v, scale)),
+           timer(lambda: A.flash_prefill_plain(q, k, v, scale), iters=3),
+           timer(lambda: F.scaled_dot_product_attention(
+               qh, kr, vr, is_causal=True, scale=scale)),
+           *bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                  4 * B * H * hd * T * (T + 1) / 2),
+           shape=f"embed B={B} T={T} H={H} KvH={KvH} hd={hd}", main=False)
+    del q, k, v, qh, kr, vr, out, ref
+    for name, fn, plain, quant, replaces, N, K, O in (
+            ("qmm", Q.qmm, Q.qmm_plain, Q.quantize_groupwise,
+             "ollama_operator_tpu/ops/pallas/quant.py:73", k1_rows * T,
+             3072, 8192),
+            ("qmm4", Q.qmm4, Q.qmm4_plain, Q.quantize_groupwise_int4,
+             "ollama_operator_tpu/ops/pallas/quant.py:142", k8_rows * T,
+             4096, 14336)):
+        qw = quant(torch.randn((K, O), generator=g, device="cuda") * 0.02)
+        codes = qw["q4"] if "q4" in qw else qw["q"]
+        wbf = Q.dequantize_groupwise(qw).to(bf)
+        x = randn(N, K)
+        err = (fn(x, codes, qw["s"]) - plain(x, codes, qw["s"])
+               ).abs().max().item()
+        report(name, f"csrc/{name}.cu", replaces, (err, 1e-3),
+               timer(lambda: fn(x, codes, qw["s"])),
+               timer(lambda: plain(x, codes, qw["s"]), iters=3),
+               timer(lambda: torch.matmul(x, wbf)),
+               *bound(2 * N * K + codes.numel() + 4 * (K // 32) * O
+                      + 4 * N * O, 2.0 * N * K * O),
+               shape=f"embed w_gate N={N} K={K} O={O}", main=False)
+        del qw, codes, wbf, x
+    torch.cuda.empty_cache()
+    rows = report.rows[start:]
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"path 14 kernel rows disagree with their "
+                           f"plain versions: {bad}")
+    return rows
+
+
+def bert_vocab(rng, n: int):
+    """A WordPiece vocabulary of ``n`` pieces made from the seed: BERT's
+    [PAD], [unused*], [UNK], [CLS], [SEP], [MASK] at their ids, the words
+    of the path's texts, then random lowercase words and ## pieces."""
+    import numpy as np
+    pieces = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + [
+        "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    pieces += sorted(set(GGUF_WORDS))
+    seen = set(pieces)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    while len(pieces) < n:
+        w = "".join(rng.choice(letters, int(rng.integers(2, 9))))
+        if rng.random() < 0.3:
+            w = "##" + w
+        if w not in seen:
+            seen.add(w)
+            pieces.append(w)
+    return pieces
+
+
+def write_bert_model(path: str) -> dict:
+    """mxbai-embed-large's shape as a llama.cpp BERT GGUF from the seed:
+    f16 matrices and tables (std 0.02), f32 norms (around 1) and biases
+    (std 0.02), CLS pooling, a 30522-piece WordPiece vocabulary. Written
+    one tensor at a time."""
+    import numpy as np
+
+    from ollama_operator_tpu_torch.gguf.writer import GGUFWriter
+    c = MXBAI
+    rng = np.random.default_rng(SEED + 15)
+    vocab = bert_vocab(rng, c["vocab_size"])
+    w = GGUFWriter(path)
+    for k, v in (("general.architecture", "bert"),
+                 ("general.name", "mxbai-embed-large-v1 (random weights)"),
+                 ("general.file_type", 1),
+                 ("bert.block_count", c["n_layers"]),
+                 ("bert.context_length", c["max_seq_len"]),
+                 ("bert.embedding_length", c["dim"]),
+                 ("bert.feed_forward_length", c["ffn_dim"]),
+                 ("bert.attention.head_count", c["n_heads"]),
+                 ("bert.attention.layer_norm_epsilon", 1e-12),
+                 ("bert.pooling_type", 2),
+                 ("tokenizer.ggml.model", "bert"),
+                 ("tokenizer.ggml.tokens", vocab),
+                 ("tokenizer.ggml.token_type", [1] * len(vocab)),
+                 ("tokenizer.ggml.cls_token_id", 101),
+                 ("tokenizer.ggml.seperator_token_id", 102),
+                 ("tokenizer.ggml.unknown_token_id", 100),
+                 ("tokenizer.ggml.padding_token_id", 0)):
+        w.add_meta(k, v)
+    D, Fd = c["dim"], c["ffn_dim"]
+
+    def mat(name, *shape):
+        w.add_tensor_f16(name, (rng.standard_normal(shape, np.float32)
+                                * 0.02).astype(np.float16))
+
+    def vec(name, n, base=0.0, std=0.02):
+        w.add_tensor_f32(name, (base + rng.standard_normal(n, np.float32)
+                                * std).astype(np.float32))
+
+    mat("token_embd.weight", c["vocab_size"], D)
+    mat("position_embd.weight", c["max_seq_len"], D)
+    mat("token_types.weight", c["n_token_types"], D)
+    vec("token_embd_norm.weight", D, 1.0, 0.05)
+    vec("token_embd_norm.bias", D)
+    for i in range(c["n_layers"]):
+        for name in ("attn_q", "attn_k", "attn_v", "attn_output"):
+            mat(f"blk.{i}.{name}.weight", D, D)
+            vec(f"blk.{i}.{name}.bias", D)
+        mat(f"blk.{i}.ffn_up.weight", Fd, D)
+        vec(f"blk.{i}.ffn_up.bias", Fd)
+        mat(f"blk.{i}.ffn_down.weight", D, Fd)
+        vec(f"blk.{i}.ffn_down.bias", D)
+        for name in ("attn_output_norm", "layer_output_norm"):
+            vec(f"blk.{i}.{name}.weight", D, 1.0, 0.05)
+            vec(f"blk.{i}.{name}.bias", D)
+    w.write()
+    del w
+    return {"path": path, "bytes": os.path.getsize(path), "vocab": vocab}
+
+
+def upload_blob(port: int, path: str, digest: str) -> int:
+    """POST the file to /api/blobs/<digest>, streamed; the status."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        with open(path, "rb") as f:
+            conn.request("POST", f"/api/blobs/{digest}", body=f, headers={
+                "Content-Length": str(os.path.getsize(path))})
+        r = conn.getresponse()
+        r.read()
+        return r.status
+    finally:
+        conn.close()
+
+
+def encoder_phase(torch, card: str, ms, workdir: str) -> dict:
+    """Path 14 (c) on a model server with a store: mxbai-embed-large at
+    full width and depth (``MXBAI``), written as a GGUF from the seed,
+    POSTed to /api/blobs, created by ``files``, copied, shown under both
+    names, loaded (f32, no engine), /api/embed of 64 texts of up to 600
+    words (cut at 512 tokens, as the reference cuts them); /api/generate
+    on it answers 400. The card's vectors of 4 texts against the port's
+    f32 forward of the same GGUF on the CPU in this process (cosine >=
+    0.9999), and the peak bytes on the card of one 64-text forward in
+    this process."""
+    import numpy as np
+
+    from ollama_operator_tpu_torch.convert import params_from_numpy
+    from ollama_operator_tpu_torch.gguf.reader import GGUFFile
+    from ollama_operator_tpu_torch.gguf.transcode import (
+        encoder_config_from_gguf, load_encoder_params)
+    from ollama_operator_tpu_torch.models import encoder as E
+    from ollama_operator_tpu_torch.tokenizer import Tokenizer
+    out = {"model": MXBAI_NAME, "card": card}
+    t0 = time.perf_counter()
+    g = write_bert_model(os.path.join(workdir, "mxbai.gguf"))
+    out["gguf_bytes"] = g["bytes"]
+    out["write_gguf_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    digest = sha256_file(g["path"])
+    head = urllib.request.Request(
+        f"http://127.0.0.1:{ms.port}/api/blobs/{digest}", method="HEAD")
+
+    def head_status():
+        try:
+            with urllib.request.urlopen(head, timeout=60) as r:
+                return r.status
+        except urllib.error.HTTPError as e:
+            return e.code
+
+    before = head_status()
+    status = upload_blob(ms.port, g["path"], digest)
+    after = head_status()
+    out["upload_s"] = time.perf_counter() - t0
+    if (before, status, after) != (404, 201, 200):
+        raise RuntimeError(f"path 14 (c): blob HEAD/POST/HEAD answered "
+                           f"{(before, status, after)}")
+    copy = MXBAI_NAME.replace(":latest", ":copy")
+    steps = [
+        ("/api/create", {"model": MXBAI_NAME, "stream": False,
+                         "files": {"mxbai.gguf": digest}}),
+        ("/api/copy", {"source": MXBAI_NAME, "destination": copy})]
+    for path, body in steps:
+        s, _, b = call(ms.port, path, body)
+        if s != 200:
+            raise RuntimeError(f"path 14 (c): {path} answered {s}: {b}")
+    shown = [call(ms.port, "/api/show", {"model": n}) for n in
+             (MXBAI_NAME, copy)]
+    if any(s != 200 or b["details"]["family"] != "bert"
+           for s, _, b in shown) or shown[0][2]["model_info"] != shown[1][
+                2]["model_info"]:
+        raise RuntimeError(f"path 14 (c): /api/show of the model and its "
+                           f"copy: {[(s, b.get('details')) for s, _, b in shown]}")
+    t0 = time.perf_counter()
+    s, _, b = call(ms.port, "/api/generate", {"model": copy, "prompt": ""})
+    out["load_s"] = time.perf_counter() - t0
+    if s != 200 or b.get("done_reason") != "load":
+        raise RuntimeError(f"path 14 (c): the load answered {s}: {b}")
+    s, _, b = call(ms.port, "/api/generate", {"model": copy,
+                                              "prompt": "hi"})
+    if s != 400 or "embedding model" not in str(b):
+        raise RuntimeError(f"path 14 (c): generation answered {s}: {b}")
+    ps = ms.get("/api/ps")["models"][0]
+    if (ps["details"]["family"], ps["details"]["serving_dtype"]) != (
+            "bert", "float32"):
+        raise RuntimeError(f"path 14 (c): /api/ps {ps['details']}")
+    words = [p for p in g["vocab"][104:] if not p.startswith("##")]
+    rng = np.random.default_rng(SEED + 16)
+    n_words = [int(x) for x in rng.integers(4, 40, 4)] + [
+        int(x) for x in rng.integers(20, 601, EMBED_TEXTS - 4)]
+    texts = [" ".join(rng.choice(words, n)) for n in n_words]
+    with GGUFFile(g["path"]) as f:
+        ecfg = encoder_config_from_gguf(f)
+        tree = load_encoder_params(f, ecfg)
+        tok = Tokenizer.from_gguf_metadata(
+            {k: v for k, v in f.metadata.items()
+             if k.startswith("tokenizer.")})
+    lens = [min(len(tok.encode(t)), ecfg.max_seq_len) for t in texts]
+    t0 = time.perf_counter()
+    s, _, b = call(ms.port, "/api/embed", {"model": copy, "input": texts})
+    wall = time.perf_counter() - t0
+    if s != 200:
+        raise RuntimeError(f"path 14 (c): /api/embed answered {s}: {b}")
+    vecs = np.asarray(b["embeddings"], np.float32)
+    if vecs.shape != (EMBED_TEXTS, MXBAI["dim"]) or not np.isfinite(
+            vecs).all():
+        raise RuntimeError(f"path 14 (c): embeddings {vecs.shape}")
+    # the port's f32 forward of the same GGUF on the CPU, 4 texts
+    t0 = time.perf_counter()
+    cpu = E.embed_batch(params_from_numpy(tree, "cpu"), ecfg,
+                        [tok.encode(t) for t in texts[:4]], "cpu")
+    out["cpu_forward_s"] = time.perf_counter() - t0
+    cos, rel = cosine_rows(vecs[:4], cpu)
+    # the peak on the card of the weights and one 64-text forward
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = params_from_numpy(tree, "cuda")
+    del tree
+    E.embed_batch(params, ecfg, [tok.encode(t) for t in texts])
+    peak = torch.cuda.max_memory_allocated() - base
+    del params
+    torch.cuda.empty_cache()
+    out.update(texts=EMBED_TEXTS, tokens=int(sum(lens)), wall_s=wall,
+               texts_per_s=EMBED_TEXTS / wall,
+               tokens_per_s=sum(lens) / wall, cut_at_512=sum(
+                   len(tok.encode(t)) > 512 for t in texts),
+               card_vs_cpu_cosine=[float(c) for c in cos],
+               card_vs_cpu_rel=[float(r) for r in rel],
+               peak_card_bytes=peak, n_params=ecfg.n_params)
+    print(f"path 14 (c) [{card}]: {MXBAI_NAME} ({ecfg.n_params / 1e6:.0f}M "
+          f"parameters) GGUF {g['bytes'] / 1e9:.3f} GB written in "
+          f"{out['write_gguf_s']:.1f} s, uploaded in {out['upload_s']:.1f} s;"
+          f" load {out['load_s']:.2f} s; /api/embed of {EMBED_TEXTS} texts "
+          f"({sum(lens)} tokens, {out['cut_at_512']} cut at 512) in "
+          f"{wall:.3f} s: {out['texts_per_s']:.1f} texts/s, "
+          f"{out['tokens_per_s']:.0f} tokens/s; card vs the CPU's f32 "
+          f"forward on 4 texts: cosine min {cos.min():.7f}, max |delta| "
+          f"{rel.max():.3%} of max |x|; peak on the card (weights + one "
+          f"64-text forward) {peak / 1e9:.2f} GB", flush=True)
+    if not cos.min() >= 0.9999:
+        raise RuntimeError(f"path 14 (c): the card's vectors differ from "
+                           f"the CPU's f32 forward (cosine {cos})")
+    return out
+
+
+def moe_embed(torch, lm) -> dict:
+    """Path 14 (d): one ``embed`` of 8 texts (110..300 byte tokens: the
+    buckets 256 and 512, each batch above 256 rows, so the experts take
+    their loop) on path 13's loaded qwen3moe: K1 at 32/4 heads launches,
+    the vectors are finite."""
+    import numpy as np
+    from ollama_operator_tpu_torch.ops import cuda_build
+    rng = np.random.default_rng(SEED + 17)
+    texts = ["".join(rng.choice(list("abcdefgh "), int(n)))
+             for n in rng.integers(110, 301, 8)]
+    lens = [len(lm.tokenizer.encode(t)) for t in texts]
+    for name in cuda_build.launches:
+        cuda_build.launches[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vecs = lm.embed(texts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(cuda_build.launches)
+    out = {"texts": len(texts), "token_lengths": lens, "wall_s": wall,
+           "launches": launched, "finite": bool(np.isfinite(vecs).all()),
+           "shape": list(vecs.shape)}
+    print(f"path 14 (d): qwen3moe ({lm.cfg.n_layers} layers) embed of 8 "
+          f"texts ({sum(lens)} tokens, buckets "
+          f"{sorted({bucket_of(n) for n in lens})}) in {wall:.3f} s; "
+          f"launches {launched}; finite {out['finite']}", flush=True)
+    if not out["finite"] or launched.get("flash_prefill", 0) <= 0:
+        raise RuntimeError(f"path 14 (d): {out}")
+    return out
+
+
+
+def gguf_tokenizer(path: str):
+    """The tokenizer of a GGUF file's metadata."""
+    from ollama_operator_tpu_torch.gguf.reader import GGUFFile
+    from ollama_operator_tpu_torch.tokenizer import Tokenizer
+    with GGUFFile(path) as f:
+        return Tokenizer.from_gguf_metadata(
+            {k: v for k, v in f.metadata.items()
+             if k.startswith("tokenizer.")})
+
+
+def embed_server_phases(torch, details, card: str, ms, ref: str, tokenizer,
+                        workdir: str) -> dict:
+    """Path 14 (a) and then (c) on the model server ``ms`` serving the
+    llama3.2:3b GGUF ``ref``; their results and times go to
+    ``details["embed_path"]``. Returns (a)'s."""
+    ep = details.setdefault("embed_path", {})
+    el = ep.setdefault("elapsed_s", {})
+    t0 = time.perf_counter()
+    ep["a"] = embed_phase(card, ms, ref, tokenizer)
+    el["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ep["c"] = encoder_phase(torch, card, ms, workdir)
+    el["c"] = time.perf_counter() - t0
+    return ep["a"]
+
+
+def embed_checks(torch, details, timer, report):
+    """Path 14 (b) and the kernel rows at the embedding shapes: K1 and K7
+    at (a)'s largest bucket, K8 at (b)'s [32, 512] batch."""
+    t0 = time.perf_counter()
+    ep = details.setdefault("embed_path", {})
+    T, (_, rows) = max((int(T), v) for T, v in ep["a"]["buckets"].items())
+    ep["b"] = [embed_cross_check(torch, details, "llama3.1", 4),
+               embed_cross_check(torch, details, "llama3.2:3b", 8)]
+    ep["kernel_rows"] = embed_kernel_rows(torch, timer, report, rows, 32, T)
+    ep.setdefault("elapsed_s", {})["b"] = time.perf_counter() - t0
+
+
+def embed_total(details) -> float:
+    """Path 14's seconds in all, printed and recorded."""
+    el = details["embed_path"]["elapsed_s"]
+    el["total"] = sum(v for k, v in el.items() if k != "total")
+    print(f"path 14 seconds: {el}", flush=True)
+    return el["total"]
+
+
+def embed_only(torch, details, card: str, timer, report):
+    """``--embed-only``: path 14 alone. The llama3.2:3b GGUF is written
+    from the seed, uploaded to a model server's store through /api/blobs
+    and created by ``files`` (the authoring routes in the place of path
+    9's pull), loaded, and (a) and (c) run on it; then (b), the kernel
+    rows, and (d) on qwen3moe cut to 4 layers."""
+    from ollama_operator_tpu_torch.models.config import get_config
+    from ollama_operator_tpu_torch.server.app import ModelManager
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_embed_")
+    ms = None
+    try:
+        t0 = time.perf_counter()
+        g = write_gguf_model(os.path.join(workdir, "model.gguf"),
+                             get_config(GGUF_MODEL))
+        tok = gguf_tokenizer(g["path"])
+        ms = PortServer(["--store", os.path.join(workdir, "store"),
+                         "--cache", os.path.join(workdir, "cache")],
+                        os.path.join(workdir, "model.log"))
+        ms.wait_ready()
+        digest = sha256_file(g["path"])
+        if upload_blob(ms.port, g["path"], digest) != 201:
+            raise RuntimeError("the GGUF upload failed")
+        s, _, b = call(ms.port, "/api/create", {
+            "model": GGUF_MODEL, "files": {"model.gguf": digest},
+            "template": CHAT_TEMPLATE, "parameters": {"temperature": 0},
+            "stream": False})
+        if s != 200:
+            raise RuntimeError(f"/api/create answered {s}: {b}")
+        s, _, b = call(ms.port, "/api/generate", {"model": GGUF_MODEL,
+                                                  "prompt": ""})
+        ps = ms.get("/api/ps")["models"][0]["details"]
+        if s != 200 or (ps["serving_dtype"], ps["paged"]) != ("int8", True):
+            raise RuntimeError(f"the created model loads as {s} {b} {ps}")
+        print(f"embed-only: {GGUF_MODEL} written, uploaded, created and "
+              f"loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+        launches = embed_server_phases(torch, details, card, ms, GGUF_MODEL,
+                                       tok, workdir)["launches"]
+    finally:
+        if ms is not None:
+            ms.stop()
+            ms.log.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    embed_checks(torch, details, timer, report)
+    cfg = dataclasses.replace(model_config("qwen3moe"), n_layers=4)
+    mm = ModelManager()
+    try:
+        lm = mm.preload("qwen3moe", cfg, dense_params(torch, cfg),
+                        byte_tokenizer(cfg.vocab_size))
+        t0 = time.perf_counter()
+        details["embed_path"]["d"] = moe_embed(torch, lm)
+        details["embed_path"]["elapsed_s"]["d"] = time.perf_counter() - t0
+    finally:
+        mm.shutdown()
+    embed_total(details)
+    return launches
 
 DRIFT_DEPTHS = (2, 6, 12, 34)
 
@@ -4011,6 +4665,12 @@ def main() -> int:
                     help="build the kernels, then time one MoE layer and "
                          "run the mixture-of-experts cross-checks and path "
                          "13 (qwen3moe at full depth) alone; no result line")
+    ap.add_argument("--embed-only", action="store_true",
+                    help="build the kernels, then run path 14 (decoder "
+                         "embeddings on a created llama3.2:3b, the "
+                         "embedding cross-checks and kernel rows, the "
+                         "mxbai-embed-large encoder, one embed on a "
+                         "4-layer qwen3moe) alone; no result line")
     ap.add_argument("--gguf-only", action="store_true",
                     help="build the kernels, then run paths 9, 10 and 11 "
                          "(the pulled GGUF model, its chat and structured "
@@ -4124,6 +4784,8 @@ def main() -> int:
             e.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=library_ms, shape=shape)
 
+    report.rows = rows
+
     if args.families_only:
         try:
             gemma3_phase(torch, details)
@@ -4162,7 +4824,8 @@ def main() -> int:
     if args.gguf_only:
         workdir = tempfile.mkdtemp(prefix="chip_smoke_gguf_")
         try:
-            _, _, _, tokenizer = gguf_phase(torch, details, card, workdir)
+            _, _, _, tokenizer, _ = gguf_phase(torch, details, card,
+                                               workdir)
             grammar_cross_check(torch, details, card, tokenizer)
             replay_cross_check(torch, details, card, tokenizer)
         except Exception as e:  # noqa: BLE001 — the phase's failure
@@ -4175,6 +4838,16 @@ def main() -> int:
         print("gguf-only run (paths 9, 10 and 11): no kernel rows; no "
               "result",
               flush=True)
+        return 4
+    if args.embed_only:
+        try:
+            embed_only(torch, details, card, Timer(torch), report)
+        except Exception as e:  # noqa: BLE001 — the phase's failure
+            import traceback
+            traceback.print_exc()
+            return fail(f"path 14: {e!r}")
+        write_details(out_dir, details)
+        print("embed-only run (path 14): no result", flush=True)
         return 4
     try:
         timer = Timer(torch)
@@ -4246,11 +4919,16 @@ def main() -> int:
         workdir = tempfile.mkdtemp(prefix="chip_smoke_gguf_")
         try:
             (launches_by_path[GGUF_PATH], launches_by_path[CHAT_PATH],
-             launches_by_path[LIFE_PATH],
-             tokenizer) = gguf_phase(torch, details, card, workdir)
+             launches_by_path[LIFE_PATH], tokenizer,
+             launches_by_path[EMBED_PATH]) = gguf_phase(torch, details, card,
+                                                        workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         lap("paths 9-11")
+        # path 14 (b) and the kernel rows at its shapes ((a) and (c) ran
+        # on path 9's server above, (d) runs on path 13's model below)
+        embed_checks(torch, details, timer, report)
+        lap("path 14 (b) and its kernel rows")
         # 8. path 10's grammar cross-check in this process
         grammar_cross_check(torch, details, card, tokenizer)
         lap("grammar cross-check")
@@ -4266,7 +4944,10 @@ def main() -> int:
         # 11. path 13: qwen3moe at full width and depth (61 GB of bf16
         # weights: every earlier path has released the card)
         launches_by_path[MOE_PATH] = moe_phase(torch, details)
+        launches_by_path[EMBED_MOE_PATH] = details["embed_path"]["d"][
+            "launches"]
         lap("path 13")
+        embed_total(details)
     except Exception as e:  # noqa: BLE001 — every phase failure is fatal
         import traceback
         traceback.print_exc()

@@ -4,8 +4,10 @@ The JAX package's params tree (``jax.tree_util.tree_map(np.asarray,
 params)`` on the caller's side, or a GGUF transcode's numpy tree) maps
 one to one onto the port's: the same keys, the same stacked ``[L, ...]``
 layer leaves, weights ``[K, O]``, and quantized leaves as ``{"q4", "s"}``
-or ``{"q", "s"}`` dicts. Only the array type changes, so the JAX decoder
-and the port compute on identical weights. bfloat16 leaves come either as
+or ``{"q", "s"}`` dicts. The encoder's tree (``models/encoder.py``:
+tables, stacked ``[L, ...]`` layer leaves, f32) carries over the same
+way. Only the array type changes, so the JAX models and the port compute
+on identical weights. bfloat16 leaves come either as
 numpy's extension dtype (as JAX hands them out) or as uint16 arrays of
 their bit patterns (as the port's GGUF transcode and weight cache hold
 them: the port has no bfloat16 numpy type).

@@ -19,8 +19,11 @@ agree. ``convert.params_from_numpy`` carries the tree to the card.
 
 Transcoded output is cached through gguf/store.py, keyed by (content
 digest, dtype) exactly as the JAX package keys it, so either package reads
-the other's cache. Vision towers, encoders and LoRA adapters are not
-ported; ``server/app.py`` refuses models that need them.
+the other's cache. BERT-family encoders (embedding models) map through
+``encoder_config_from_gguf`` and ``load_encoder_params`` to
+``models/encoder.py``, uncached, as in the JAX package. Vision towers
+and LoRA adapters are not ported; ``server/app.py`` refuses models that
+need them.
 """
 
 from __future__ import annotations
@@ -43,11 +46,13 @@ from .store import TensorStore, TensorStoreWriter
 # carry arch "llama")
 _INTERLEAVED_ROPE_ARCHES = {"llama", "granite", "command-r"}
 
-# the JAX package's encoder (embedding-only) arches, refused by the port
+# embedding-only arches: served by models/encoder.py without an Engine
 ENCODER_ARCHES = ("bert",)
 
 
 def is_encoder_arch(arch: str) -> bool:
+    """True for embedding-only architectures, which load as
+    ``runtime/service.EmbeddingModel`` (no Engine, no KV cache)."""
     return arch in ENCODER_ARCHES
 
 
@@ -503,6 +508,71 @@ def load_params(f: GGUFFile, cfg: Optional[ModelConfig] = None,
 
     params["layers"] = {k: v for k, v in layers.items() if v is not None}
     return params
+
+
+# ---------------------------------------------------------------------------
+# encoders (bert)
+# ---------------------------------------------------------------------------
+
+def encoder_config_from_gguf(f: GGUFFile):
+    """'<arch>.*' metadata → models.encoder.EncoderConfig (bert family).
+    ``pooling_type`` 1 is mean pooling and 2 the [CLS] row; any other
+    raises, as in the JAX package (a wrong pooling gives silently wrong
+    embeddings)."""
+    from ..models.encoder import EncoderConfig
+    pooling = int(f.field("pooling_type", 1) or 1)
+    if pooling not in (1, 2):
+        raise NotImplementedError(
+            f"unsupported bert pooling_type {pooling} (mean=1 and cls=2 "
+            f"are implemented)")
+    return EncoderConfig(
+        vocab_size=len(f.metadata["tokenizer.ggml.tokens"]),
+        dim=int(f.field("embedding_length")),
+        n_layers=int(f.field("block_count")),
+        n_heads=int(f.field("attention.head_count")),
+        ffn_dim=int(f.field("feed_forward_length")),
+        max_seq_len=int(f.field("context_length", 512)),
+        norm_eps=float(f.field("attention.layer_norm_epsilon", 1e-12)),
+        pooling={1: "mean", 2: "cls"}[pooling],
+        arch=f.arch)
+
+
+def load_encoder_params(f: GGUFFile, cfg=None,
+                        dtype=np.float32) -> Dict[str, Any]:
+    """llama.cpp's BERT tensor names (attn_output_norm the post-attention
+    LayerNorm, layer_output_norm the post-FFN one) → the models.encoder
+    param tree of numpy arrays, weights transposed to [in, out] and layer
+    leaves stacked on a leading axis."""
+    cfg = cfg or encoder_config_from_gguf(f)
+
+    def cast(a):
+        return np.ascontiguousarray(a, dtype=dtype)
+
+    def stack(fmt: str, transpose: bool = False):
+        return np.stack([cast(_dq(f, fmt.format(i)).T if transpose
+                              else _dq(f, fmt.format(i)))
+                         for i in range(cfg.n_layers)])
+
+    layers = {}
+    for leaf, name in (("q", "attn_q"), ("k", "attn_k"), ("v", "attn_v"),
+                       ("o", "attn_output")):
+        layers[f"w{leaf}"] = stack(f"blk.{{}}.{name}.weight", True)
+        layers[f"b{leaf}"] = stack(f"blk.{{}}.{name}.bias")
+    layers.update(
+        attn_norm_w=stack("blk.{}.attn_output_norm.weight"),
+        attn_norm_b=stack("blk.{}.attn_output_norm.bias"),
+        w_up=stack("blk.{}.ffn_up.weight", True),
+        b_up=stack("blk.{}.ffn_up.bias"),
+        w_down=stack("blk.{}.ffn_down.weight", True),
+        b_down=stack("blk.{}.ffn_down.bias"),
+        ffn_norm_w=stack("blk.{}.layer_output_norm.weight"),
+        ffn_norm_b=stack("blk.{}.layer_output_norm.bias"))
+    return {"tok_emb": cast(_dq(f, "token_embd.weight")),
+            "pos_emb": cast(_dq(f, "position_embd.weight")),
+            "type_emb": cast(_dq(f, "token_types.weight")),
+            "emb_norm_w": cast(_dq(f, "token_embd_norm.weight")),
+            "emb_norm_b": cast(_dq(f, "token_embd_norm.bias")),
+            "layers": layers}
 
 
 # ---------------------------------------------------------------------------

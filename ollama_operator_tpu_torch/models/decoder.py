@@ -457,6 +457,49 @@ def prefill_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor
     return x, torch.stack(ks), torch.stack(vs)
 
 
+def embed_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  n_valid: torch.Tensor) -> torch.Tensor:
+    """Mean-pooled final hidden states (the JAX ``LoadedModel.embed``
+    body): tokens [B, T] right-padded, n_valid [B] → [B, D] f32.
+
+    The layers of :func:`prefill_hidden` with no K/V kept (nobody reads
+    them), then the final norm. As in the JAX body, every layer takes one
+    mask (causal, within ``cfg.sliding_window``) and the global rope, the
+    alternating archs included: their attention goes through the masked
+    einsum, every other arch's through the flash-prefill kernel; the
+    projections through the quantized matmuls, the experts through
+    :func:`_moe_mlp`. The pooling rounds where XLA rounds the JAX body's
+    bf16 pooling (which widens bf16 arithmetic to f32 and drops the
+    f32 → bf16 → f32 round trips between elementwise steps): the normed
+    rows, the masked sum and the valid count each in x's dtype (a bf16
+    count of 257..512 rows rounds to even), the division in f32."""
+    B, T = tokens.shape
+    dev = tokens.device
+    scale = _attn_scale(cfg)
+    positions = torch.arange(T, device=dev).expand(B, T)
+    cos, sin = rope_angles_cfg(positions, cfg)
+    if cfg.altern_sliding:
+        mask = causal_mask(T, T, 0, cfg.sliding_window, device=dev)
+    x = _embed(cfg, params, tokens)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = _norm(cfg, x, lp["attn_norm_w"], lp.get("attn_norm_b"))
+        q, k, v = _qkv(cfg, lp, h, cos, sin)
+        k = k.transpose(1, 2)                          # [B, KvH, T, hd]
+        v = v.transpose(1, 2)
+        if cfg.altern_sliding:
+            attn = attend_hf(q, k, v, mask, scale, cfg.attn_softcap)
+        else:
+            attn = chunk_attention(cfg, q, k, v, scale)
+        x = _residual(cfg, lp, x, h, _proj_out(cfg, lp, attn))
+    x = _norm(cfg, x, params["out_norm_w"], params.get("out_norm_b"))
+    valid = (torch.arange(T, device=dev)[None, :]
+             < n_valid[:, None]).to(x.dtype)
+    total = (x * valid[:, :, None]).sum(1)
+    count = torch.clamp(valid.sum(1, keepdim=True), min=1)
+    return total.float() / count.float()
+
+
 def prefill_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A fresh chunk at positions [0, T) with no prior cache.

@@ -149,7 +149,7 @@ def flash_prefill(q, k, v, scale: float, softcap: float = 0.0,
             B, T, H, KvH, hd, float(scale), float(softcap or 0.0),
             int(sliding_window), torch.cuda.current_stream().cuda_stream)
     cuda_build.check(rc, "flash_prefill")
-    cuda_build.launches["flash_prefill"] += 1
+    cuda_build.count("flash_prefill")
     return out
 
 
@@ -305,7 +305,7 @@ def _decode_launch(mha: bool, q, k_cache, v_cache, q_pos, scale: float,
             float(scale), float(softcap or 0.0), int(sliding_window), chunk,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(rc, name)
-    cuda_build.launches[name] += 1
+    cuda_build.count(name)
     return out
 
 

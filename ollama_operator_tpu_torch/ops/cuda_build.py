@@ -42,6 +42,15 @@ COUNTERS = ("flash_prefill", "paged_decode", "paged_decode_int4",
             "paged_decode_v2", "paged_decode_v4", "qmm4", "qmm",
             "decode_attention", "mha_decode")
 launches: Dict[str, int] = {name: 0 for name in COUNTERS}
+_count_lock = threading.Lock()
+
+
+def count(name: str) -> None:
+    """Add one launch of kernel ``name``. Under a lock: an embedding on an
+    HTTP thread and the decode loop launch the same kernels at once, and
+    ``+=`` on a dict entry is a read and a write that threads can split."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def _nvcc() -> str:

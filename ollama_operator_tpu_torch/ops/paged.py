@@ -347,7 +347,7 @@ def _paged(route: str, q, k_pool, v_pool, layer: int, tables, lengths,
         counter = "paged_decode_int4"
     else:
         counter = "paged_decode"
-    cuda_build.launches[counter] += 1
+    cuda_build.count(counter)
     return out
 
 

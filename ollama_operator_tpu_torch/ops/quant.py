@@ -251,7 +251,7 @@ def _launch(name: str, x: torch.Tensor, codes: torch.Tensor,
             work.data_ptr(), N, K, O, *shape,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(rc, name)
-    cuda_build.launches[name] += 1
+    cuda_build.count(name)
     return out
 
 

@@ -5,7 +5,10 @@ be reused: it imports the JAX engine). One background thread runs one
 step at a time: it sheds what can no longer be served, advances one piece
 of a chunked prefill, admits waiting requests into free slots, runs one
 decode dispatch for every decoding slot, and fans the tokens out to
-per-request queues, one queue item per dispatch.
+per-request queues, one queue item per dispatch. An embedding model (a
+BERT encoder) has no scheduler: it carries the quiet facade
+``runtime/service._IdleScheduler``, and a decoder's embeddings run on the
+caller's thread beside this loop (``LoadedModel.embed``).
 
 The waiting line is the reference's admission policy
 (``runtime/admission.py``): strict priority classes (``high``, ``normal``,

@@ -1,12 +1,13 @@
 """LoadedModel: one resident model = engine + scheduler + tokenizer +
-prompt template + default options.
+prompt template + default options; EmbeddingModel: one resident encoder.
 
 Counterpart of ``ollama_operator_tpu/runtime/service.py``: the text-level
 API the HTTP layer calls (prompt and chat templating, option merging, stop
 sequences with holdback, streaming detokenisation, the grammar constraint
-of ``format``, and the request budgets: ``deadline_ms``, ``priority``,
-``tenant`` and ``ttft_slo_ms``, resolved as the reference resolves them).
-Everything below it is token-level.
+of ``format``, the request budgets: ``deadline_ms``, ``priority``,
+``tenant`` and ``ttft_slo_ms``, resolved as the reference resolves them,
+and embeddings: mean-pooled final hidden states of a decoder, or a BERT
+encoder's pooled output). Everything below it is token-level.
 """
 
 from __future__ import annotations
@@ -15,11 +16,17 @@ import dataclasses
 import json
 import os
 import sys
+import threading
 import time
 from collections import OrderedDict
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
+import torch
+
 from ..device import resolve_device
+from ..models import decoder as D
+from ..models import encoder as E
 from ..models.config import ModelConfig
 from ..ops.constrain import JsonConstraint
 from ..ops.schema import SchemaConstraint, compile_schema
@@ -33,8 +40,8 @@ from .engine import (Engine, EngineConfig, SlotOptions, resolve_cache_dtype,
 from .errors import BadRequest
 from .scheduler import Scheduler
 
-__all__ = ["BadRequest", "GenerateResult", "LoadedModel", "merge_options",
-           "resolve_deadline_s"]
+__all__ = ["BadRequest", "EmbeddingModel", "GenerateResult", "LoadedModel",
+           "merge_options", "resolve_deadline_s"]
 
 
 def resolve_deadline_s(defaults: Optional[Dict],
@@ -251,6 +258,8 @@ class LoadedModel:
         self.ecfg = ecfg
         self.engine = Engine(cfg, params, ecfg=ecfg, device=self.device)
         self.scheduler = Scheduler(self.engine)
+        # embeddings run on the caller's thread, one at a time
+        self._embed_lock = threading.Lock()
         # compiled JSON schemas of recent ``format`` requests (None for a
         # schema outside the supported subset), least recently used first
         self._schemas: "OrderedDict[str, object]" = OrderedDict()
@@ -474,6 +483,39 @@ class LoadedModel:
                 final = res
         return final
 
+    def embed(self, texts: List[str]) -> np.ndarray:
+        """Mean-pooled final hidden states (ollama /api/embeddings), as the
+        JAX ``LoadedModel.embed``: each text tokenized, texts bucketed by
+        length (T = max(16, the next power of two)), each bucket run as
+        one [n_pad, T] batch (n_pad the next power of two of its texts) by
+        :func:`decoder.embed_forward`, rows returned in input order as
+        [N, D] float32. Runs on the caller's thread, on the stream the
+        decode loop enqueues to, one call at a time."""
+        with self._embed_lock:
+            all_ids = [self.tokenizer.encode(t) for t in texts]
+            buckets: Dict[int, List[int]] = {}
+            for i, ids in enumerate(all_ids):
+                T = max(16, 1 << (max(len(ids), 1) - 1).bit_length())
+                buckets.setdefault(T, []).append(i)
+            outs: List[Optional[np.ndarray]] = [None] * len(texts)
+            dev = self.device
+            for T, idxs in sorted(buckets.items()):
+                n_pad = 1 << (len(idxs) - 1).bit_length()
+                toks = np.zeros((n_pad, T), np.int64)
+                lens = np.zeros((n_pad,), np.int64)
+                for row, i in enumerate(idxs):
+                    ids = all_ids[i]
+                    toks[row, :len(ids)] = ids
+                    lens[row] = len(ids)
+                with torch.inference_mode():
+                    out = D.embed_forward(
+                        self.engine.params, self.cfg,
+                        torch.from_numpy(toks).to(dev),
+                        torch.from_numpy(lens).to(dev)).cpu().numpy()
+                for row, i in enumerate(idxs):
+                    outs[i] = out[row]
+            return np.stack(outs)
+
     def begin_drain(self):
         self.scheduler.begin_drain()
 
@@ -492,3 +534,71 @@ class LoadedModel:
         while self.scheduler.has_pending and self.scheduler.broken is None:
             time.sleep(poll_s)
         self.unload()
+
+
+class _IdleScheduler:
+    """Scheduler facade for embedding-only models: always quiet, never
+    broken. The model manager's reaper, probes, drain and ``/api/ps`` read
+    these fields on every resident model; an encoder has no decode loop,
+    so they stay "off"."""
+    n_active = 0
+    qsize = 0
+    has_pending = False
+    broken = None
+    n_restarts = 0
+    prefix_hit_tokens = 0
+    prefix_miss_tokens = 0
+
+    def admission_stats(self) -> dict:
+        return {}   # no waiting line to police
+
+    def lifecycle_stats(self) -> dict:
+        return {}   # nothing to replay, drain or watch
+
+    def utilization_stats(self, window_s: float = 60.0) -> dict:
+        return {}   # no dispatches to account
+
+
+class EmbeddingModel:
+    """A resident encoder (BERT family) on ``device`` (the card unless the
+    caller asks for the CPU): a tokenizer and one bidirectional forward
+    (``models/encoder.py``), no Engine, KV cache or decode loop. It serves
+    /api/embed, /api/embeddings and /v1/embeddings; the generation
+    surface answers 400, as the JAX ``EmbeddingModel`` does. ``params``
+    is a tree of f32 tensors on ``device``."""
+
+    def __init__(self, name: str, cfg, params, tokenizer: Tokenizer,
+                 digest: Optional[str] = None, device="cuda"):
+        self.device = resolve_device(device)
+        self.name = name
+        self.cfg = cfg
+        self.digest = digest
+        self.tokenizer = tokenizer
+        self.loaded_at = time.time()
+        self.params = params
+        self.scheduler = _IdleScheduler()
+        self.serving_dtype = "float32"
+        self.is_encoder = True
+        self._lock = threading.Lock()
+
+    def embed(self, texts: List[str]) -> np.ndarray:
+        """[N, D] float32, unnormalized (``encoder.embed_batch``)."""
+        ids = [self.tokenizer.encode(t) for t in texts]
+        with self._lock:
+            return E.embed_batch(self.params, self.cfg, ids)
+
+    def _reject(self, *_a, **_kw):
+        raise BadRequest(f"{self.name!r} is an embedding model (arch "
+                         f"{self.cfg.arch}); it does not support "
+                         f"generation — use /api/embed")
+
+    generate = generate_stream = render_chat = render_prompt = _reject
+
+    def begin_drain(self):
+        pass        # no streams: the drain is instant
+
+    def drain(self, timeout_s: Optional[float] = None) -> int:
+        return 0
+
+    def unload(self):
+        self.params = None

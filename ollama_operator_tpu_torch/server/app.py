@@ -12,8 +12,24 @@ port serves:
                           process's kernel launch counts)
   POST /api/pull          pull a model from its registry into the blob
                           store, progress streamed (NDJSON) or not
+  POST /api/push          push a store model to its registry (HEAD a
+                          blob, upload what it lacks, then the manifest)
+  POST /api/blobs/<digest>  a client's blob upload (the body, checked
+                          against its sha256); HEAD: is it in the store?
+  POST /api/create        a store model from a Modelfile (``modelfile``),
+                          an uploaded GGUF (``files``) or a model name
+                          (``from``): FROM @digest, FROM a store model
+                          (its layers inherited, parameters merged) or
+                          FROM a server-side path; progress streamed
+  POST /api/copy          another name for a store model's manifest
   POST /api/show          modelfile, template, parameters, details
   DELETE /api/delete      remove a model from the store (POST too)
+  POST /api/embed         embeddings of ``input`` (a string or a list);
+                          /api/embeddings of ``prompt``; /v1/embeddings
+                          (OpenAI) of ``input``: a decoder's mean-pooled
+                          final hidden states, or a BERT encoder's pooled
+                          output, unnormalized, as the JAX server gives
+                          them
   POST /api/generate      generation, streamed (NDJSON) or not; ``suffix``
                           (fill-in-middle) as the reference renders it,
                           ``format`` ("json" or a JSON schema) decoded
@@ -46,6 +62,9 @@ port serves:
   POST /api/drain         start a graceful drain (the operator's
                           drain-first shrink): new work is shed with 503
                           and Retry-After, running streams finish
+
+An embedding model (a BERT GGUF) loads as ``runtime/service.EmbeddingModel``
+(f32, no engine); generation on it answers 400.
 
 Streamed responses are coalesced as the reference's are: the first piece
 goes out alone, then a frame every ``stream_flush_tokens`` tokens (16) or
@@ -93,7 +112,8 @@ from .. import __version__
 from ..convert import params_from_numpy
 from ..device import resolve_device
 from ..gguf.reader import GGUFFile
-from ..gguf.transcode import (config_from_gguf, is_encoder_arch,
+from ..gguf.transcode import (config_from_gguf, encoder_config_from_gguf,
+                              is_encoder_arch, load_encoder_params,
                               load_model as transcode_load)
 from ..models.decoder import check_supported
 from ..ops import cuda_build
@@ -103,15 +123,15 @@ from ..runtime.engine import (EngineConfig, resolve_engine_dtype,
                               resolve_serving_defaults)
 from ..runtime.errors import BadRequest, DeadlineExceeded
 from ..runtime.scheduler import SchedulerBroken, SchedulerBusy
-from ..runtime.service import LoadedModel
+from ..runtime.service import EmbeddingModel, LoadedModel
 from ..runtime.trace import FLIGHT, TRACER
 from ..tokenizer import Tokenizer
 from .metrics import GLOBAL as METRICS
-from .modelfile import Modelfile
+from .modelfile import Modelfile, params_json, parse_modelfile
 from .names import ModelName
 from .registry import (MT_ADAPTER, MT_LICENSE, MT_MODEL, MT_PARAMS,
                        MT_PROJECTOR, MT_SYSTEM, MT_TEMPLATE, ModelStore,
-                       RegistryClient, RegistryError)
+                       RegistryClient, RegistryError, valid_blob_digest)
 from .tools import split_tool_calls
 
 ENGINE_DTYPES = ("bfloat16", "float32", "int8", "int4")
@@ -276,7 +296,7 @@ def apply_engine_dtype(params: Dict[str, Any], engine_dtype: str,
 
 # the model-layer media types the port cannot serve yet: an adapter would
 # be merged into the weights, a projector is a vision tower (ROADMAP
-# Queue 1 item 8); serving the model without them would be wrong
+# Queue 1 item 9); serving the model without them would be wrong
 _UNPORTED_LAYERS = {MT_ADAPTER: "a LoRA adapter (ADAPTER) layer",
                     MT_PROJECTOR: "a vision projector (PROJECTOR) layer"}
 
@@ -506,14 +526,30 @@ class ModelManager:
             digest = store.model_digest(name) or ""
             with GGUFFile(gguf_path) as hdr:
                 if is_encoder_arch(hdr.arch):
-                    raise ApiError(501, f"model {name.short} is an "
-                                        f"embedding model ({hdr.arch}), "
-                                        f"which the torch port does not "
-                                        f"serve yet")
-                try:
-                    hcfg = check_supported(config_from_gguf(hdr))
-                except NotImplementedError as e:
-                    raise ApiError(501, f"model {name.short}: {e}") from e
+                    # an embedding model: the encoder's f32 weights and
+                    # tokenizer, no engine (read uncached, as the JAX
+                    # manager reads them)
+                    ecfg2 = encoder_config_from_gguf(hdr)
+                    enc = (ecfg2, load_encoder_params(hdr, ecfg2),
+                           {k: v for k, v in hdr.metadata.items()
+                            if k.startswith("tokenizer.")})
+                else:
+                    enc = None
+                    try:
+                        hcfg = check_supported(config_from_gguf(hdr))
+                    except NotImplementedError as e:
+                        raise ApiError(501, f"model {name.short}: {e}"
+                                       ) from e
+            if enc is not None:
+                ecfg2, eparams, tok_md = enc
+                self._unload_store_models()
+                lm = EmbeddingModel(
+                    name.short, ecfg2,
+                    params_from_numpy(eparams, self.device),
+                    Tokenizer.from_gguf_metadata(tok_md), digest=digest,
+                    device=self.device)
+                del eparams, enc
+                return self._install(lm)
             engine_dtype = self.engine_dtype
             if engine_dtype is None:
                 engine_dtype = resolve_engine_dtype(hcfg, self.device)
@@ -529,14 +565,7 @@ class ModelManager:
             system = self._read_layer_text(layers, MT_SYSTEM)
             params_raw = self._read_layer_text(layers, MT_PARAMS)
             default_params = json.loads(params_raw) if params_raw else {}
-            with self._lock:
-                old = [m for m in self._models.values()
-                       if m.digest is not None]
-                for m in old:
-                    del self._models[m.name]
-                    self._expires.pop(m.name, None)
-            for m in old:
-                m.unload()
+            self._unload_store_models()
             ecfg = self.ecfg or EngineConfig(max_seq_len=min(
                 cfg.max_seq_len, int(default_params.get("num_ctx", 4096))))
             lm = self._build(
@@ -546,14 +575,29 @@ class ModelManager:
                 ecfg=resolve_serving_defaults(ecfg, cfg, self.device))
             del params
             lm.digest = digest
-            with self._lock:
-                self._models[lm.name] = lm
-                if self.draining:
-                    lm.begin_drain()
-                ka = self.default_keep_alive
-                self._expires[lm.name] = (None if ka is None
-                                          else self._clock() + ka)
-            return lm
+            return self._install(lm)
+
+    def _unload_store_models(self):
+        """Unload every store-loaded model: one is resident at a time."""
+        with self._lock:
+            old = [m for m in self._models.values() if m.digest is not None]
+            for m in old:
+                del self._models[m.name]
+                self._expires.pop(m.name, None)
+        for m in old:
+            m.unload()
+
+    def _install(self, lm):
+        """Make the store-loaded ``lm`` resident at the default keep-alive
+        deadline."""
+        with self._lock:
+            self._models[lm.name] = lm
+            if self.draining:
+                lm.begin_drain()
+            ka = self.default_keep_alive
+            self._expires[lm.name] = (None if ka is None
+                                      else self._clock() + ka)
+        return lm
 
     def require_loaded(self, name: str, keep_alive=None) -> LoadedModel:
         """The model ``name``, loaded from the store if it is not resident
@@ -715,6 +759,8 @@ class ModelManager:
                 else 0)
         out = []
         for lm, exp in models:
+            # an embedding model has no engine: no decode chunk, no cache
+            eng = getattr(lm, "engine", None)
             if exp is None:
                 expires = "0001-01-01T00:00:00Z"  # keep forever
             else:
@@ -728,18 +774,20 @@ class ModelManager:
                 "details": {"format": "gguf", "family": lm.cfg.arch,
                             "parameter_size": _fmt_params(lm.cfg.n_params),
                             "serving_dtype": lm.serving_dtype,
-                            "decode_chunk": lm.engine.ecfg.decode_chunk,
-                            "paged": bool(lm.engine.paged)},
+                            "decode_chunk": (eng.ecfg.decode_chunk
+                                             if eng is not None else None),
+                            "paged": bool(eng is not None and eng.paged)},
                 "expires_at": expires,
                 "size_vram": vram,
                 "kernel_launches": dict(cuda_build.launches),
                 # the model's lifetime prefix-cache token counts and the
                 # pages its radix tree holds, as the JAX server reports
                 "prefix_cache": {
-                    "enabled": lm.engine.radix_enabled,
+                    "enabled": bool(eng is not None and eng.radix_enabled),
                     "hit_tokens": lm.scheduler.prefix_hit_tokens,
                     "miss_tokens": lm.scheduler.prefix_miss_tokens,
-                    "radix_pages": lm.engine.radix_pages},
+                    "radix_pages": eng.radix_pages if eng is not None
+                    else 0},
                 "failures": {
                     "broken": lm.scheduler.broken is not None,
                     "engine_restarts": lm.scheduler.n_restarts,
@@ -818,6 +866,100 @@ class ModelManager:
         resumes); ``progress(status, completed, total, digest=None)``."""
         self.require_store()
         return self.client.pull(ref, progress)
+
+    def push(self, ref: str, progress=None) -> ModelName:
+        """Push the store's model ``ref`` to its registry; ``progress`` as
+        for :meth:`pull`."""
+        self.require_store()
+        return self.client.push(ref, progress)
+
+    def copy(self, src: str, dst: str):
+        """``dst`` names the manifest of the store model ``src``."""
+        store = self.require_store()
+        sname, dname = ModelName.parse(src), ModelName.parse(dst)
+        manifest = store.read_manifest(sname)
+        if manifest is None:
+            raise ApiError(404, f"model {sname.short!r} not found")
+        store.write_manifest(dname, manifest)
+
+    def create(self, ref: str, modelfile_text: str, progress=None) -> None:
+        """A store model ``ref`` from a Modelfile, as the JAX manager
+        creates it. FROM ``@<digest>`` takes an uploaded blob as the model
+        layer; FROM a store model inherits each of its layers that the
+        Modelfile does not replace (its parameters merged under the
+        Modelfile's); FROM anything else is a GGUF path on the server's
+        filesystem, copied into the store. TEMPLATE, SYSTEM, PARAMETER,
+        LICENSE and ADAPTER lines add their layers (an ADAPTER model is
+        stored, and refused when loaded). ``progress(status, ...)``."""
+        store = self.require_store()
+        mf = parse_modelfile(modelfile_text)
+        if not mf.from_:
+            raise ApiError(400, "Modelfile needs a FROM line")
+        name = ModelName.parse(ref)
+        layers = []
+        base_params: Dict = {}
+        if mf.from_.startswith("@"):
+            digest = mf.from_[1:]
+            if not (valid_blob_digest(digest) and store.has_blob(digest)):
+                raise ApiError(400, f"FROM {mf.from_!r}: blob not "
+                                    "uploaded (POST /api/blobs/<digest>)")
+            layers.append({"mediaType": MT_MODEL, "digest": digest,
+                           "size": os.path.getsize(store.blob_path(digest))})
+        elif (base := store.read_manifest(
+                ModelName.parse(mf.from_))) is not None:
+            overridden = {mt for mt, v in ((MT_TEMPLATE, mf.template),
+                                           (MT_SYSTEM, mf.system),
+                                           (MT_LICENSE, mf.license),
+                                           (MT_ADAPTER, mf.adapter)) if v}
+            for layer in base.get("layers", []):
+                mt = layer["mediaType"]
+                if mt == MT_PARAMS:
+                    try:
+                        with open(store.blob_path(layer["digest"])) as f:
+                            base_params = json.load(f)
+                    except (OSError, json.JSONDecodeError):
+                        pass
+                    continue    # emitted below, merged
+                if mt not in overridden:
+                    layers.append(layer)
+        else:
+            if not os.path.exists(mf.from_):
+                raise ApiError(400, f"FROM {mf.from_!r}: not a local model "
+                                    "or file")
+            if progress:
+                progress("importing model blob", 0, 0)
+            layers.append({"mediaType": MT_MODEL,
+                           **store.add_blob_file(mf.from_)})
+        if mf.template:
+            layers.append({"mediaType": MT_TEMPLATE,
+                           **store.add_blob(mf.template.encode())})
+        if mf.system:
+            layers.append({"mediaType": MT_SYSTEM,
+                           **store.add_blob(mf.system.encode())})
+        if mf.parameters or base_params:
+            mf.parameters = {**base_params, **(mf.parameters or {})}
+            layers.append({"mediaType": MT_PARAMS,
+                           **store.add_blob(params_json(mf).encode())})
+        if mf.license:
+            layers.append({"mediaType": MT_LICENSE,
+                           **store.add_blob(mf.license.encode())})
+        if mf.adapter:
+            if not os.path.exists(mf.adapter):
+                raise ApiError(400, f"ADAPTER {mf.adapter!r}: no such file")
+            if progress:
+                progress("importing adapter", 0, 0)
+            layers.append({"mediaType": MT_ADAPTER,
+                           **store.add_blob_file(mf.adapter)})
+        config = store.add_blob(json.dumps({"model_format": "gguf"}).encode())
+        store.write_manifest(name, {
+            "schemaVersion": 2,
+            "mediaType": "application/vnd.docker.distribution.manifest"
+                         ".v2+json",
+            "config": {"mediaType": "application/vnd.docker.container"
+                                    ".image.v1+json", **config},
+            "layers": layers})
+        if progress:
+            progress("success", 0, 0)
 
     def shutdown(self):
         self._reaper_stop.set()
@@ -1011,8 +1153,8 @@ class Handler(BaseHTTPRequestHandler):
         if lm is None:
             self._send_json({"error": "no model loaded"}, 404)
             return
-        acct = lm.scheduler.acct
-        if not acct.enabled:
+        acct = getattr(lm.scheduler, "acct", None)
+        if acct is None or not acct.enabled:
             self._send_json({"enabled": False, "error": "accounting "
                              "disabled (TPU_ACCOUNTING=0)"})
             return
@@ -1060,7 +1202,17 @@ class Handler(BaseHTTPRequestHandler):
             self._send_json({"error": f"internal: {e}"}, 500)
 
     def do_HEAD(self):
-        ok = self.path.split("?")[0] == "/"
+        path = self.path.split("?")[0]
+        if path.startswith("/api/blobs/"):
+            # `ollama create` asks before uploading (200: skip the POST).
+            # The digest is checked before it reaches a path: an
+            # unchecked one would answer for any file on the host.
+            digest = path[len("/api/blobs/"):]
+            store = self.manager.store
+            ok = (valid_blob_digest(digest) and store is not None
+                  and store.has_blob(digest))
+        else:
+            ok = path == "/"
         self.send_response(200 if ok else 404)
         self.send_header("Content-Length", "0")
         self.end_headers()
@@ -1077,10 +1229,14 @@ class Handler(BaseHTTPRequestHandler):
             self._send_json({"error": f"internal: {e}"}, 500)
 
     _GENERATION = ("/api/generate", "/api/chat", "/v1/chat/completions",
-                   "/v1/completions")
+                   "/v1/completions", "/api/embed", "/api/embeddings",
+                   "/v1/embeddings")
 
     def do_POST(self):
         path = self.path.split("?")[0]
+        if path.startswith("/api/blobs/"):
+            self._api_blob_upload(path[len("/api/blobs/"):])
+            return
         tracked = path in self._GENERATION
         if tracked:
             self.manager.track(1)
@@ -1089,11 +1245,17 @@ class Handler(BaseHTTPRequestHandler):
             route = {"/api/generate": self._api_generate,
                      "/api/chat": self._api_chat,
                      "/api/pull": self._api_pull,
+                     "/api/push": self._api_push,
+                     "/api/create": self._api_create,
+                     "/api/copy": self._api_copy,
                      "/api/show": self._api_show,
                      "/api/delete": self._api_delete,
                      "/api/drain": self._api_drain,
+                     "/api/embed": self._api_embed,
+                     "/api/embeddings": self._api_embeddings,
                      "/v1/chat/completions": self._oai_chat,
                      "/v1/completions": self._oai_completions,
+                     "/v1/embeddings": self._oai_embeddings,
                      }.get(path)
             if route is None:
                 raise ApiError(404, "not found")
@@ -1168,29 +1330,138 @@ class Handler(BaseHTTPRequestHandler):
     def _api_pull(self, body: Dict):
         model = self._model_arg(body)
         self.manager.require_store()
-        if not body.get("stream", True):
+        if body.get("stream", True):
+            self._progress_stream(lambda p: self.manager.pull(model, p))
+        else:
             self.manager.pull(model)
             self._send_json({"status": "success"})
-            return
+
+    def _progress_stream(self, run):
+        """``run(progress)`` with its progress streamed as NDJSON lines; a
+        RegistryError or ApiError becomes the stream's last line."""
         self._start_stream()
 
-        def progress(status, completed, total, digest=None):
+        def progress(status, completed=0, total=0, digest=None):
             msg = {"status": status}
             if total:
                 msg["total"] = total
                 msg["completed"] = completed
             if digest:
                 msg["digest"] = digest
-            self._chunk(json.dumps(msg).encode() + b"\n")
+            self._stream_json(msg)
 
         try:
-            self.manager.pull(model, progress)
-        except RegistryError as e:
+            run(progress)
+        except (RegistryError, ApiError) as e:
             self._stream_json({"error": str(e)})
         self._end_stream()
 
+    def _api_push(self, body: Dict):
+        model = self._model_arg(body)
+        self.manager.require_store()
+        if body.get("stream", True):
+            self._progress_stream(lambda p: self.manager.push(model, p))
+        else:
+            self.manager.push(model)
+            self._send_json({"status": "success"})
+
+    def _api_blob_upload(self, digest: str):
+        """POST /api/blobs/sha256:<hex>: the raw body is the blob (the CLI
+        uploads a local GGUF here before /api/create names it). An error
+        answered without reading the declared body would leave the blob's
+        bytes on the keep-alive socket, to be parsed as the next request,
+        so every error closes the connection."""
+        try:
+            length = int(self.headers.get("Content-Length", "0"))
+            if length <= 0:
+                self.close_connection = True
+                self._send_error("missing blob body", 400)
+                return
+            if not valid_blob_digest(digest):
+                self.close_connection = True
+                self._send_error(f"unsupported digest {digest!r}", 400)
+                return
+            self.manager.require_store().put_blob_stream(digest, self.rfile,
+                                                         length)
+            self.send_response(201)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+        except (RegistryError, ApiError) as e:
+            self.close_connection = True
+            self._send_error(str(e), getattr(e, "status", 400))
+        except (BrokenPipeError, ConnectionResetError):
+            pass
+        except Exception as e:  # noqa: BLE001 — the request boundary
+            self.close_connection = True
+            self._send_error(f"internal: {e}", 500)
+
+    def _api_create(self, body: Dict):
+        model = self._model_arg(body)
+        modelfile_text = body.get("modelfile", "")
+        if not modelfile_text and body.get("files"):
+            # {"files": {"x.gguf": "sha256:..."}} of uploaded blobs
+            files = body["files"]
+            if len(files) != 1:
+                raise ApiError(400, "multi-file create is not supported "
+                                    "(one GGUF per model)")
+            lines = [f"FROM @{next(iter(files.values()))}"]
+            if body.get("template"):
+                lines.append('TEMPLATE """' + body["template"] + '"""')
+            if body.get("system"):
+                lines.append('SYSTEM """' + body["system"] + '"""')
+            for k, v in (body.get("parameters") or {}).items():
+                lines.extend(f"PARAMETER {k} {item}"
+                             for item in (v if isinstance(v, list) else [v]))
+            modelfile_text = "\n".join(lines)
+        if not modelfile_text and body.get("from"):
+            modelfile_text = f"FROM {body['from']}"
+        if body.get("stream", True):
+            self._progress_stream(lambda p: self.manager.create(
+                model, modelfile_text, p))
+        else:
+            self.manager.create(model, modelfile_text)
+            self._send_json({"status": "success"})
+
+    def _api_copy(self, body: Dict):
+        src, dst = body.get("source"), body.get("destination")
+        if not src or not dst:
+            raise ApiError(400, "need 'source' and 'destination'")
+        self.manager.copy(src, dst)
+        self._send_json({})
+
     def _api_show(self, body: Dict):
         self._send_json(self.manager.show(self._model_arg(body)))
+
+    # -- embeddings ----------------------------------------------------------
+    def _embed_input(self, body: Dict):
+        """The model (loaded with the request's ``keep_alive``) and the
+        embeddings of ``input``, a string or a list of strings."""
+        lm = self.manager.require_loaded(self._model_arg(body),
+                                         keep_alive=body.get("keep_alive"))
+        inp = body.get("input", "")
+        texts = [inp] if isinstance(inp, str) else list(inp)
+        return lm.embed(texts)
+
+    def _api_embeddings(self, body: Dict):
+        lm = self.manager.require_loaded(self._model_arg(body),
+                                         keep_alive=body.get("keep_alive"))
+        emb = lm.embed([body.get("prompt", "")])[0]
+        self._send_json({"embedding": [float(x) for x in emb]})
+
+    def _api_embed(self, body: Dict):
+        embs = self._embed_input(body)
+        self._send_json({
+            "model": body.get("model"), "object": "list",
+            "embeddings": [[float(x) for x in e] for e in embs]})
+
+    def _oai_embeddings(self, body: Dict):
+        embs = self._embed_input(body)
+        self._send_json({
+            "object": "list", "model": body.get("model"),
+            "data": [{"object": "embedding", "index": i,
+                      "embedding": [float(x) for x in e]}
+                     for i, e in enumerate(embs)],
+            "usage": {"prompt_tokens": 0, "total_tokens": 0}})
 
     def _api_delete(self, body: Dict):
         self.manager.delete(self._model_arg(body))
@@ -1498,10 +1769,14 @@ def _register_gauges(manager: ModelManager):
     resident models (a weak reference: a stopped manager reads 0)."""
     ref = weakref.ref(manager)
 
-    def over_models(fn):
+    def over_models(fn, engines=False):
+        """Sum ``fn`` over the resident models (with ``engines``, over those
+        that have an engine: an embedding model has none)."""
         def total():
             mm = ref()
-            return float(sum(fn(lm) for lm in mm.resident())) if mm else 0.0
+            return float(sum(fn(lm) for lm in mm.resident()
+                             if not engines or hasattr(lm, "engine"))
+                         ) if mm else 0.0
         return total
 
     def util(field):
@@ -1520,9 +1795,9 @@ def _register_gauges(manager: ModelManager):
             ("tpu_model_queue_depth",
              over_models(lambda lm: lm.scheduler.qsize)),
             ("tpu_model_kv_free_pages",
-             over_models(lambda lm: lm.engine.free_pages)),
+             over_models(lambda lm: lm.engine.free_pages, engines=True)),
             ("tpu_model_radix_pages",
-             over_models(lambda lm: lm.engine.radix_pages)),
+             over_models(lambda lm: lm.engine.radix_pages, engines=True)),
             ("tpu_model_mfu", util("mfu")),
             ("tpu_model_goodput_tokens_per_second", util("goodput_tok_s")),
             ("tpu_model_hbm_bytes_in_use", device_bytes),

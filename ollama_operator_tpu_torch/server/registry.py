@@ -1,12 +1,17 @@
 """Ollama registry client + local model store.
 
-The parts of ``ollama_operator_tpu/server/registry.py`` that pulling needs:
-the media-type constants, ``ModelStore`` and ``RegistryClient``'s
-``fetch_manifest`` and ``pull``. The client speaks the registry protocol
-that `ollama pull` speaks:
+Counterpart of ``ollama_operator_tpu/server/registry.py``: the media-type
+constants, ``ModelStore`` (with its write side: blobs added from bytes,
+from a client's upload stream and from a server-side file) and
+``RegistryClient``'s ``pull`` and ``push``. The client speaks the registry
+protocol that `ollama pull` and `ollama push` speak:
 
   GET  /v2/<ns>/<name>/manifests/<tag>   (docker manifest v2 JSON)
   GET  /v2/<ns>/<name>/blobs/<digest>    (content-addressed layers)
+  HEAD /v2/<ns>/<name>/blobs/<digest>    (does the registry hold it?)
+  POST /v2/<ns>/<name>/blobs/uploads/    (an upload session), then
+  PUT  <Location>?digest=<digest>        (the blob's bytes)
+  PUT  /v2/<ns>/<name>/manifests/<tag>   (the manifest, last)
 
 Layer mediaTypes: application/vnd.ollama.image.{model,template,system,
 params,license,adapter,projector} — the model layer is the GGUF file.
@@ -19,7 +24,8 @@ shared volume serves both packages (pull once, every replica mmap-shares):
 
 Downloads stream to a unique .partial file and are verified against the
 digest before being atomically published; interrupted pulls resume via HTTP
-Range. Pushing, blob uploads and local creation are not ported yet.
+Range. Uploads (``put_blob_stream``) verify the declared digest on the way
+and leave no partial blob behind on a mismatch or a short body.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
+import shutil
 import threading
 import time
 import urllib.error
@@ -42,6 +50,7 @@ MT_PARAMS = "application/vnd.ollama.image.params"
 MT_LICENSE = "application/vnd.ollama.image.license"
 MT_ADAPTER = "application/vnd.ollama.image.adapter"
 MT_PROJECTOR = "application/vnd.ollama.image.projector"
+MANIFEST_MT = "application/vnd.docker.distribution.manifest.v2+json"
 MANIFEST_ACCEPT = ("application/vnd.docker.distribution.manifest.v2+json, "
                    "application/vnd.oci.image.manifest.v1+json")
 
@@ -52,6 +61,19 @@ ProgressCb = Callable[..., None]
 
 class RegistryError(RuntimeError):
     pass
+
+
+_HEX64 = re.compile(r"[0-9a-f]{64}\Z")
+
+
+def valid_blob_digest(digest: str) -> bool:
+    """True iff ``digest`` is ``sha256:`` + 64 lowercase hex chars.
+
+    Checked before any filesystem access derived from a client-supplied
+    digest: ``blob_path`` joins the digest into a path, so a digest
+    holding ``/../`` would otherwise reach outside the blobs directory."""
+    algo, _, hexd = digest.partition(":")
+    return algo == "sha256" and _HEX64.match(hexd) is not None
 
 
 class ModelStore:
@@ -169,6 +191,80 @@ class ModelStore:
             if layer["mediaType"] == media_type:
                 return layer["digest"]
         return None
+
+    # -- local create (/api/create, /api/blobs) ---------------------------
+    def _tmp(self, path: str) -> str:
+        # unique per writer: the server is threaded, and two uploads of one
+        # digest must not share a temporary inode
+        return path + f".partial.{os.getpid()}.{threading.get_ident()}"
+
+    def add_blob(self, data: bytes) -> dict:
+        digest = "sha256:" + hashlib.sha256(data).hexdigest()
+        path = self.blob_path(digest)
+        if not os.path.exists(path):
+            tmp = self._tmp(path)
+            with open(tmp, "wb") as f:
+                f.write(data)
+            os.replace(tmp, path)
+        return {"digest": digest, "size": len(data)}
+
+    def put_blob_stream(self, digest: str, fileobj, length: int) -> dict:
+        """A client's blob upload (POST /api/blobs/<digest>): stream
+        ``length`` bytes to the content-addressed path, checking the
+        declared sha256 on the way. A mismatch or a short body raises and
+        leaves no partial file behind; a blob already present has its body
+        read and dropped, so the connection stays usable."""
+        if not valid_blob_digest(digest):
+            raise RegistryError(f"unsupported digest {digest!r}")
+        path = self.blob_path(digest)
+        if os.path.exists(path):
+            remaining = length
+            while remaining > 0:
+                chunk = fileobj.read(min(1 << 20, remaining))
+                if not chunk:
+                    raise RegistryError("short blob body")
+                remaining -= len(chunk)
+            return {"digest": digest, "size": length}
+        h = hashlib.sha256()
+        size = 0
+        tmp = self._tmp(path)
+        try:
+            with open(tmp, "wb") as f:
+                remaining = length
+                while remaining > 0:
+                    chunk = fileobj.read(min(1 << 20, remaining))
+                    if not chunk:
+                        raise RegistryError("short blob body")
+                    h.update(chunk)
+                    f.write(chunk)
+                    size += len(chunk)
+                    remaining -= len(chunk)
+            got = h.hexdigest()
+            if got != digest.partition(":")[2]:
+                raise RegistryError(
+                    f"digest mismatch: body is sha256:{got}")
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        return {"digest": digest, "size": size}
+
+    def add_blob_file(self, src: str) -> dict:
+        """Copy a server-side file into the store (a Modelfile's FROM or
+        ADAPTER path)."""
+        h = hashlib.sha256()
+        size = 0
+        with open(src, "rb") as f:
+            while chunk := f.read(1 << 20):
+                h.update(chunk)
+                size += len(chunk)
+        digest = "sha256:" + h.hexdigest()
+        path = self.blob_path(digest)
+        if not os.path.exists(path):
+            tmp = self._tmp(path)
+            shutil.copyfile(src, tmp)
+            os.replace(tmp, path)
+        return {"digest": digest, "size": size}
 
 
 # An in-flight writer may legitimately go quiet for a full network read
@@ -304,6 +400,111 @@ class RegistryClient:
         if progress:
             progress("writing manifest", 0, 0)
         self.store.write_manifest(name, manifest)
+        if progress:
+            progress("success", 0, 0)
+        return name
+
+    def _request(self, method: str, url: str, data=None,
+                 headers: Optional[Dict[str, str]] = None):
+        req = urllib.request.Request(url, data=data, method=method,
+                                     headers=headers or {})
+        return urllib.request.urlopen(req, timeout=self.timeout)
+
+    def _blob_exists(self, name: ModelName, digest: str) -> bool:
+        try:
+            with self._request("HEAD", name.blob_url(digest)):
+                return True
+        except urllib.error.HTTPError as e:
+            if e.code in (404, 405):
+                return False
+            raise RegistryError(f"blob HEAD failed: {e}") from e
+        except urllib.error.URLError as e:
+            raise RegistryError(f"registry unreachable: {e}") from e
+
+    def _push_blob(self, name: ModelName, digest: str, path: str,
+                   size: int, progress, label: str):
+        """The docker registry v2 two-step upload: POST an upload session,
+        then PUT the bytes at its Location with ?digest=. The blob streams
+        from disk (model layers are GBs) with progress a chunk."""
+        start_url = (f"{name.base_url}/v2/{name.namespace}/{name.name}"
+                     f"/blobs/uploads/")
+        try:
+            with self._request("POST", start_url, data=b"") as r:
+                loc = r.headers.get("Location", "")
+        except urllib.error.HTTPError as e:
+            raise RegistryError(f"upload start failed: {e}") from e
+        except urllib.error.URLError as e:
+            raise RegistryError(f"registry unreachable: {e}") from e
+        if loc.startswith("/"):
+            loc = name.base_url + loc
+        sep = "&" if "?" in loc else "?"
+        put_url = f"{loc}{sep}digest={digest}"
+
+        class _Reader:
+            """A file-like body: urllib streams it, read() reports."""
+
+            def __init__(self, f):
+                self.f = f
+                self.sent = 0
+
+            def read(self, n=-1):
+                chunk = self.f.read(n if n and n > 0 else 1 << 20)
+                self.sent += len(chunk)
+                if progress and chunk:
+                    progress(label, min(self.sent, size), size, digest)
+                return chunk
+
+            def __len__(self):  # Content-Length for urllib
+                return size
+
+        try:
+            with open(path, "rb") as f:
+                with self._request("PUT", put_url, data=_Reader(f), headers={
+                        "Content-Type": "application/octet-stream",
+                        "Content-Length": str(size)}):
+                    pass
+        except urllib.error.HTTPError as e:
+            raise RegistryError(f"blob upload failed: {e}") from e
+        except urllib.error.URLError as e:
+            raise RegistryError(f"registry unreachable: {e}") from e
+        except OSError as e:
+            raise RegistryError(f"local blob {digest} missing: {e}") from e
+
+    def push(self, ref: str, progress: Optional[ProgressCb] = None
+             ) -> ModelName:
+        """Push a local model to its registry: a HEAD a blob, an upload of
+        each one the registry lacks, then the manifest (the inverse of
+        ``pull``, the protocol `ollama push` speaks)."""
+        name = ModelName.parse(ref)
+        manifest = self.store.read_manifest(name)
+        if manifest is None:
+            raise RegistryError(f"model {name.short!r} not found locally")
+        blobs = list(manifest.get("layers", []))
+        if manifest.get("config"):
+            blobs.append(manifest["config"])
+        for layer in blobs:
+            digest = layer["digest"]
+            size = layer.get("size", 0)
+            label = f"pushing {digest[7:19]}"
+            if progress:
+                progress(label, 0, size, digest)
+            if not self._blob_exists(name, digest):
+                self._push_blob(name, digest, self.store.blob_path(digest),
+                                size, progress, label)
+            if progress:
+                progress(label, size, size, digest)
+        if progress:
+            progress("pushing manifest", 0, 0)
+        try:
+            with self._request("PUT", name.manifest_url(),
+                               data=json.dumps(manifest).encode(),
+                               headers={"Content-Type": manifest.get(
+                                   "mediaType", MANIFEST_MT)}):
+                pass
+        except urllib.error.HTTPError as e:
+            raise RegistryError(f"manifest push failed: {e}") from e
+        except urllib.error.URLError as e:
+            raise RegistryError(f"registry unreachable: {e}") from e
         if progress:
             progress("success", 0, 0)
         return name

@@ -415,7 +415,12 @@ def test_drain_over_http_and_the_sigterm_sequence(pod, monkeypatch,
     bg = threading.Thread(target=lambda: results.append(
         _gen(port, {"num_predict": 20}, stream=True)))
     bg.start()
-    time.sleep(0.2)
+    # the drain must find the stream running: wait for its admission
+    # (a fixed sleep lost the race on a loaded host)
+    sched = mm.resident()[0].scheduler
+    deadline = time.monotonic() + 10
+    while sched.n_active == 0 and time.monotonic() < deadline:
+        time.sleep(0.01)
     status, _, out = _http(port, "/api/drain", {})
     assert status == 200 and out["status"] == "draining"
     assert out["active_streams"] == 1

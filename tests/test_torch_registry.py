@@ -13,10 +13,12 @@ vocabulary) with template and params layers on the loopback.
   codes and keys on the same store;
 - the keep-alive reaper unloads an idle store model (a stepped clock), and
   the next request loads it again;
-- a model with an adapter or projector layer and an encoder are each
-  refused with 501 (a mixture-of-experts GGUF serves:
-  ``tests/test_torch_moe_gguf.py``); a store-only manager refuses
-  generation with 503.
+- a model with an adapter or projector layer is refused with 501 (a
+  mixture-of-experts GGUF serves: ``tests/test_torch_moe_gguf.py``), and
+  an encoder (a BERT GGUF) is served as the JAX handler serves it: 400 for
+  generation, the JAX vectors from /api/embed (the other embedding and
+  authoring routes: ``tests/test_torch_authoring.py``); a store-only
+  manager refuses generation with 503.
 """
 
 import json
@@ -46,7 +48,9 @@ from ollama_operator_tpu_torch.server.registry import (MT_ADAPTER,
                                                        ModelStore,
                                                        RegistryClient,
                                                        RegistryError)
-from ollama_operator_tpu_torch.gguf import writer as W
+from test_torch_encoder import config as bert_config
+from test_torch_encoder import numpy_tree as bert_tree
+from test_torch_encoder import write_bert_gguf
 from test_torch_gguf import write_port_gguf
 
 torch.set_num_threads(1)
@@ -67,19 +71,6 @@ def _tiny_gguf(path, seed=4, **kw):
                            tokenizer_md=BYTES_MD, **kw)
 
 
-def _header_gguf(path, arch, **fields):
-    """A GGUF with an arch's header fields and no tensors: enough for the
-    manager to read its config and refuse it."""
-    w = W.GGUFWriter(path)
-    w.add_meta("general.architecture", arch)
-    for k, v in fields.items():
-        w.add_meta(f"{arch}.{k}", v)
-    for k, v in BYTES_MD.items():
-        w.add_meta(k, v)
-    w.write()
-    return path
-
-
 @pytest.fixture(scope="module")
 def registry(tmp_path_factory):
     d = tmp_path_factory.mktemp("reg")
@@ -95,10 +86,9 @@ def registry(tmp_path_factory):
         {"mediaType": MT_ADAPTER, **reg.add_blob(b"lora bytes")})
     reg.add_model("library", "projector", "latest", gguf, template=TPL,
                   projector_bytes=b"mmproj bytes")
-    dims = dict(block_count=2, embedding_length=64, feed_forward_length=128)
-    reg.add_model("library", "bert", "latest", open(_header_gguf(
-        str(d / "bert.gguf"), "bert", **dims,
-        **{"attention.head_count": 4}), "rb").read())
+    reg.add_model("library", "bert", "latest", open(write_bert_gguf(
+        str(d / "bert.gguf"), bert_config(), bert_tree(bert_config())),
+        "rb").read())
     url = reg.start()
     yield reg, url.split("://", 1)[1]
     reg.stop()
@@ -332,26 +322,57 @@ def test_store_only_refuses_generation(servers, registry):
     ("adapter", "ADAPTER"), ("projector", "PROJECTOR"),
     ("bert", "embedding model")])
 def test_unported_models_are_refused(tmp_path, registry, name, what):
+    """Adapter and projector models are refused with 501. The encoder was
+    refused too until the port served embeddings: it now answers as the
+    JAX handler does on the same store (generation 400 with its message,
+    /api/embed its vectors)."""
     _reg, host = registry
     mm = tapp.ModelManager(str(tmp_path / "s"), cache_dir=str(
         tmp_path / "c"), device="cpu", ecfg=_ecfg(False))
     httpd = tapp.serve(mm, "127.0.0.1", 0)
+    jm = jhttpd = None
     try:
         mm.pull(_ref(host, name))
+        gen = {"model": _ref(host, name), "prompt": "hi"}
         status, text = _call(httpd.server_address[1], "POST",
-                             "/api/generate", {"model": _ref(host, name),
-                                               "prompt": "hi"})
-        assert status == 501
-        assert what in _json(text)["error"]
-        with pytest.raises(tapp.ApiError) as e:
-            mm.load(_ref(host, name))
-        assert e.value.status == 501
-        assert mm.ps() == []
+                             "/api/generate", gen)
+        if name == "bert":
+            jm = japp.ModelManager(str(tmp_path / "j"), cache_dir=str(
+                tmp_path / "jc"), ecfg=_ecfg(True))
+            jm.client.pull(_ref(host, name))
+            jhttpd = japp.serve(jm, "127.0.0.1", 0)
+            jport = jhttpd.server_address[1]
+            assert (status, _json(text)) == (400, _json(
+                _call(jport, "POST", "/api/generate", gen)[1]))
+            assert what in _json(text)["error"]
+            body = {"model": _ref(host, name), "input": ["the sky", "blue"]}
+            s1, t1 = _call(httpd.server_address[1], "POST", "/api/embed",
+                           body)
+            s2, t2 = _call(jport, "POST", "/api/embed", body)
+            assert s1 == s2 == 200
+            np.testing.assert_allclose(_json(t1)["embeddings"],
+                                       _json(t2)["embeddings"],
+                                       rtol=1e-5, atol=1e-5)
+            ps = mm.ps()
+            assert [m["details"]["serving_dtype"] for m in ps] == [
+                "float32"]
+        else:
+            assert status == 501
+            assert what in _json(text)["error"]
+            with pytest.raises(tapp.ApiError) as e:
+                mm.load(_ref(host, name))
+            assert e.value.status == 501
+            assert mm.ps() == []
         assert not os.path.exists(str(tmp_path / "c"))   # nothing transcoded
     finally:
-        httpd.shutdown()
-        httpd.server_close()
+        for h in (httpd, jhttpd):
+            if h is not None:
+                h.shutdown()
+                h.server_close()
         mm.shutdown()
+        if jm is not None:
+            jm.unload_now()
+            jm.shutdown()
 
 
 # ---------------------------------------------------------------------------

@@ -216,7 +216,8 @@ def test_port_imports_no_jax():
                 "server/__main__.py", "ops/constrain.py", "ops/schema.py",
                 "server/tools.py", "runtime/errors.py", "runtime/faults.py",
                 "runtime/admission.py", "runtime/trace.py",
-                "runtime/accounting.py", "server/metrics.py"):
+                "runtime/accounting.py", "server/metrics.py",
+                "models/encoder.py"):
         assert ROOT / "ollama_operator_tpu_torch" / mod in files, mod
     for f in files:
         for name in _imports(f):
