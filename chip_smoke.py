@@ -172,7 +172,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1); (b) ``deadline_ms`` 300 with ``num_predict`` 512 ends with
    ``done_reason`` "timeout" and partial output, and a queued request
    whose 200 ms deadline passes gets 503 with ``Retry-After``; (c) four
-   ``high`` requests sent behind eight queued ``best_effort`` ones (256
+   ``high`` requests sent behind eight queued ``best_effort`` ones (128
    tokens each; a best_effort stream is dropped after its first frame):
    the TTFT median and max by class are printed, and the high median must
    be below the best_effort median; (d) a third queued request of
@@ -265,6 +265,28 @@ and K7 at (a)'s largest bucket and K8 at (b)'s; (d) in path 13, one
 embed of 8 texts on the full qwen3moe. Each part's seconds are printed
 and recorded (``embed_path.elapsed_s``).
 
+Path 15 (images, adapters, mirostat): (c) on path 9's restarted server
+after path 10, 2 seeded requests each of mirostat 1 and 2 (tau 5, eta
+0.1, 64 tokens), each repeating itself, and (b) after path 14, a rank-16
+LoRA GGUF from the seed for the seven projections of every layer,
+uploaded through /api/blobs, created with ``FROM`` path 9's model and
+``ADAPTER``, loaded (merged at load, then int8 through K7): its seeded
+streams differ from the base model's; after the servers stop, in this
+process, the mirostat streams replayed teacher-forced with the
+truncation recomputed at every step (every token inside it; the mean
+surprise of the last 32), and the tuned streams replayed teacher-forced
+on the adapter merged on the card, which the port's ``apply_lora``
+equals on the first and last layers; (a) last, llava at full width and
+depth (int4, K8; its 32/32 heads at hd 128 through K1 and K6) with a
+CLIP ViT-L/14-336 tower from an mmproj GGUF written from the seed: 8
+/api/generate requests of one PNG each and 2 /api/chat of two, beside
+their text twins (576 prompt tokens an image), two of them replayed
+teacher-forced on their recorded spliced embeddings, a two-layer
+kernel-against-plain cross-check fed those embeddings, the bf16 tower
+against its f32 weights (cosine >= 0.999 a row). Seconds in
+``path15.elapsed_s``. An early line says whether Pillow imports (PNGs
+decode without it).
+
 Then it prints one JSON line ``{"kernels": [...]}`` (``launches`` summed
 over the serving paths, per path in ``launches_by_path``), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -276,8 +298,9 @@ then phases 7, 8 and 9 alone, ``--families-only`` phase 1 and then phase
 phase 11 alone, ``--drift`` phase 1 and then gemma3's logit differences at 2,
 6, 12 and 34 layers (``drift_sweep``), ``--embed-only`` phase 1 and then
 path 14 alone (its server's model uploaded and created instead of
-pulled, (d) on qwen3moe cut to 4 layers) (each exits 4 by design: no
-result line).
+pulled, (d) on qwen3moe cut to 4 layers), ``--vision-only`` phase 1 and
+then path 15 alone ((a) first; (b) and (c) on an uploaded and created
+model) (each exits 4 by design: no result line).
 """
 
 from __future__ import annotations
@@ -451,12 +474,10 @@ def paged_inputs(torch, g, B, ps, NBLK, H, KvH, hd, bits, max_len, window,
     return (qd, kp, vp, 1, tables, lengths, hd ** -0.5, 0.0, window)
 
 
-def load_baseline_paged(root: str):
-    """``ops/paged.py`` of the port in another checkout at ``root`` (its
-    own package name, build directory and launch counters), so a call can
-    time that commit's paged kernels beside this one's; its
-    ``ops/attention.py`` (K1, K2, K3) is ``baseline_port.ops.attention``."""
-    import importlib
+def load_baseline(root: str):
+    """The port's package in another checkout at ``root``, imported as
+    ``baseline_port`` (its own modules, build directory and launch
+    counters), so a call can time that commit beside this one."""
     import importlib.util
     pkg = os.path.join(os.path.abspath(root), "ollama_operator_tpu_torch")
     spec = importlib.util.spec_from_file_location(
@@ -465,6 +486,15 @@ def load_baseline_paged(root: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["baseline_port"] = mod
     spec.loader.exec_module(mod)
+    return mod
+
+
+def load_baseline_paged(root: str):
+    """``ops/paged.py`` of the port in another checkout at ``root``, so a
+    call can time that commit's paged kernels beside this one's; its
+    ``ops/attention.py`` (K1, K2, K3) is ``baseline_port.ops.attention``."""
+    import importlib
+    load_baseline(root)
     return importlib.import_module("baseline_port.ops.paged")
 
 
@@ -612,7 +642,8 @@ def kernel_phases(torch, timer, report, baseline=None):
             (1, 512, 16, 16, 256, 0, 0.0, "gemma"),
             (1, 512, 16, 8, 256, 128, 50.0, "hd 256, softcap, window"),
             (1, 512, 24, 2, 128, 4096, 0.0, "starcoder2, G 12"),
-            (1, 256, 32, 4, 128, 0, 0.0, "qwen3moe's chunk, G 8")):
+            (1, 256, 32, 4, 128, 0, 0.0, "qwen3moe's chunk, G 8"),
+            (1, 1024, 32, 32, 128, 0, 0.0, "llava's image admission, MHA")):
         q, k, v = (randn(B, T, H, hd), randn(B, KvH, T, hd),
                    randn(B, KvH, T, hd))
         scale = hd ** -0.5
@@ -822,6 +853,12 @@ def kernel_phases(torch, timer, report, baseline=None):
     for ctas in (2048, 8192):
         paged_case(32, 64, 64, 32, 32, 96, 8, 4095, 2047, (),
                    routes=("v4",), v4_ctas=ctas)
+    # llava (path 15): MHA at hd 128 (G = 1) on its 64-row pages, 32
+    # slots, over 1..4095 and at a serving step of 12 requests of
+    # 600..1250 positions (image prompts of 576 image tokens and more)
+    paged_case(32, 64, 64, 32, 32, 128, 8, 4095, 0, (), routes=("v3",))
+    paged_case(32, 64, 64, 32, 32, 128, 8, 1250, 0, (), routes=("v3",),
+               serving=True, idle=20)
     inputs.clear()
     torch.cuda.empty_cache()
 
@@ -1017,7 +1054,14 @@ def kernel_phases(torch, timer, report, baseline=None):
               ("gemma2 wo", 64, 4096, 3584),
               ("gemma2 w_gate/w_up", 64, 3584, 14336),
               ("gemma2 w_down", 64, 14336, 3584),
-              ("qwen3 lm_head", 64, 4096, 151936)))):
+              ("qwen3 lm_head", 64, 4096, 151936))
+             # llava's (path 15): F 11008 (w_down's K = 344 groups of 32),
+             # the 32000-row head; N = 1 and 64 as a decode step (32
+             # slots), 1024 as an image admission's bucket
+             + tuple((f"llava {w}", N, K, O) for N in (1, 64, 1024)
+                     for w, K, O in (("w_gate/w_up", 4096, 11008),
+                                     ("w_down", 11008, 4096),
+                                     ("lm_head", 4096, 32000))))):
         for wname, N, K, O in shapes:
             qw = quant(torch.randn((K, O), generator=g, device=dev) * 0.02)
             codes = qw["q4"] if "q4" in qw else qw["q"]
@@ -1036,16 +1080,18 @@ def kernel_phases(torch, timer, report, baseline=None):
     torch.cuda.empty_cache()
 
 
-def byte_tokenizer(vocab: int):
+def byte_tokenizer(vocab: int, bos=None):
     """256 byte pieces (every text encodes, one token per byte) and plain
     filler pieces up to the model's vocabulary; no EOG id, so every
-    request runs to num_predict."""
+    request runs to num_predict; a BOS id ``bos`` put before every
+    prompt when one is given."""
     from ollama_operator_tpu_torch.tokenizer import Tokenizer
     tokens = [f"<0x{i:02X}>" for i in range(256)]
     tokens += [f"t{i}" for i in range(256, vocab)]
     return Tokenizer(model="llama", tokens=tokens,
                      token_types=[6] * 256 + [1] * (vocab - 256),
-                     add_bos=False)
+                     add_bos=bos is not None, bos_id=-1 if bos is None
+                     else bos)
 
 
 def dense_params(torch, cfg):
@@ -1295,8 +1341,9 @@ def close_serving(torch, details, out, mm, httpd, lm, grammar=False):
 # the steps of step_breakdown's profiled dispatch: the profiler's cost
 # grows with the kernels it records (~116 s for 16 steps of path 13's
 # 7300 kernels a step on a slow host), so it records fewer steps than the
-# timed dispatch
-PROFILED_STEPS = 4
+# timed dispatch (path 13's step took 27.4 s of a run at 4 steps, 12.6
+# at 2)
+PROFILED_STEPS = 2
 
 
 def step_breakdown(torch, engine, n_slots: int = 8, n: int = 16,
@@ -1421,7 +1468,7 @@ def plain_matmul(x, w, out_dtype=None, split: int = 1):
 
 def teacher_forced(torch, cfg, params, ids, steps: int, kv_dtype: str,
                    paged: bool = True, teacher=None, engine=None,
-                   piece: int = 0):
+                   piece: int = 0, embeds=None):
     """A prompt ``ids`` and ``steps`` decode steps on the card through the
     decoder's entry points, each step fed ``teacher[step]`` or else the
     previous step's argmax. Returns (logits [steps + 1, V] f32, their
@@ -1433,10 +1480,13 @@ def teacher_forced(torch, cfg, params, ids, steps: int, kv_dtype: str,
     the prompt's bucket. With ``engine`` (paged): the calls that engine
     made for a request admitted from position 0: the prompt in
     ``piece``-token pieces (the first a prefill and an insert, the others
-    extends, each padded to the engine's bucket), then steps in a batch
-    of the engine's slot count (row 0; the other rows idle on the trash
-    page), so every matmul takes the row count, and so the form, that
-    the served one took."""
+    extends, each padded to the engine's bucket; the LM head over the
+    last prompt row alone, as the engine's admission samples it), then
+    steps in a batch of the engine's slot count (row 0; the other rows
+    idle on the trash page), so every matmul takes the row count, and so
+    the form, that the served one took. ``embeds`` [n, D]: the prompt's
+    spliced embeddings (a multimodal admission, whole: ``ids`` carry the
+    pad id at image positions), prefilled in place of the lookup."""
     from ollama_operator_tpu_torch.models import decoder
     dev, n = "cuda", len(ids)
     L, KvH, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
@@ -1479,20 +1529,33 @@ def teacher_forced(torch, cfg, params, ids, steps: int, kv_dtype: str,
     tables = torch.zeros((rows, max(width, nb, -(-bucket // ps))),
                          dtype=torch.int32, device=dev)
     tables[0, :nb] = (torch.randperm(P - 1, generator=gen)[:nb] + 1).int()
-    logits, ks, vs = decoder.prefill_chunk(params, cfg, padded(ids[:first]))
+    emb = None
+    if embeds is not None:
+        if first != n:
+            raise ValueError("a multimodal prompt is admitted whole")
+        emb = torch.zeros((1, bucket, embeds.shape[-1]), dtype=embeds.dtype,
+                          device=dev)
+        emb[0, :n] = embeds
+    if engine is not None or emb is not None:
+        x, ks, vs = decoder.prefill_hidden(params, cfg, padded(ids[:first]),
+                                           inputs_embeds=emb)
+        last = decoder._unembed(cfg, params, x[:, first - 1])[0]
+    else:
+        logits, ks, vs = decoder.prefill_chunk(params, cfg,
+                                               padded(ids[:first]))
+        last = logits[0, first - 1]
     if paged:
         decoder.paged_insert(cfg, kp, vp, ks, vs, tables[0], first)
     else:
         decoder.dense_insert(kp, vp, ks, vs, 0)
-    last = logits[0, first - 1]
     for start in range(first, n, piece):
         tail = ids[start:start + piece]
         toks = padded(tail)
-        lg, _, _ = decoder.forward_with_cache_paged(
+        x, _, _ = decoder.forward_with_cache_paged(
             params, cfg, toks, kp, vp, tables[:1],
             torch.tensor([start], dtype=torch.int32, device=dev),
-            -(-bucket_for(start + toks.shape[1]) // ps))
-        last = lg[0, len(tail) - 1]
+            -(-bucket_for(start + toks.shape[1]) // ps), hidden=True)
+        last = decoder._unembed(cfg, params, x[:, len(tail) - 1])[0]
     out = [last]
     lengths = torch.zeros(rows, dtype=torch.int32, device=dev)
     toks = torch.zeros((rows, 1), dtype=torch.long, device=dev)
@@ -1551,11 +1614,12 @@ def router_flips(cfg, kernel, plain) -> dict:
 
 def cross_check(torch, details, model: str, bits: int, kv_dtype: str,
                 paged: bool = True, n_prompt: int = 200, expect=(),
-                cut=None):
+                cut=None, ids=None, embeds=None):
     """Two layers (or the config fields ``cut`` sets) at full width:
     kernel path vs plain path on the card, ``bits``-bit weights (16:
     dense bf16) on a ``kv_dtype`` page pool (``paged``) or dense slot
-    cache, an ``n_prompt``-token prompt and 16 greedy steps
+    cache, an ``n_prompt``-token prompt (or the prompt ``ids`` with its
+    spliced ``embeds``, a multimodal admission) and 16 greedy steps
     (``teacher_forced``; the plain path is fed the kernel path's tokens).
     ``expect``: the kernel counters the kernel path must raise above 0
     (counted from 0 just before it). A mixture-of-experts model's plain
@@ -1573,8 +1637,10 @@ def cross_check(torch, details, model: str, bits: int, kv_dtype: str,
     if bits != 16:
         params = Q.quantize_params(params, bits=bits)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
-    ids = torch.randint(0, cfg.vocab_size, (n_prompt,),
-                        generator=gen).tolist()
+    if ids is None:
+        ids = torch.randint(0, cfg.vocab_size, (n_prompt,),
+                            generator=gen).tolist()
+    n_prompt = len(ids)
 
     def plain_chunk(cfg, q, k, v, scale):
         return A.flash_prefill_plain(q, k, v, scale, cfg.attn_softcap,
@@ -1625,7 +1691,8 @@ def cross_check(torch, details, model: str, bits: int, kv_dtype: str,
             decoder._moe_route = recorded
         try:
             return teacher_forced(torch, cfg, params, ids, 16, kv_dtype,
-                                  paged=paged, teacher=teacher)
+                                  paged=paged, teacher=teacher,
+                                  embeds=embeds)
         finally:
             decoder._moe_route = route
             for n, (m, a, _) in plain_fns.items():
@@ -1662,7 +1729,8 @@ def cross_check(torch, details, model: str, bits: int, kv_dtype: str,
     proute = PG.paged_route() if paged else None
     weights = "bf16" if bits == 16 else f"int{bits}"
     tag = (f"{model} {weights} weights, {kv_dtype} "
-           f"{f'paged ({proute})' if paged else 'dense'} KV")
+           f"{f'paged ({proute})' if paged else 'dense'} KV"
+           + (", spliced image embeddings" if embeds is not None else ""))
     details.setdefault("cross_check", []).append({
         "model": model, "layers": layers, "weights": weights,
         "kv": kv_dtype, "paged": paged, "route": proute,
@@ -1794,7 +1862,9 @@ def prefix_phase(torch, details, lm) -> dict:
         cuda_build.launches[name] = 0
     pieces0 = sched.n_prefill_pieces
     try:
-        n_dec = 16 * 32
+        # 14 dispatches: the 12 pieces need 11 between them and one
+        # before, so the decoders outlast them by one or two
+        n_dec = 14 * 32
         res = [None] * 5
         dec_prompts = [ids(100) for _ in range(4)]
         long_ids = ids(3000)
@@ -2044,6 +2114,9 @@ GGUF_REPO = ("library", "llama3.2", "3b")
 GGUF_WORDS = ("paged attention over quantized weights on one card serves "
               "many slots at once").split()
 GGUF_TOKEN_COUNTERS = ("flash_prefill", "paged_decode", "qmm")
+# path 9's gate holds this many of its 8 prompts' served streams to an
+# in-process load of the same tree (not all 8, for the run's time)
+GATE = 4
 GGUF_ABSENT = ("qmm4", "paged_decode_int4", "paged_decode_v2",
                "paged_decode_v4", "decode_attention", "mha_decode")
 
@@ -2301,10 +2374,13 @@ def gguf_phase(torch, details, card: str, workdir: str):
     model server (``--preload``: read, dequantized, transcoded and cached,
     then int8 weights, an int8 paged pool), serve 8 concurrent greedy
     requests, restart the server to load from the transcode cache, and
-    hold its greedy streams against ``ModelManager.preload`` of the same
-    ``load_model`` tree in this process; path 10 (``chat_phase``) runs on
+    hold its greedy streams of ``GATE`` prompts against
+    ``ModelManager.preload`` of the same ``load_model`` tree in this
+    process; path 10 (``chat_phase``) runs on
     the restarted server before it stops, then path 14 (a) and (c)
-    (``embed_server_phases``). Returns the launch counts of path 9's 8
+    (``embed_server_phases``), with path 15 (c) (``mirostat_phase``)
+    after path 10 and (b) (``adapter_phase``) after path 14; their checks
+    run in this process after the gate (``mirostat_adapter_checks``). Returns the launch counts of path 9's 8
     requests, of path 10, of path 11 and of path 14 (a), each read from
     the server's /api/ps just before and just after them, and the GGUF's
     tokenizer."""
@@ -2433,14 +2509,23 @@ def gguf_phase(torch, details, card: str, workdir: str):
                 for e in os.listdir(cache)} != stamp:
             raise RuntimeError("the restart transcoded again")
         out["cache_entries"] = entries
+        # the gate's streams: the first GATE prompts
         served = [post(ms2.port, {"model": ref, "prompt": p,
                                       "stream": False, "options": opts})
-                  for p in prompts]
-        # path 10 on the same server
+                  for p in prompts[:GATE]]
+        # path 10 on the same server, then path 15 (c)
         chat = chat_phase(card, ms2, ref)
+        t0 = time.perf_counter()
+        p15 = mirostat_phase(card, ms2, ref, cfg)
+        p15_el = {"c_server": time.perf_counter() - t0}
         # path 14 (a) and (c) on the same server
         emb = embed_server_phases(torch, details, card, ms2, ref, gguf_tok,
                                   workdir)
+        # path 15 (b) on the same server
+        t0 = time.perf_counter()
+        p15.update(adapter_phase(card, ms2, ref, workdir, store, cfg,
+                                 p15["base"]))
+        p15_el["b_server"] = time.perf_counter() - t0
         if ms2.stop() != 0:
             raise RuntimeError(f"model server stopped badly: {ms2.tail()}")
         # path 11 on a third start (from the cache), with 4 slots; it
@@ -2480,19 +2565,28 @@ def gguf_phase(torch, details, card: str, workdir: str):
             raise RuntimeError("the in-process model is not the server's")
         for name in cuda_build.launches:
             cuda_build.launches[name] = 0
-        mine = [lm.generate(lm.render_prompt(p), opts) for p in prompts]
+        mine = [lm.generate(lm.render_prompt(p), opts)
+                for p in prompts[:GATE]]
         equal = [a.context == b["context"] for a, b in zip(mine, served)]
         out["gate_streams_equal"] = f"{sum(equal)}/{len(equal)}"
         out["gate_launches_in_process"] = dict(cuda_build.launches)
     finally:
         mm.shutdown()
-        del lm
-        import gc
-        gc.collect()
-        torch.cuda.empty_cache()
     if not all(equal):
         raise RuntimeError(f"path 9: the HTTP server's greedy streams differ "
                            f"from preload of the same tree: {equal}")
+    # path 15 (c) and (b) in this process, on the server's weights (the
+    # gate's model for (c))
+    t0 = time.perf_counter()
+    mirostat_adapter_checks(torch, details, card, blob, cache,
+                            digests[MT_MODEL], p15, base_lm=lm)
+    p15_el["bc_checks"] = time.perf_counter() - t0
+    del lm
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    details.setdefault("path15", {}).update(server=p15)
+    details["path15"].setdefault("elapsed_s", {}).update(p15_el)
     m1, m2 = out["memory_after_transcode_load"], out["memory_after_cache_load"]
 
     def gb(n):
@@ -2555,6 +2649,9 @@ CALL_SCHEMA = {"type": "object", "properties": {
     "arguments": {"type": "object", "properties": {
         "city": {"enum": ["paris", "tokyo", "lima"]}}}}}
 CHAT_COUNTERS = ("flash_prefill", "paged_decode", "qmm")
+# path 10 (a)'s second turn holds the first TWINS of its 8 conversations
+# to their twins (not all 8, for the run's time)
+TWINS = 2
 
 
 def json_prefix_ok(text: str, schema=None) -> bool:
@@ -2610,7 +2707,8 @@ def chat_phase(card: str, ms, ref: str) -> dict:
 
     # (a) 8 conversations, two turns. A turn: the measured streamed round;
     # then, on the second turn (the longer cached prefix; the first's
-    # twins were cut for the run's time), a non-streamed twin of each
+    # twins were cut for the run's time, and the second's cover the first
+    # TWINS conversations), a non-streamed twin of each
     # request, a one-token twin, and a streamed twin, which all extend the
     # same cached prefix (the whole prompt but its last token) and so run
     # the same computation: the streamed twin's text must equal the
@@ -2630,11 +2728,11 @@ def chat_phase(card: str, ms, ref: str) -> dict:
         hits1 = ps_prefix()
         twinned = turn == 1
         if twinned:
-            twins, _ = concurrent([chat(c, False) for c in convs])
+            twins, _ = concurrent([chat(c, False) for c in convs[:TWINS]])
             ones, _ = concurrent([chat(c, False,
                                        options={"num_predict": 1})
-                                  for c in convs])
-            again, _ = concurrent([chat(c, True) for c in convs])
+                                  for c in convs[:TWINS]])
+            again, _ = concurrent([chat(c, True) for c in convs[:TWINS]])
         rec = {"ttft_ms": [], "frames": [], "eval_count": [],
                "prompt_tokens": [], "wall_s": wall}
         answers = []
@@ -2644,13 +2742,14 @@ def chat_phase(card: str, ms, ref: str) -> dict:
             n = fin["eval_count"]
             if not fin["done"] or n != 64:
                 raise RuntimeError(f"chat {i} turn {turn} ended {fin}")
-            for fr in (frames, again[i][1]) if twinned else (frames,):
+            twin = twinned and i < TWINS
+            for fr in (frames, again[i][1]) if twin else (frames,):
                 if len(fr) - 1 > -(-fr[-1]["eval_count"] // 16) + 2:
                     raise RuntimeError(f"chat {i}: {len(fr) - 1} frames "
                                        f"for {fr[-1]['eval_count']} tokens")
             answers.append("".join(f["message"]["content"]
                                    for f in frames[:-1]))
-            if twinned:
+            if twin:
                 text = "".join(f["message"]["content"]
                                for f in again[i][1][:-1])
                 want = twins[i][1][0]["message"]["content"]
@@ -2670,7 +2769,8 @@ def chat_phase(card: str, ms, ref: str) -> dict:
         rec["tok_s"] = sum(rec["eval_count"]) / wall
         rec["reused_tokens"] = hits1["hit_tokens"] - hits0["hit_tokens"]
         rec["prefilled_tokens"] = hits1["miss_tokens"] - hits0["miss_tokens"]
-        rec["stream_equals_twin"] = "8/8" if twinned else "not run"
+        rec["stream_equals_twin"] = (f"{TWINS}/{TWINS}" if twinned
+                                     else "not run")
         turns.append(rec)
         convs = [c + [{"role": "assistant", "content": answers[i]},
                       {"role": "user", "content": "and then what"}]
@@ -2750,10 +2850,10 @@ def chat_phase(card: str, ms, ref: str) -> dict:
     # most greedy json outputs of these weights stop after a few tokens,
     # inside one dispatch: look for a prompt whose output runs to
     # num_predict for the json tok/s alone and beside 7 free requests
-    # (six prompts, for the run's time: runs on the H100 found none among
+    # (two prompts, for the run's time: runs on the H100 found none among
     # sixteen)
     json_prompt = None
-    for i in range(6):
+    for i in range(2):
         prompt = " ".join(words[(3 * i + j) % len(words)]
                           for j in range(4 + i % 9))
         fin = gen(prompt, "json")()[1][-1]
@@ -3079,8 +3179,9 @@ def lifecycle_phase(card: str, ms, ref: str) -> dict:
             raise RuntimeError(f"(b)/(d) stream ended {frames[-1]}")
 
     # (c) four high requests behind eight best_effort ones: each
-    # best_effort stream is dropped after its first frame
-    opts = {"temperature": 0, "num_predict": 256}
+    # best_effort stream is dropped after its first frame (128 tokens a
+    # request)
+    opts = {"temperature": 0, "num_predict": 128}
     low = [Stream(port, ref, prompt(40 + i),
                   dict(opts, priority="best_effort"), f"be{i}",
                   close_after_first=True) for i in range(8)]
@@ -3099,7 +3200,7 @@ def lifecycle_phase(card: str, ms, ref: str) -> dict:
         ttft[cls] = {"median_s": t[len(t) // 2], "max_s": t[-1], "all": t}
     out["ttft_by_class"] = ttft
     print(f"path 11 (c) [{card}]: TTFT s, 4 high behind 8 best_effort "
-          f"(4 slots, 256 tokens each): high median "
+          f"(4 slots, 128 tokens each): high median "
           f"{ttft['high']['median_s']:.3f} max {ttft['high']['max_s']:.3f}; "
           f"best_effort median {ttft['best_effort']['median_s']:.3f} max "
           f"{ttft['best_effort']['max_s']:.3f}", flush=True)
@@ -4240,16 +4341,17 @@ def bert_vocab(rng, n: int):
     return pieces
 
 
-def write_bert_model(path: str) -> dict:
+def write_bert_model(torch, path: str) -> dict:
     """mxbai-embed-large's shape as a llama.cpp BERT GGUF from the seed:
-    f16 matrices and tables (std 0.02), f32 norms (around 1) and biases
-    (std 0.02), CLS pooling, a 30522-piece WordPiece vocabulary. Written
-    one tensor at a time."""
+    f16 matrices and tables (std 0.02, drawn on the card),
+    f32 norms (around 1) and biases (std 0.02), CLS pooling, a
+    30522-piece WordPiece vocabulary. Written one tensor at a time."""
     import numpy as np
 
     from ollama_operator_tpu_torch.gguf.writer import GGUFWriter
     c = MXBAI
     rng = np.random.default_rng(SEED + 15)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
     vocab = bert_vocab(rng, c["vocab_size"])
     w = GGUFWriter(path)
     for k, v in (("general.architecture", "bert"),
@@ -4273,8 +4375,9 @@ def write_bert_model(path: str) -> dict:
     D, Fd = c["dim"], c["ffn_dim"]
 
     def mat(name, *shape):
-        w.add_tensor_f16(name, (rng.standard_normal(shape, np.float32)
-                                * 0.02).astype(np.float16))
+        w.add_tensor_f16(name, (torch.randn(shape, generator=g,
+                                            device="cuda") * 0.02)
+                         .half().cpu().numpy())
 
     def vec(name, n, base=0.0, std=0.02):
         w.add_tensor_f32(name, (base + rng.standard_normal(n, np.float32)
@@ -4336,7 +4439,7 @@ def encoder_phase(torch, card: str, ms, workdir: str) -> dict:
     from ollama_operator_tpu_torch.tokenizer import Tokenizer
     out = {"model": MXBAI_NAME, "card": card}
     t0 = time.perf_counter()
-    g = write_bert_model(os.path.join(workdir, "mxbai.gguf"))
+    g = write_bert_model(torch, os.path.join(workdir, "mxbai.gguf"))
     out["gguf_bytes"] = g["bytes"]
     out["write_gguf_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4525,24 +4628,19 @@ def embed_total(details) -> float:
     return el["total"]
 
 
-def embed_only(torch, details, card: str, timer, report):
-    """``--embed-only``: path 14 alone. The llama3.2:3b GGUF is written
-    from the seed, uploaded to a model server's store through /api/blobs
-    and created by ``files`` (the authoring routes in the place of path
-    9's pull), loaded, and (a) and (c) run on it; then (b), the kernel
-    rows, and (d) on qwen3moe cut to 4 layers."""
+def created_model_server(workdir: str):
+    """A model server on a store and cache in ``workdir`` whose
+    llama3.2:3b (the GGUF written from the seed) was uploaded through
+    /api/blobs and created by ``files``, in the place of path 9's pull:
+    (the server, the GGUF's record, its digest). The caller stops the
+    server."""
     from ollama_operator_tpu_torch.models.config import get_config
-    from ollama_operator_tpu_torch.server.app import ModelManager
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_embed_")
-    ms = None
+    g = write_gguf_model(os.path.join(workdir, "model.gguf"),
+                         get_config(GGUF_MODEL))
+    ms = PortServer(["--store", os.path.join(workdir, "store"),
+                     "--cache", os.path.join(workdir, "cache")],
+                    os.path.join(workdir, "model.log"))
     try:
-        t0 = time.perf_counter()
-        g = write_gguf_model(os.path.join(workdir, "model.gguf"),
-                             get_config(GGUF_MODEL))
-        tok = gguf_tokenizer(g["path"])
-        ms = PortServer(["--store", os.path.join(workdir, "store"),
-                         "--cache", os.path.join(workdir, "cache")],
-                        os.path.join(workdir, "model.log"))
         ms.wait_ready()
         digest = sha256_file(g["path"])
         if upload_blob(ms.port, g["path"], digest) != 201:
@@ -4553,6 +4651,26 @@ def embed_only(torch, details, card: str, timer, report):
             "stream": False})
         if s != 200:
             raise RuntimeError(f"/api/create answered {s}: {b}")
+    except BaseException:
+        ms.stop()
+        ms.log.close()
+        raise
+    return ms, g, digest
+
+
+def embed_only(torch, details, card: str, timer, report):
+    """``--embed-only``: path 14 alone. The llama3.2:3b GGUF is written
+    from the seed, uploaded to a model server's store through /api/blobs
+    and created by ``files`` (the authoring routes in the place of path
+    9's pull), loaded, and (a) and (c) run on it; then (b), the kernel
+    rows, and (d) on qwen3moe cut to 4 layers."""
+    from ollama_operator_tpu_torch.server.app import ModelManager
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_embed_")
+    ms = None
+    try:
+        t0 = time.perf_counter()
+        ms, g, _ = created_model_server(workdir)
+        tok = gguf_tokenizer(g["path"])
         s, _, b = call(ms.port, "/api/generate", {"model": GGUF_MODEL,
                                                   "prompt": ""})
         ps = ms.get("/api/ps")["models"][0]["details"]
@@ -4580,6 +4698,1023 @@ def embed_only(torch, details, card: str, timer, report):
         mm.shutdown()
     embed_total(details)
     return launches
+
+# ---------------------------------------------------------------------------
+# Path 15: images through llava's vision tower, a LoRA adapter merged at
+# load, and mirostat sampling
+# ---------------------------------------------------------------------------
+
+LLAVA_PATH = "llava int4, images through the CLIP tower: int8 paged (v3) KV"
+LLAVA_COUNTERS = ("flash_prefill", "paged_decode", "qmm4")
+LLAVA_ABSENT = ("qmm", "paged_decode_int4", "paged_decode_v2",
+                "paged_decode_v4") + DENSE_COUNTERS
+ADAPTER_PATH = ("llama3.2:3b GGUF with a rank-16 ADAPTER merged at load: "
+                "int8 paged (v3) KV")
+MIROSTAT_PATH = "llama3.2:3b GGUF, mirostat 1 and 2: int8 paged (v3) KV"
+# CLIP ViT-L/14-336 as llava-1.5's mmproj stores it: 23 of its 24
+# transformer layers (the converter drops the last, unused one), width
+# 1024, 16 heads, ffn 4096, and the projector 1024 → 4096 → 4096
+CLIP_L14_336 = dict(image_size=336, patch_size=14, width=1024, n_layers=23,
+                    n_heads=16, ffn_dim=4096, proj_dim=4096)
+LLAVA_TEMPLATE = "USER: {{ .Prompt }} ASSISTANT:"
+LLAVA_BOS = 1
+# the 8 /api/generate requests' images (height, width, PNG colour type:
+# 2 RGB, 6 RGBA, 0 gray, 3 palette, 4 gray + alpha), square and not,
+# up- and downscaled; the 2 chats' images (two per chat)
+LLAVA_IMAGES = ((336, 336, 2), (480, 640, 6), (300, 200, 0), (768, 1024, 2),
+                (512, 512, 3), (200, 300, 2), (600, 800, 4), (128, 96, 2))
+CHAT_IMAGES = (((224, 224, 2), (400, 300, 6)), ((256, 192, 3), (90, 160, 2)))
+LORA_RANK, LORA_ALPHA = 16, 32.0
+LORA_TARGETS = ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate",
+                "ffn_up", "ffn_down")
+
+
+def png_encode(samples, color_type: int, palette=None) -> bytes:
+    """uint8 samples [H, W, channels] → an 8-bit PNG, row r under filter
+    r % 5 (None, Sub, Up, Average, Paeth, each computed over the whole
+    image from the raw rows)."""
+    import struct
+    import zlib
+
+    import numpy as np
+    h, w, ch = samples.shape
+    raw = samples.reshape(h, w * ch).astype(np.int16)
+    left = np.zeros_like(raw)
+    left[:, ch:] = raw[:, :-ch]
+    up = np.zeros_like(raw)
+    up[1:] = raw[:-1]
+    ul = np.zeros_like(raw)
+    ul[1:, ch:] = raw[:-1, :-ch]
+    p = left + up - ul
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, ul))
+    preds = np.stack([np.zeros_like(raw), left, up, (left + up) // 2,
+                      paeth])
+    ft = np.arange(h) % 5
+    filt = ((raw - preds[ft, np.arange(h)]) & 255).astype(np.uint8)
+    body = np.concatenate([ft[:, None].astype(np.uint8), filt], axis=1)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
+    if palette is not None:
+        out += chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+    out += chunk(b"IDAT", zlib.compress(body.tobytes(), 1))
+    return out + chunk(b"IEND", b"")
+
+
+def seeded_png(h: int, w: int, color_type: int, seed: int) -> bytes:
+    """A PNG made from the seed: smooth colour gradients under noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color_type]
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = [(np.sin(xx / (7 + 9 * c) + c) * np.cos(yy / (11 + 5 * c))
+             * 100 + 128) for c in range(ch)]
+    img = np.stack(base, -1) + rng.normal(0, 20, (h, w, ch))
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    if color_type == 3:
+        return png_encode(img, 3, rng.integers(0, 256, (256, 3)))
+    return png_encode(img, color_type)
+
+
+def write_mmproj(torch, path: str, vcfg) -> dict:
+    """The llava mmproj GGUF (llama.cpp's clip names, arch "clip") of a
+    tower at ``vcfg``'s widths, f16 tensors from the seed (drawn on the
+    card): matrices normal with std 0.02, biases std 0.02, norm weights
+    1 + N(0, 0.02)."""
+    from ollama_operator_tpu_torch.gguf.writer import GGUFWriter
+    g = torch.Generator(device="cuda").manual_seed(SEED + 150)
+    W, Fd, P, L = vcfg.width, vcfg.ffn_dim, vcfg.patch_size, vcfg.n_layers
+    w = GGUFWriter(path)
+    for k, v in (("general.architecture", "clip"),
+                 ("clip.vision.image_size", vcfg.image_size),
+                 ("clip.vision.patch_size", P),
+                 ("clip.vision.embedding_length", W),
+                 ("clip.vision.feed_forward_length", Fd),
+                 ("clip.vision.block_count", L),
+                 ("clip.vision.attention.head_count", vcfg.n_heads),
+                 ("clip.vision.attention.layer_norm_epsilon",
+                  vcfg.norm_eps)):
+        w.add_meta(k, v)
+    n = 0
+
+    def put(name, *shape, mean=0.0):
+        nonlocal n
+        a = torch.randn(shape, generator=g, device="cuda") * 0.02 + mean
+        w.add_tensor_f16(name, a.half().cpu().numpy())
+        n += a.numel()
+    put("v.patch_embd.weight", W, 3, P, P)
+    put("v.class_embd", W)
+    put("v.position_embd.weight", 1 + vcfg.n_patches, W)
+    put("v.pre_ln.weight", W, mean=1.0)
+    put("v.pre_ln.bias", W)
+    for i in range(L):
+        pre = f"v.blk.{i}."
+        for nm in ("ln1", "ln2"):
+            put(pre + nm + ".weight", W, mean=1.0)
+            put(pre + nm + ".bias", W)
+        for nm in ("attn_q", "attn_k", "attn_v", "attn_out"):
+            put(pre + nm + ".weight", W, W)
+            put(pre + nm + ".bias", W)
+        put(pre + "ffn_up.weight", Fd, W)
+        put(pre + "ffn_up.bias", Fd)
+        put(pre + "ffn_down.weight", W, Fd)
+        put(pre + "ffn_down.bias", W)
+    put("mm.0.weight", vcfg.proj_dim, W)
+    put("mm.0.bias", vcfg.proj_dim)
+    put("mm.2.weight", vcfg.proj_dim, vcfg.proj_dim)
+    put("mm.2.bias", vcfg.proj_dim)
+    w.write()
+    return {"path": path, "params": n, "bytes": os.path.getsize(path)}
+
+
+def llava_phase(torch, details, card: str, workdir: str) -> dict:
+    """Path 15 (a): llava at full width and depth (the ``llava`` preset:
+    vicuna-7b's 32 layers, dim 4096, 32/32 heads, hd 128, ffn 11008,
+    vocab 32000; random bf16 weights from the seed through
+    ``ModelManager.preload``, served in the int4 its 6.74e9 parameters
+    resolve to, on the MHA paged defaults: an int8 pool of 32 slots on
+    64-row pages) with a vision tower loaded from an mmproj GGUF written
+    from the seed at CLIP ViT-L/14-336's widths (bf16 on the card, as the
+    server loads it), behind the HTTP server. 8 concurrent greedy
+    /api/generate requests of one PNG each (8 prompts of one length, 8
+    images: square and not, every colour type), 2 /api/chat requests with an image in
+    each of two messages, and the 2 text-only twins beside them: each
+    image adds exactly 576 prompt tokens; K1, K6 and K8 launch, no other
+    kernel. Then two image requests' served tokens against the engine's
+    calls for them replayed teacher-forced on the kernel path (their
+    recorded spliced embeddings), a two-layer kernel-against-plain
+    cross-check fed one of those embeddings, and the tower in bf16
+    against the same GGUF's weights in f32 on the card (each image-token
+    row at cosine >= 0.999). Returns the 12 requests' launch counts."""
+    import base64
+    import gc
+
+    import numpy as np
+    from ollama_operator_tpu_torch.convert import params_from_numpy
+    from ollama_operator_tpu_torch.gguf.reader import GGUFFile
+    from ollama_operator_tpu_torch.gguf.transcode import (
+        load_vision_params, vision_config_from_gguf)
+    from ollama_operator_tpu_torch.models import vision as V
+    from ollama_operator_tpu_torch.models.config import get_config
+    from ollama_operator_tpu_torch.ops import cuda_build
+    from ollama_operator_tpu_torch.runtime.engine import resolve_engine_dtype
+    from ollama_operator_tpu_torch.server import images as I
+    from ollama_operator_tpu_torch.server.app import ModelManager, serve
+    cfg = get_config("llava")
+    out = {"model": "llava", "card": card}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vcfg0 = V.VisionConfig(**CLIP_L14_336)
+    g = write_mmproj(torch, os.path.join(workdir, "mmproj.gguf"), vcfg0)
+    out["mmproj"] = dict(g, write_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with GGUFFile(g["path"]) as f:
+        vcfg = vision_config_from_gguf(f)
+        vparams = params_from_numpy(load_vision_params(f, vcfg, "bfloat16"),
+                                    "cuda")
+    out["tower_load_s"] = time.perf_counter() - t0
+    if (vcfg.n_patches, vcfg.n_run, vcfg.proj_dim) != (
+            vcfg0.n_patches, vcfg0.n_layers, cfg.dim):
+        raise RuntimeError(f"the tower loads as {vcfg}")
+    n_img = vcfg.n_patches      # 576 image tokens
+    t0 = time.perf_counter()
+    mm = ModelManager()
+    lm = mm.preload("llava", cfg, dense_params(torch, cfg),
+                    byte_tokenizer(cfg.vocab_size, bos=LLAVA_BOS),
+                    dtype=resolve_engine_dtype(cfg, "cuda"),
+                    template=LLAVA_TEMPLATE, vision=(vcfg, vparams))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["build_s"] = time.perf_counter() - t0
+    e = lm.ecfg
+    if (lm.serving_dtype, lm.engine.paged, e.page_size, e.max_slots) != (
+            "int4", True, 64, 32):
+        raise RuntimeError(f"llava serves {lm.serving_dtype}, paged "
+                           f"{lm.engine.paged}, {e}")
+    print(f"serving {LLAVA_PATH}: slots={e.max_slots} page_size="
+          f"{e.page_size} pages={e.n_pages} max_seq={e.max_seq_len} "
+          f"chunk={e.decode_chunk}; tower {vcfg.n_run} layers, "
+          f"{g['params'] / 1e9:.3f}e9 parameters ({g['bytes'] / 1e9:.3f} GB "
+          f"f16 GGUF written in {out['mmproj']['write_s']:.1f} s, loaded "
+          f"in {out['tower_load_s']:.1f} s); build {out['build_s']:.1f} s",
+          flush=True)
+    pngs = [seeded_png(h, w, ct, SEED + i)
+            for i, (h, w, ct) in enumerate(LLAVA_IMAGES)]
+    chat_pngs = [[seeded_png(h, w, ct, SEED + 20 + 2 * i + j)
+                  for j, (h, w, ct) in enumerate(pair)]
+                 for i, pair in enumerate(CHAT_IMAGES)]
+    b64 = [base64.b64encode(p).decode() for p in pngs]
+    decoded = [I.decode_image(p) for p in pngs]
+    # the tower's time an image: the host's decode and resize, then the
+    # tower and projector on the card
+    tower = []
+    for p, img in zip(pngs[:4], decoded):
+        t0 = time.perf_counter()
+        x = I.preprocess(I.decode_image(p), vcfg.image_size)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.inference_mode():
+            V.encode(vcfg, vparams, torch.from_numpy(x[None]).to("cuda"))
+        torch.cuda.synchronize()
+        tower.append({"hw": list(img.shape[:2]),
+                      "host_decode_resize_ms": (t1 - t0) * 1e3,
+                      "tower_ms": (time.perf_counter() - t2) * 1e3})
+    out["tower_per_image"] = tower
+    # the spliced admissions the engine runs, recorded for the replays
+    admitted = []
+    real_admit = lm.engine.admit
+
+    def admit(slot, prompt, *a, **kw):
+        tok = real_admit(slot, prompt, *a, **kw)
+        if kw.get("embeds") is not None:
+            admitted.append((np.asarray(prompt).tolist(),
+                             kw["embeds"].clone(), tok))
+        return tok
+    lm.engine.admit = admit
+    httpd = serve(mm, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    # greedy over the raw logits, so that a replay's argmax is the token
+    opts = {"temperature": 0, "num_predict": 32, "repeat_penalty": 1.0}
+    # one prompt text a request, all of one length (the byte tokenizer
+    # gives a token a byte): one text twin counts for all 8
+    prompts = [f"describe picture {i}: what it shows, and its colours"
+               for i in range(8)]
+    chat_msgs = [[{"role": "user", "content": "look at this first",
+                   "images": [base64.b64encode(p).decode()
+                              for p in pair[:1]]},
+                  {"role": "assistant", "content": "I see it"},
+                  {"role": "user", "content": "and compare it with this",
+                   "images": [base64.b64encode(p).decode()
+                              for p in pair[1:]]}]
+                 for pair in chat_pngs]
+    twin_msgs = [{k: v for k, v in m.items() if k != "images"}
+                 for m in chat_msgs[0]]
+    try:
+        http(port, "/api/generate", {"model": "llava", "prompt": "warm up",
+                                     "images": [b64[7]], "options": dict(
+                                         opts, num_predict=2)})
+        torch.cuda.synchronize()
+        admitted.clear()
+        for name in cuda_build.launches:
+            cuda_build.launches[name] = 0
+        calls = ([lambda p=p, b=b: http(port, "/api/generate", {
+            "model": "llava", "prompt": p, "images": [b],
+            "options": opts}) for p, b in zip(prompts, b64)]
+            + [lambda m=m: http(port, "/api/chat", {
+                "model": "llava", "messages": m, "options": opts})
+               for m in chat_msgs]
+            + [lambda: http(port, "/api/generate", {
+                "model": "llava", "prompt": prompts[0], "options": opts}),
+               lambda: http(port, "/api/chat", {
+                   "model": "llava", "messages": twin_msgs,
+                   "options": opts})])
+        results, wall = concurrent(calls)
+        launches = dict(cuda_build.launches)
+    finally:
+        lm.engine.admit = real_admit
+        httpd.shutdown()
+        httpd.server_close()
+        mm.shutdown()
+    finals = [frames[-1] for _, frames, _ in results]
+    for i, f in enumerate(finals):
+        if not f.get("done") or f.get("eval_count") != 32:
+            raise RuntimeError(f"path 15 (a) request {i} ended {f}")
+    n_text, n_chat = finals[10]["prompt_eval_count"], finals[11][
+        "prompt_eval_count"]
+    counts = [f["prompt_eval_count"] for f in finals]
+    want = [n_text + n_img] * 8 + [n_chat + 2 * n_img] * 2 + [n_text,
+                                                              n_chat]
+    if counts != want:
+        raise RuntimeError(f"path 15 (a) prompt_eval_count {counts}, want "
+                           f"{want} ({n_img} a image)")
+    missing = [k for k in LLAVA_COUNTERS if launches[k] <= 0]
+    stray = [k for k in LLAVA_ABSENT if launches[k] != 0]
+    if missing or stray:
+        raise RuntimeError(f"path 15 (a) launches {launches}: not launched "
+                           f"{missing}, of another path {stray}")
+    if len(admitted) != 10:
+        raise RuntimeError(f"{len(admitted)} spliced admissions, want 10")
+    streams = [f["context"][n_text:] for f in finals[:8]]
+    n_tok = sum(f["eval_count"] for f in finals[:8])
+    ttft = [f["prompt_eval_duration"] / 1e6 for f in finals]
+    out.update(requests=len(finals), wall_s=wall, launches=launches,
+               generated_tokens_8=n_tok, aggregate_tok_s_8=n_tok / wall,
+               prompt_tokens=counts, ttft_ms_image=sorted(ttft[:10]),
+               ttft_ms_text_twins=ttft[10:],
+               distinct_image_streams=len({tuple(s) for s in streams}),
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    t = sorted(ttft[:8])
+    print(f"path 15 (a) [{card}]: 8 /api/generate with one image each + 2 "
+          f"/api/chat with two + 2 text twins, x 32 tokens in {wall:.3f} s: "
+          f"{n_tok / wall:.1f} tok/s over the 8; prompt tokens {counts}; "
+          f"TTFT ms image median {t[4]:.1f} max {t[-1]:.1f}, text twins "
+          f"{[round(x, 1) for x in ttft[10:]]}; "
+          f"{out['distinct_image_streams']} distinct streams of the 8; "
+          f"tower a image {[round(x['tower_ms'], 2) for x in tower]} ms "
+          f"(host decode + resize "
+          f"{[round(x['host_decode_resize_ms'], 1) for x in tower]} ms); "
+          f"launches {launches}; peak {out['peak_memory_bytes'] / 1e9:.2f} "
+          f"GB", flush=True)
+
+    # the served tokens of two image requests against the engine's calls
+    # for them replayed teacher-forced on the kernel path, fed the
+    # embeddings their admissions recorded (found by the padded ids, which
+    # differ by the prompt); the same splice again here, from the decoded
+    # image, says whether the tower repeats its bits
+    replays = []
+    for i in (0, 3):
+        text = lm.tokenizer.encode(lm.render_prompt(prompts[i]))
+        ids, again = lm.splice_images(text, [decoded[i]])
+        rec = [a for a in admitted if a[0] == ids]
+        if len(rec) != 1:
+            raise RuntimeError(f"path 15 (a): request {i}'s padded ids "
+                               f"match {len(rec)} recorded admissions")
+        _, emb, first = rec[0]
+        served = streams[i]
+        if first != served[0]:
+            raise RuntimeError(f"path 15 (a): request {i}'s admission gave "
+                               f"{first}, its stream {served[0]}")
+        _, replayed = teacher_forced(
+            torch, cfg, lm.engine.params, ids, len(served) - 1, "int8",
+            teacher=served, engine=lm.engine, piece=len(ids), embeds=emb)
+        equal = sum(a == b for a, b in zip(served, replayed))
+        replays.append({"request": i, "prompt_tokens": len(ids),
+                        "equal": equal, "served": served,
+                        "splice_repeats_its_bits": bool(torch.equal(
+                            again, emb))})
+        if replayed != served:
+            raise RuntimeError(f"path 15 (a): request {i}'s served tokens "
+                               f"{served} differ from the replayed kernel "
+                               f"path's {replayed}")
+    out["replay"] = replays
+    print(f"path 15 (a) replay of requests 0 and 3 (teacher-forced on the "
+          f"kernel path, their recorded spliced embeddings): equal at "
+          f"{[r['equal'] for r in replays]}/32 steps; the splice again "
+          f"gives the same bits: "
+          f"{[r['splice_repeats_its_bits'] for r in replays]}", flush=True)
+    cross_ids, cross_emb = admitted[0][0], admitted[0][1]
+    # the tower in bf16 (served) against f32 weights of the same GGUF
+    with GGUFFile(g["path"]) as f:
+        v32 = params_from_numpy(load_vision_params(f, vcfg, "float32"),
+                                "cuda")
+    x = torch.from_numpy(np.stack([I.preprocess(d, vcfg.image_size)
+                                   for d in decoded[:2]])).to("cuda")
+    with torch.inference_mode():
+        a, b = V.encode(vcfg, vparams, x), V.encode(vcfg, v32, x)
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    out["tower_bf16_vs_f32_min_cosine"] = cos.min().item()
+    print(f"path 15 (a) tower bf16 vs f32 weights on the card: min cosine "
+          f"over {cos.numel()} image-token rows {cos.min().item():.6f}",
+          flush=True)
+    if cos.min().item() < 0.999:
+        raise RuntimeError(f"the bf16 tower moves from the f32 one: cosine "
+                           f"{cos.min().item()}")
+    del v32, x, a, b, lm, vparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    cross_check(torch, details, "llava", 4, "int8", ids=cross_ids,
+                embeds=cross_emb, expect=LLAVA_COUNTERS)
+    del admitted, cross_emb
+    details.setdefault("path15", {})["a"] = out
+    return launches
+
+
+def write_adapter(path: str, cfg) -> dict:
+    """A rank-16 LoRA GGUF from the seed for all seven projections of every
+    layer of ``cfg``: A [r, in] and B [out, r] f32, std 0.025 each (a
+    delta of std ~0.003 against weights of ~0.02), alpha 32."""
+    import numpy as np
+    from ollama_operator_tpu_torch.gguf.writer import GGUFWriter
+    rng = np.random.default_rng(SEED + 160)
+    D, F, q, kv = cfg.dim, cfg.ffn_dim, cfg.q_dim, cfg.kv_dim
+    shapes = {"attn_q": (q, D), "attn_k": (kv, D), "attn_v": (kv, D),
+              "attn_output": (D, q), "ffn_gate": (F, D), "ffn_up": (F, D),
+              "ffn_down": (D, F)}
+    w = GGUFWriter(path)
+    w.add_meta("general.architecture", "llama")
+    w.add_meta("general.type", "adapter")
+    w.add_meta("adapter.type", "lora")
+    w.add_meta("adapter.lora.alpha", LORA_ALPHA)
+    for i in range(cfg.n_layers):
+        for t in LORA_TARGETS:
+            out_, in_ = shapes[t]
+            w.add_tensor_f32(f"blk.{i}.{t}.weight.lora_a", (
+                rng.standard_normal((LORA_RANK, in_), dtype=np.float32)
+                * 0.025))
+            w.add_tensor_f32(f"blk.{i}.{t}.weight.lora_b", (
+                rng.standard_normal((out_, LORA_RANK), dtype=np.float32)
+                * 0.025))
+    w.write()
+    return {"path": path, "bytes": os.path.getsize(path)}
+
+
+def _raw_prompt(i: int, n: int) -> str:
+    """Distinct raw prompts of a few words (under 16 tokens): nothing of
+    one is a cached prefix of another, nor of its repeat (a page is 128
+    positions)."""
+    return " ".join(GGUF_WORDS[(5 * i + j) % len(GGUF_WORDS)]
+                    for j in range(n))
+
+
+# path 15 (b)'s requests, sent to the base model and to the tuned one: 4
+# greedy ones (replayed), and 2 seeded at temperature 1 (compared): the
+# seeded GGUF's greedy streams settle on one token in a few steps, the
+# same one with the adapter or without (measured on a 4-layer, 768-wide
+# cut on the CPU), while a sampled stream follows the whole distribution
+ADAPTER_OPTIONS = ([{"temperature": 0, "num_predict": 32,
+                     "repeat_penalty": 1.0}] * 4
+                   + [{"temperature": 1.0, "seed": 70 + i, "num_predict": 32,
+                       "repeat_penalty": 1.0} for i in range(2)])
+ADAPTER_PROMPTS = [_raw_prompt(10 + i, 6 + 2 * (i % 4))
+                   for i in range(len(ADAPTER_OPTIONS))]
+
+
+def adapter_requests(model: str):
+    return [{"model": model, "prompt": p, "raw": True, "context": [],
+             "stream": False, "options": o}
+            for p, o in zip(ADAPTER_PROMPTS, ADAPTER_OPTIONS)]
+
+
+def mirostat_phase(card: str, ms, ref: str, cfg) -> dict:
+    """Path 15 (c) on path 9's model server ``ms`` (its base model
+    resident): 2 seeded requests each of mirostat 1 and 2 (tau 5, eta
+    0.1, temperature 1, no repeat penalty), 64 tokens, all four at once
+    and then again: each stream repeats itself, every token in the
+    vocabulary; the launch counts from the server's /api/ps just before
+    and after them. Then (b)'s requests on the base model, for (b) to
+    differ from."""
+    out = {"card": card}
+    port = ms.port
+    post(port, {"model": ref, "prompt": "", "stream": False})   # resident
+    before = ms.launches()
+    # raw, with an empty context: the final frame carries the tokens
+    mir = [{"model": ref, "prompt": _raw_prompt(i, 4), "raw": True,
+            "context": [], "stream": False, "options": {
+                "mirostat": 1 + i // 2, "mirostat_tau": 5.0,
+                "mirostat_eta": 0.1, "temperature": 1.0, "seed": 100 + i,
+                "repeat_penalty": 1.0, "num_predict": 64}}
+           for i in range(4)]
+    t0 = time.perf_counter()
+    first, wall = concurrent([lambda b=b: post(port, b) for b in mir])
+    again, _ = concurrent([lambda b=b: post(port, b) for b in mir])
+    after = ms.launches()
+    out["mirostat"] = {
+        "requests": mir, "wall_s": wall,
+        "phase_s": time.perf_counter() - t0,
+        "streams": [f["context"] for f in first],
+        "prompt_tokens": [f["prompt_eval_count"] for f in first],
+        "repeats_equal": sum(a["context"] == b["context"]
+                             for a, b in zip(first, again)),
+        "launches": {k: after[k] - before[k] for k in after}}
+    V = cfg.vocab_size
+    for f in first:
+        if f.get("eval_count") != 64 or not all(
+                0 <= t < V for t in f["context"]):
+            raise RuntimeError(f"path 15 (c) stream {f}")
+    if out["mirostat"]["repeats_equal"] != 4:
+        raise RuntimeError("path 15 (c): a seeded mirostat stream did not "
+                           "repeat itself")
+    print(f"path 15 (c) [{card}]: 2 x mirostat 1 + 2 x mirostat 2 (tau 5, "
+          f"eta 0.1), 64 tokens, in {wall:.3f} s; each repeats itself "
+          f"(4/4); launches {out['mirostat']['launches']}", flush=True)
+    base, _ = concurrent([lambda b=b: post(port, b)
+                          for b in adapter_requests(ref)])
+    out["base"] = [f["context"] for f in base]
+    return out
+
+
+def adapter_phase(card: str, ms, ref: str, workdir: str, store: str, cfg,
+                  base) -> dict:
+    """Path 15 (b) on path 9's model server ``ms`` (its store at
+    ``store``): a rank-16 adapter GGUF from the seed uploaded through
+    /api/blobs and created with ``FROM <path 9's model>`` and ``ADAPTER``
+    (the uploaded blob's path on the server), loaded (from the transcode
+    cache, then the merge), and the requests that (c) sent to the base
+    model (``base``, their contexts): 4 greedy, and 2 seeded samples,
+    which must differ from the base model's; K7 launches."""
+    out = {"card": card}
+    port = ms.port
+    t0 = time.perf_counter()
+    a = write_adapter(os.path.join(workdir, "adapter.gguf"), cfg)
+    digest = sha256_file(a["path"])
+    if upload_blob(port, a["path"], digest) != 201:
+        raise RuntimeError("the adapter upload failed")
+    blob = os.path.join(store, "blobs", digest.replace(":", "-"))
+    out["adapter"] = {"bytes": a["bytes"], "digest": digest, "blob": blob,
+                      "write_upload_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    s, _, body = call(port, "/api/create", {
+        "model": "llama3.2-tuned", "modelfile":
+            f"FROM {ref}\nADAPTER {blob}\n", "stream": False})
+    out["adapter"]["create_s"] = time.perf_counter() - t0
+    if s != 200:
+        raise RuntimeError(f"/api/create with ADAPTER answered {s}: {body}")
+    before = ms.launches()
+    t0 = time.perf_counter()
+    s, _, body = call(port, "/api/generate", {"model": "llama3.2-tuned",
+                                              "prompt": ""})
+    out["adapter"]["load_s"] = time.perf_counter() - t0
+    if s != 200:
+        raise RuntimeError(f"the adapter model loads as {s}: {body}")
+    tuned, wall = concurrent([lambda b=b: post(port, b)
+                              for b in adapter_requests("llama3.2-tuned")])
+    after = ms.launches()
+    differ = [x["context"] != y for x, y in zip(tuned, base)]
+    out["adapter"].update(
+        prompts=ADAPTER_PROMPTS, options=ADAPTER_OPTIONS, wall_s=wall,
+        launches={k: after[k] - before[k] for k in after},
+        tuned=[f["context"] for f in tuned],
+        prompt_tokens=[f["prompt_eval_count"] for f in tuned],
+        greedy_differ_from_base=sum(differ[:4]),
+        sampled_differ_from_base=sum(differ[4:]))
+    if out["adapter"]["launches"]["qmm"] <= 0:
+        raise RuntimeError(f"path 15 (b): K7 not launched "
+                           f"({out['adapter']['launches']})")
+    if not all(differ[4:]):
+        raise RuntimeError("path 15 (b): a seeded stream of the adapter "
+                           "model is the base model's")
+    print(f"path 15 (b) [{card}]: rank-{LORA_RANK} adapter "
+          f"({a['bytes'] / 1e6:.1f} MB) uploaded and created in "
+          f"{out['adapter']['write_upload_s']:.1f} + "
+          f"{out['adapter']['create_s']:.2f} s, loaded (transcode cache + "
+          f"merge) in {out['adapter']['load_s']:.1f} s; of the base "
+          f"model's streams, the 2 seeded ones differ 2/2, the 4 greedy "
+          f"{out['adapter']['greedy_differ_from_base']}/4; launches "
+          f"{out['adapter']['launches']}", flush=True)
+    return out
+
+
+def mirostat_adapter_checks(torch, details, card: str, blob: str,
+                            cache: str, digest: str, rec: dict,
+                            base_lm=None) -> dict:
+    """In this process, on the server's weights (``load_model`` of path
+    9's GGUF from the server's transcode cache, int8 at the server's
+    engine settings; ``base_lm``: such a model already resident, path 9's
+    gate): (c) two mirostat streams (one of each version) replayed
+    teacher-forced on the kernel path, the truncation and the budget
+    recomputed at every step from the replayed logits: every served token
+    lies inside its step's kept set, and the observed surprise of the
+    last 32 tokens is recorded; (b) the adapter merged here on the card
+    from the adapter's tensors (its time recorded), two of the served
+    tuned streams equal to that model's calls replayed teacher-forced, and
+    the port's ``apply_lora`` on the first and last layers equal to that
+    merge."""
+    import gc
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from ollama_operator_tpu_torch.convert import (params_from_numpy,
+                                                   tensor_from_numpy)
+    from ollama_operator_tpu_torch.gguf import dequant as DQ
+    from ollama_operator_tpu_torch.gguf.lora import apply_lora
+    from ollama_operator_tpu_torch.gguf.writer import GGUFWriter
+    from ollama_operator_tpu_torch.gguf.transcode import (_unpermute_rope,
+                                                          load_model)
+    from ollama_operator_tpu_torch.gguf.reader import GGUFFile
+    from ollama_operator_tpu_torch.ops import sampling as S
+    from ollama_operator_tpu_torch.runtime.engine import (
+        EngineConfig, resolve_kv_dtype_default, resolve_serving_defaults)
+    from ollama_operator_tpu_torch.server.app import (ModelManager,
+                                                      transcode_dtype)
+    from ollama_operator_tpu_torch.tokenizer import Tokenizer
+
+    def load():
+        gcfg, params, tok_md = load_model(
+            blob, cache_dir=cache, dtype=transcode_dtype("int8", "cuda"),
+            digest=digest.replace("sha256:", "")[:24])
+        ecfg = resolve_serving_defaults(EngineConfig(
+            max_slots=0, max_seq_len=4096, decode_chunk=0, page_size=0,
+            paged=None, n_pages=None,
+            cache_dtype=resolve_kv_dtype_default("cuda")), gcfg, "cuda")
+        return gcfg, params, Tokenizer.from_gguf_metadata(tok_md), ecfg
+
+    def served_model(gcfg, tparams, tok, ecfg):
+        mm = ModelManager()
+        lm = mm.preload(GGUF_MODEL, gcfg, tparams, tok, dtype="int8",
+                        ecfg=ecfg)
+        mm.shutdown()      # the scheduler stops; the engine stays
+        return lm
+
+    out = {}
+    gcfg, params, tok, ecfg = load()
+    lm = base_lm or served_model(gcfg, params_from_numpy(params, "cuda"),
+                                 tok, ecfg)
+    if lm.ecfg != ecfg:
+        raise RuntimeError("the resident model is not at the server's "
+                           "settings")
+    V = gcfg.vocab_size
+    mir = []
+    for i in (0, 2):
+        req = rec["mirostat"]["requests"][i]
+        o = req["options"]
+        ctx = rec["mirostat"]["streams"][i]
+        n = rec["mirostat"]["prompt_tokens"][i]
+        ids, served = ctx[:n], ctx[n:]
+        logits, _ = teacher_forced(
+            torch, gcfg, lm.engine.params, ids, len(served) - 1, "int8",
+            teacher=served, engine=lm.engine, piece=lm.scheduler.prefill_chunk)
+        sp = S.SamplingParams.from_rows([dict(
+            temperature=o["temperature"], top_k=40, top_p=0.9, min_p=0.0,
+            typical_p=1.0, repeat_penalty=1.0, presence_penalty=0.0,
+            frequency_penalty=0.0, mirostat=o["mirostat"],
+            mirostat_tau=o["mirostat_tau"],
+            mirostat_eta=o["mirostat_eta"])], "cuda")
+        mu = torch.full((1,), 2 * o["mirostat_tau"], device="cuda")
+        e_obs, outside = [], []
+        for t, tok_t in enumerate(served):
+            vals, cand = torch.topk(logits[t:t + 1], S.N_CANDIDATES, dim=-1)
+            scaled = vals / o["temperature"]
+            keep = S.mirostat_keep(scaled, sp, mu, V)
+            probs = S.renormalised(torch.where(
+                keep, scaled, torch.full_like(scaled, S.NEG_INF)))
+            hit = (cand[0] == tok_t).nonzero()
+            if len(hit) == 0 or not keep[0, hit[0, 0]]:
+                outside.append(t)
+                break
+            ci = hit[0]
+            e_obs.append(-float(np.log2(max(probs[0, ci].item(), 1e-30))))
+            mu = S.mirostat_update(mu, probs, ci, sp)
+        mir.append({"request": i, "mirostat": o["mirostat"],
+                    "kept_steps": len(e_obs), "outside_steps": outside,
+                    "mean_surprise_last_32": (sum(e_obs[-32:]) / 32
+                                              if len(e_obs) >= 32 else None),
+                    "final_mu": mu.item()})
+        if outside:
+            raise RuntimeError(f"path 15 (c): stream {i}'s token at step "
+                               f"{outside[0]} lies outside its mirostat "
+                               f"truncation on the replayed logits")
+    out["mirostat"] = mir
+    print(f"path 15 (c) [{card}] replayed: every served token inside its "
+          f"step's truncation; mean surprise of the last 32 tokens "
+          f"(mirostat 1, 2; tau 5): "
+          f"{[round(m['mean_surprise_last_32'], 3) for m in mir]} bits",
+          flush=True)
+    del lm, base_lm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the served tuned streams against the adapter merged here, on the
+    # card (each delta made as apply_lora makes it, (alpha / r) · B@A in
+    # numpy with the q/k rope rows un-permuted, then rounded to the
+    # weights' dtype and added in it), replayed teacher-forced; and
+    # apply_lora itself on the first and last layers (a two-layer tree and
+    # those layers' adapter tensors) equal to that merge
+    adapter = rec["adapter"]["blob"]
+    keys = dict(zip(LORA_TARGETS, ("wq", "wk", "wv", "wo", "w_gate", "w_up",
+                                   "w_down")))
+    ends = (0, gcfg.n_layers - 1)
+    t0 = time.perf_counter()
+    tparams = params_from_numpy(params, "cuda")
+    mini = tempfile.mkdtemp(prefix="chip_smoke_lora_")
+    try:
+        with GGUFFile(adapter) as f:
+            alpha = float(f.metadata["adapter.lora.alpha"])
+
+            def lora(name):
+                return np.asarray(DQ.dequantize_tensor(f, f.tensors[name]),
+                                  np.float32)
+            small = GGUFWriter(os.path.join(mini, "ends.gguf"))
+            for k in ("general.architecture", "adapter.type",
+                      "adapter.lora.alpha"):
+                small.add_meta(k, f.metadata[k])
+            def delta(job):
+                i, t = job
+                A = lora(f"blk.{i}.{t}.weight.lora_a")
+                B = lora(f"blk.{i}.{t}.weight.lora_b")
+                d = (alpha / A.shape[0]) * (B @ A)            # [out, in]
+                if t in ("attn_q", "attn_k"):
+                    d = _unpermute_rope(d, gcfg.n_heads if t == "attn_q"
+                                        else gcfg.n_kv_heads)
+                return i, t, A, B, d
+            jobs = [(i, t) for i in range(gcfg.n_layers) for t in keys]
+            # the deltas on a few host threads, each added on the card as
+            # it comes
+            with ThreadPoolExecutor(4) as pool:
+                for i, t, A, B, d in pool.map(delta, jobs):
+                    w = tparams["layers"][keys[t]]
+                    w[i] += torch.from_numpy(d).to("cuda").t().to(w.dtype)
+                    if i in ends:
+                        j = ends.index(i)
+                        small.add_tensor_f32(f"blk.{j}.{t}.weight.lora_a", A)
+                        small.add_tensor_f32(f"blk.{j}.{t}.weight.lora_b", B)
+            small.write()
+        out["merge_on_card_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two = apply_lora({"layers": {k: np.asarray(params["layers"][k])[
+            list(ends)] for k in keys.values()}}, gcfg,
+            os.path.join(mini, "ends.gguf"))
+        out["apply_lora_two_layers_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(mini, ignore_errors=True)
+    checked = 0
+    for key in keys.values():
+        for j, i in enumerate(ends):
+            got = tensor_from_numpy(two["layers"][key][j], "cuda")
+            if not torch.equal(got, tparams["layers"][key][i]):
+                raise RuntimeError(f"path 15 (b): apply_lora's {key}[{i}] "
+                                   f"is not the merge made here")
+            checked += 1
+    out["weights_checked"] = checked
+    del params, two
+    lm = served_model(gcfg, tparams, tok, ecfg)
+    del tparams
+    reps = []
+    for i in (0, 3):
+        ctx = rec["adapter"]["tuned"][i]
+        n = rec["adapter"]["prompt_tokens"][i]
+        ids, served = ctx[:n], ctx[n:]
+        _, replayed = teacher_forced(
+            torch, gcfg, lm.engine.params, ids, len(served) - 1, "int8",
+            teacher=served, engine=lm.engine, piece=lm.scheduler.prefill_chunk)
+        reps.append(sum(a == b for a, b in zip(served, replayed)))
+        if replayed != served:
+            raise RuntimeError(f"path 15 (b): tuned stream {i} {served} "
+                               f"differs from the replayed merged model's "
+                               f"{replayed}")
+    out["replay_equal"] = reps
+    print(f"path 15 (b) [{card}] in this process: the adapter merged on "
+          f"the card in {out['merge_on_card_s']:.2f} s; apply_lora on the "
+          f"first and last layers ({out['apply_lora_two_layers_s']:.2f} s) "
+          f"equal to it at {checked} projections; tuned streams 0 and 3 "
+          f"equal their teacher-forced replay at {reps}/32 steps",
+          flush=True)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    details.setdefault("path15", {}).update(checks=out)
+    return out
+
+
+def vision_only(torch, details, card: str):
+    """``--vision-only``: path 15 alone. (a) llava; then (c) and (b) on a
+    model server whose llama3.2:3b GGUF (written from the seed) was
+    uploaded through /api/blobs and created by ``files`` (in the place of
+    path 9's pull), and their checks in this process."""
+    from ollama_operator_tpu_torch.models.config import get_config
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_vision_")
+    el = details.setdefault("path15", {}).setdefault("elapsed_s", {})
+    ms = None
+    try:
+        t0 = time.perf_counter()
+        llava_phase(torch, details, card, workdir)
+        el["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cfg = get_config(GGUF_MODEL)
+        store, cache = (os.path.join(workdir, "store"),
+                        os.path.join(workdir, "cache"))
+        ms, _, digest = created_model_server(workdir)
+        el["setup"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p15 = mirostat_phase(card, ms, GGUF_MODEL, cfg)
+        el["c_server"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p15.update(adapter_phase(card, ms, GGUF_MODEL, workdir, store, cfg,
+                                 p15["base"]))
+        el["b_server"] = time.perf_counter() - t0
+        if ms.stop() != 0:
+            raise RuntimeError(f"model server stopped badly: {ms.tail()}")
+        t0 = time.perf_counter()
+        mirostat_adapter_checks(torch, details, card, os.path.join(
+            store, "blobs", digest.replace(":", "-")), cache, digest, p15)
+        el["bc_checks"] = time.perf_counter() - t0
+        details["path15"]["server"] = p15
+    finally:
+        if ms is not None:
+            ms.stop()
+            ms.log.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"path 15 seconds: {el}", flush=True)
+
+
+def dispatch_steps(torch, engine, slot_opts, n: int = 32, reps: int = 2
+                   ) -> dict:
+    """Slots admitted with ``slot_opts`` (200-token prompts from the
+    seed), then ``reps`` decode dispatches of ``n`` steps straight on the
+    engine: the host clock for enqueueing each and for finishing it, ms a
+    step, and the kernels a step from ``torch.profiler`` over a further
+    dispatch of ``PROFILED_STEPS`` steps."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator().manual_seed(SEED)
+    for slot, o in enumerate(slot_opts):
+        engine.admit(slot, torch.randint(0, engine.cfg.vocab_size, (200,),
+                                         generator=g).numpy(), o)
+    engine.decode_n_launch(4).wait()
+    torch.cuda.synchronize()
+    enqueue, wall = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        handle = engine.decode_n_launch(n)
+        enqueue.append((time.perf_counter() - t0) * 1e3 / n)
+        handle.wait()
+        wall.append((time.perf_counter() - t0) * 1e3 / n)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.decode_n_launch(PROFILED_STEPS).wait()
+    cuda = getattr(torch.autograd.DeviceType, "CUDA", None)
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == cuda]
+    for slot in range(len(slot_opts)):
+        engine.release(slot)
+    return {"host_enqueue_ms_per_step": enqueue, "wall_ms_per_step": wall,
+            "kernel_launches_per_step": (
+                sum(e.count for e in kernels) / PROFILED_STEPS
+                if kernels else "not measured")}
+
+
+def sampling_costs(torch, pkg, label: str) -> dict:
+    """llama3.2:3b (path 9's model's widths and depth) from the seed in
+    int8 on its paged serving defaults, built by the port package ``pkg``
+    (this checkout's, or ``baseline_port``); its scheduler stopped, one
+    dispatch of 8 slots greedy, 8 sampled at temperature 0.8 (Ollama's
+    defaults: top_k 40, top_p 0.9, repeat penalty 1.1), and 8 sampled
+    with slot 0 under mirostat 2 (:func:`dispatch_steps`)."""
+    import gc
+    import importlib
+    app = importlib.import_module(f"{pkg}.server.app")
+    eng = importlib.import_module(f"{pkg}.runtime.engine")
+    cfg = importlib.import_module(f"{pkg}.models.config").get_config(
+        GGUF_MODEL)
+    t0 = time.perf_counter()
+    mm = app.ModelManager()
+    lm = mm.preload(GGUF_MODEL, cfg, dense_params(torch, cfg),
+                    byte_tokenizer(cfg.vocab_size), template="{{ .Prompt }}")
+    mm.shutdown()
+    torch.cuda.synchronize()
+    out = {"package": label, "serving_dtype": lm.serving_dtype,
+           "build_s": time.perf_counter() - t0}
+    SO = eng.SlotOptions
+    modes = {"greedy": [SO(temperature=0)] * 8,
+             "sampled": [SO(temperature=0.8, seed=s) for s in range(8)],
+             "sampled_one_mirostat": [SO(temperature=0.8, seed=0,
+                                         mirostat=2)]
+             + [SO(temperature=0.8, seed=s) for s in range(1, 8)]}
+    for mode, opts in modes.items():
+        out[mode] = dispatch_steps(torch, lm.engine, opts)
+        print(f"host costs, {label}: {GGUF_MODEL} {lm.serving_dtype}, 8 "
+              f"slots {mode}: {out[mode]}", flush=True)
+    del lm, mm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def image_contention(torch, details, card: str, base_images) -> dict:
+    """llava as path 15 (a) serves it (full width and depth, int4, the
+    CLIP ViT-L/14-336 tower from an mmproj written from the seed) behind
+    the HTTP server: the host's decode + resize of one 1024×768 PNG by
+    this checkout's ``server/images.py`` and by ``base_images`` (a
+    baseline commit's), then rounds of 4 greedy text-only /api/generate
+    streams of 64 tokens, their ms a token (``eval_duration`` over
+    ``eval_count``): alone; beside a thread of this process decoding and
+    resizing that PNG over and over with this checkout's code, then with
+    the baseline's (the work an HTTP thread does for each uploaded image,
+    under the same interpreter lock as the scheduler); beside 4 real
+    image requests (one token each) sent 0.5 s apart, the server's PNG
+    decoder this checkout's, then the baseline's; alone again."""
+    import base64
+    import gc
+    from unittest import mock
+
+    from ollama_operator_tpu_torch.convert import params_from_numpy
+    from ollama_operator_tpu_torch.gguf.reader import GGUFFile
+    from ollama_operator_tpu_torch.gguf.transcode import (
+        load_vision_params, vision_config_from_gguf)
+    from ollama_operator_tpu_torch.models import vision as V
+    from ollama_operator_tpu_torch.models.config import get_config
+    from ollama_operator_tpu_torch.runtime.engine import resolve_engine_dtype
+    from ollama_operator_tpu_torch.server import images as I
+    from ollama_operator_tpu_torch.server.app import ModelManager, serve
+    cfg = get_config("llava")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_contention_")
+    out = {"model": "llava", "card": card}
+    png = seeded_png(768, 1024, 2, SEED + 3)
+    b64 = base64.b64encode(png).decode()
+    for label, mod in (("this", I), ("baseline", base_images),
+                       ("this", I), ("baseline", base_images)):
+        t0 = time.perf_counter()
+        img = mod.decode_image(png)
+        t1 = time.perf_counter()
+        mod.preprocess(img, 336)
+        t2 = time.perf_counter()
+        out.setdefault("host_ms_1024x768", []).append(
+            {"code": label, "decode_ms": (t1 - t0) * 1e3,
+             "resize_ms": (t2 - t1) * 1e3})
+    try:
+        g = write_mmproj(torch, os.path.join(workdir, "mmproj.gguf"),
+                         V.VisionConfig(**CLIP_L14_336))
+        with GGUFFile(g["path"]) as f:
+            vcfg = vision_config_from_gguf(f)
+            vparams = params_from_numpy(
+                load_vision_params(f, vcfg, "bfloat16"), "cuda")
+        mm = ModelManager()
+        mm.preload("llava", cfg, dense_params(torch, cfg),
+                   byte_tokenizer(cfg.vocab_size, bos=LLAVA_BOS),
+                   dtype=resolve_engine_dtype(cfg, "cuda"),
+                   template=LLAVA_TEMPLATE, vision=(vcfg, vparams))
+        httpd = serve(mm, "127.0.0.1", 0)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    port = httpd.server_address[1]
+    opts = {"temperature": 0, "num_predict": 64, "repeat_penalty": 1.0}
+    prompts = [f"tell me about the number {i} and what it means"
+               for i in range(4)]
+
+    def decoding(mod):
+        def run(stop, done):
+            while not stop.is_set():
+                mod.preprocess(mod.decode_image(b64), vcfg.image_size)
+                done.append(1)
+        return run
+
+    def uploads(stop, done):
+        def one():
+            http(port, "/api/generate", {
+                "model": "llava", "prompt": "what is in this picture",
+                "images": [b64], "options": dict(opts, num_predict=1)})
+            done.append(1)
+        threads = []
+        for _ in range(4):
+            threads.append(threading.Thread(target=one))
+            threads[-1].start()
+            time.sleep(0.5)
+        for t in threads:
+            t.join(timeout=600)
+
+    # (name, side work, the PNG decoder the server runs)
+    rounds = (("alone", None, None), ("decoding_this", decoding(I), None),
+              ("decoding_baseline", decoding(base_images), None),
+              ("image_requests", uploads, None),
+              ("image_requests_baseline_decoder", uploads,
+               base_images.decode_png),
+              ("alone_again", None, None))
+    try:
+        http(port, "/api/generate", {"model": "llava", "prompt": "warm up",
+                                     "images": [b64], "options": dict(
+                                         opts, num_predict=2)})
+        for name, side, decoder in rounds:
+            stop, done = threading.Event(), []
+            th = (threading.Thread(target=side, args=(stop, done))
+                  if side else None)
+            with mock.patch.object(I, "decode_png",
+                                   decoder or I.decode_png):
+                if th:
+                    th.start()
+                results, wall = concurrent([
+                    lambda p=p: http(port, "/api/generate", {
+                        "model": "llava", "prompt": p, "options": opts})
+                    for p in prompts])
+                stop.set()
+                if th:
+                    th.join(timeout=600)
+            finals = [frames[-1] for _, frames, _ in results]
+            if any(f.get("eval_count") != 64 for f in finals):
+                raise RuntimeError(f"contention round {name}: {finals}")
+            ms = [f["eval_duration"] / 1e6 / f["eval_count"]
+                  for f in finals]
+            out[name] = {"ms_per_token": ms, "wall_s": wall,
+                         "side_work_done": len(done)}
+            print(f"image contention [{card}] {name}: text ms a token "
+                  f"{[round(x, 2) for x in ms]}, wall {wall:.3f} s, side "
+                  f"work done {len(done)}", flush=True)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        mm.shutdown()
+    print(f"host decode + resize of a 1024x768 PNG: "
+          f"{out['host_ms_1024x768']}", flush=True)
+    del mm, vparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_costs(torch, details, card: str, baseline_root: str):
+    """``--host-costs --baseline DIR``: the host's share of a decode step
+    that sampling and image uploads add, this checkout beside the
+    baseline commit at DIR, in the order baseline, this, this, baseline
+    (:func:`sampling_costs`), then :func:`image_contention`."""
+    import importlib
+    from ollama_operator_tpu_torch.ops import cuda_build
+    base = load_baseline(baseline_root)
+    # the same sources give the same library names: no second build
+    importlib.import_module("baseline_port.ops.cuda_build").BUILD_DIR = (
+        cuda_build.BUILD_DIR)
+    runs = [sampling_costs(torch, pkg, label) for pkg, label in (
+        ("baseline_port", "baseline"),
+        ("ollama_operator_tpu_torch", "this"),
+        ("ollama_operator_tpu_torch", "this"),
+        ("baseline_port", "baseline"))]
+    details["host_costs"] = {"sampling": runs, "images": image_contention(
+        torch, details, card,
+        importlib.import_module("baseline_port.server.images"))}
+    del base
+
 
 DRIFT_DEPTHS = (2, 6, 12, 34)
 
@@ -4671,6 +5806,16 @@ def main() -> int:
                          "embedding cross-checks and kernel rows, the "
                          "mxbai-embed-large encoder, one embed on a "
                          "4-layer qwen3moe) alone; no result line")
+    ap.add_argument("--vision-only", action="store_true",
+                    help="build the kernels, then run path 15 alone: llava "
+                         "with images at full depth, then mirostat and an "
+                         "adapter on a created llama3.2:3b; no result line")
+    ap.add_argument("--host-costs", action="store_true",
+                    help="with --baseline DIR: build the kernels, then time "
+                         "a decode dispatch of llama3.2:3b greedy, sampled "
+                         "and with a mirostat slot, this checkout beside "
+                         "DIR's, and llava's text streams beside image "
+                         "decoding and image requests; no result line")
     ap.add_argument("--gguf-only", action="store_true",
                     help="build the kernels, then run paths 9, 10 and 11 "
                          "(the pulled GGUF model, its chat and structured "
@@ -4696,6 +5841,14 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    try:
+        import PIL
+        pillow = f"imports (Pillow {PIL.__version__})"
+    except ImportError:
+        pillow = "does not import"
+    details["pillow"] = pillow
+    print(f"Pillow on this host: {pillow} (PNG images decode without it; "
+          f"other formats need it)", flush=True)
     t0 = time.perf_counter()
     took = cuda_build.build()
     t_build = time.perf_counter() - t0
@@ -4839,6 +5992,28 @@ def main() -> int:
               "result",
               flush=True)
         return 4
+    if args.host_costs:
+        if not args.baseline:
+            return fail("--host-costs needs --baseline DIR")
+        try:
+            host_costs(torch, details, card, args.baseline)
+        except Exception as e:  # noqa: BLE001 — the phase's failure
+            import traceback
+            traceback.print_exc()
+            return fail(f"host costs: {e!r}")
+        write_details(out_dir, details)
+        print("host-costs run: no result", flush=True)
+        return 4
+    if args.vision_only:
+        try:
+            vision_only(torch, details, card)
+        except Exception as e:  # noqa: BLE001 — the phase's failure
+            import traceback
+            traceback.print_exc()
+            return fail(f"path 15: {e!r}")
+        write_details(out_dir, details)
+        print("vision-only run (path 15): no result", flush=True)
+        return 4
     if args.embed_only:
         try:
             embed_only(torch, details, card, Timer(torch), report)
@@ -4948,6 +6123,18 @@ def main() -> int:
             "launches"]
         lap("path 13")
         embed_total(details)
+        # 12. path 15 (a): llava with images at full width and depth ((b)
+        # and (c) ran on path 9's server above)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_llava_")
+        try:
+            launches_by_path[LLAVA_PATH] = llava_phase(torch, details, card,
+                                                       workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        p15 = details["path15"]["server"]
+        launches_by_path[MIROSTAT_PATH] = p15["mirostat"]["launches"]
+        launches_by_path[ADAPTER_PATH] = p15["adapter"]["launches"]
+        lap("path 15 (a)")
     except Exception as e:  # noqa: BLE001 — every phase failure is fatal
         import traceback
         traceback.print_exc()

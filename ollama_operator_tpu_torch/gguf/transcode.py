@@ -21,9 +21,10 @@ Transcoded output is cached through gguf/store.py, keyed by (content
 digest, dtype) exactly as the JAX package keys it, so either package reads
 the other's cache. BERT-family encoders (embedding models) map through
 ``encoder_config_from_gguf`` and ``load_encoder_params`` to
-``models/encoder.py``, uncached, as in the JAX package. Vision towers
-and LoRA adapters are not ported; ``server/app.py`` refuses models that
-need them.
+``models/encoder.py``, and a llava mmproj GGUF (arch "clip") through
+``vision_config_from_gguf`` and ``load_vision_params`` to
+``models/vision.py``, both uncached, as in the JAX package. LoRA adapters
+merge into a loaded tree in ``gguf/lora.py``.
 """
 
 from __future__ import annotations
@@ -573,6 +574,91 @@ def load_encoder_params(f: GGUFFile, cfg=None,
             "emb_norm_w": cast(_dq(f, "token_embd_norm.weight")),
             "emb_norm_b": cast(_dq(f, "token_embd_norm.bias")),
             "layers": layers}
+
+
+# ---------------------------------------------------------------------------
+# vision tower (llava mmproj GGUF, arch "clip")
+# ---------------------------------------------------------------------------
+
+def vision_config_from_gguf(f: GGUFFile):
+    """clip-arch mmproj metadata → models.vision.VisionConfig. The
+    projector's output width comes from the mm.2 tensor (the LLM's
+    embedding width)."""
+    from ..models.vision import VisionConfig
+
+    def g(k, d=None):
+        return f.metadata.get("clip.vision." + k, d)
+    mm2 = f.tensors.get("mm.2.weight")
+    proj_dim = int(mm2.shape[0]) if mm2 is not None else int(
+        f.metadata.get("clip.vision.projection_dim", 4096))
+    return VisionConfig(
+        image_size=int(g("image_size", 336)),
+        patch_size=int(g("patch_size", 14)),
+        width=int(g("embedding_length", 1024)),
+        n_layers=int(g("block_count", 24)),
+        n_heads=int(g("attention.head_count", 16)),
+        ffn_dim=int(g("feed_forward_length", 4096)),
+        norm_eps=float(g("attention.layer_norm_epsilon", 1e-5)),
+        proj_dim=proj_dim,
+        # llama.cpp's llava converter drops the skipped last CLIP layer
+        # before export (block_count already counts the penultimate
+        # selection), so a GGUF-loaded tower runs every file layer
+        select_layer=-1,
+    ).validate()
+
+
+def load_vision_params(f: GGUFFile, vcfg=None,
+                       dtype="float32") -> Dict[str, Any]:
+    """mmproj tensors → the models.vision param tree of numpy arrays
+    (float32, or uint16 bf16 patterns for ``dtype="bfloat16"``).
+
+    llama.cpp's clip names (v.patch_embd, v.blk.N.*, mm.0 / mm.2); the two
+    ffn tensors are mapped by shape, not by name, because mmproj exports
+    disagree on which of ffn_up / ffn_down is the W→F projection."""
+    vcfg = vcfg or vision_config_from_gguf(f)
+    L, W, Fd = vcfg.n_layers, vcfg.width, vcfg.ffn_dim
+    if dtype_name(dtype) == "bfloat16":
+        cast = bf16_bits
+    else:
+        def cast(a):
+            return np.ascontiguousarray(a, dtype=np.float32)
+
+    pe = _dq(f, "v.patch_embd.weight")              # [W, 3, P, P]
+    params: Dict[str, Any] = {
+        "patch_emb": cast(pe.reshape(W, -1).T),      # [3*P*P, W], (c,i,j)
+        "class_emb": cast(_dq(f, "v.class_embd")),
+        "pos_emb": cast(_dq(f, "v.position_embd.weight")),
+        "pre_ln_w": cast(_dq(f, "v.pre_ln.weight")),
+        "pre_ln_b": cast(_dq(f, "v.pre_ln.bias")),
+        "mm_0": cast(_dq(f, "mm.0.weight").T),
+        "mm_0_b": cast(_dq(f, "mm.0.bias")),
+        "mm_2": cast(_dq(f, "mm.2.weight").T),
+        "mm_2_b": cast(_dq(f, "mm.2.bias")),
+    }
+
+    def stack(fmt: str, transpose: bool = False):
+        return np.stack([cast(_dq(f, fmt.format(i)).T if transpose
+                              else _dq(f, fmt.format(i)))
+                         for i in range(L)])
+
+    layers = {"ln1_w": stack("v.blk.{}.ln1.weight"),
+              "ln1_b": stack("v.blk.{}.ln1.bias"),
+              "ln2_w": stack("v.blk.{}.ln2.weight"),
+              "ln2_b": stack("v.blk.{}.ln2.bias")}
+    for leaf, name in (("q", "attn_q"), ("k", "attn_k"), ("v", "attn_v"),
+                       ("o", "attn_out")):
+        layers[f"w{leaf}"] = stack(f"v.blk.{{}}.{name}.weight", True)
+        layers[f"b{leaf}"] = stack(f"v.blk.{{}}.{name}.bias")
+    # the ffn tensor stored [out, in] = [F, W] is the W→F one (w_up)
+    up, down = (("ffn_up", "ffn_down")
+                if tuple(f.tensors["v.blk.0.ffn_up.weight"].shape) == (Fd, W)
+                else ("ffn_down", "ffn_up"))
+    layers.update(w_up=stack(f"v.blk.{{}}.{up}.weight", True),
+                  b_up=stack(f"v.blk.{{}}.{up}.bias"),
+                  w_down=stack(f"v.blk.{{}}.{down}.weight", True),
+                  b_down=stack(f"v.blk.{{}}.{down}.bias"))
+    params["layers"] = layers
+    return params
 
 
 # ---------------------------------------------------------------------------

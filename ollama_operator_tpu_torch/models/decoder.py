@@ -59,7 +59,7 @@ Pallas kernel.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -424,11 +424,15 @@ def _unembed(cfg: ModelConfig, params: Params, x):
 # forward passes
 # --------------------------------------------------------------------------
 
-def prefill_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+def prefill_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   inputs_embeds: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The layers of :func:`prefill_chunk` without the LM head: returns
     (hidden [B, T, D], k [L, B, KvH, T, hd], v [...]). The engine
-    unembeds only the row it samples from."""
+    unembeds only the row it samples from. ``inputs_embeds`` [B, T, D]
+    (a multimodal prompt's spliced embeddings) replaces the embedding
+    lookup, cast to ``tok_emb``'s dtype; ``tokens`` then only gives the
+    shape and is never looked up."""
     B, T = tokens.shape
     scale = _attn_scale(cfg)
     positions = torch.arange(T, device=tokens.device).expand(B, T)
@@ -438,7 +442,8 @@ def prefill_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor
         masks = {w: causal_mask(T, T, 0, w, device=tokens.device)
                  for w in {_layer_window(cfg, i)
                            for i in range(cfg.n_layers)}}
-    x = _embed(cfg, params, tokens)
+    x = (_embed(cfg, params, tokens) if inputs_embeds is None
+         else inputs_embeds.to(params["tok_emb"].dtype))
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
@@ -500,14 +505,16 @@ def embed_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return total.float() / count.float()
 
 
-def prefill_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+def prefill_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  inputs_embeds: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A fresh chunk at positions [0, T) with no prior cache.
 
-    tokens [B, T] (right-padded; callers read logits at n_valid-1).
+    tokens [B, T] (right-padded; callers read logits at n_valid-1);
+    ``inputs_embeds`` [B, T, D] replaces their embedding lookup.
     Returns (logits [B, T, V] f32, k [L, B, KvH, T, hd], v [...]), K/V
     head-first like the cache."""
-    x, ks, vs = prefill_hidden(params, cfg, tokens)
+    x, ks, vs = prefill_hidden(params, cfg, tokens, inputs_embeds)
     return _unembed(cfg, params, x), ks, vs
 
 

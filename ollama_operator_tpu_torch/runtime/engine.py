@@ -34,9 +34,13 @@ A batch with no constrained slot runs none of this.
 PyTorch runs eagerly, so there is nothing to compile: a decode dispatch is
 the host loop that enqueues ``n`` steps on the device, and its handle
 waits on a CUDA event recorded after the last step (on the CPU the work is
-done by the time the launch returns). The host arena of the prefix cache,
-speculative decoding, mirostat and multi-device meshes are not ported
-yet.
+done by the time the launch returns). Each slot carries a mirostat
+surprise budget (``mu``, on the device), seeded to 2·tau at admission and
+moved by every mirostat draw. A multimodal admission (``admit`` with
+``embeds``) prefills from a spliced embedding sequence; its image
+positions carry the pad id ``vocab_size``, which only the penalty counts'
+sentinel column sees. The host arena of the prefix cache, speculative
+decoding and multi-device meshes are not ported yet.
 """
 
 from __future__ import annotations
@@ -215,10 +219,21 @@ class SlotOptions:
     repeat_penalty: float = 1.1
     presence_penalty: float = 0.0
     frequency_penalty: float = 0.0
+    # mirostat: 0 off, 1/2 replace the static filters with the adaptive
+    # surprise truncation (the slot's budget is Engine.mu)
+    mirostat: int = 0
+    mirostat_tau: float = 5.0
+    mirostat_eta: float = 0.1
     seed: int = -1
     # penalty window for this request: 0 disables it, -1 means "engine
     # max"; values above the engine's repeat_last_n clamp
     repeat_last_n: int = 64
+
+
+def _mirostat(opts: SlotOptions) -> bool:
+    """Whether a slot's draws take the mirostat truncation (a greedy slot
+    never draws, whatever its mirostat)."""
+    return opts.mirostat > 0 and opts.temperature > 0
 
 
 def _draw_seed(seed: int, position: int) -> int:
@@ -480,6 +495,8 @@ class Engine:
         self.counts = torch.zeros((B, V + 1), dtype=torch.int32, device=dev)
         self.pring = torch.full((B, W), V, dtype=torch.int64, device=dev)
         self.last_tokens = torch.zeros(B, dtype=torch.int64, device=dev)
+        # mirostat surprise budgets, seeded to 2*tau at admission
+        self.mu = torch.zeros(B, dtype=torch.float32, device=dev)
         # host mirrors
         self.active = np.zeros(B, bool)
         self._host_lengths = np.zeros(B, np.int64)
@@ -550,6 +567,8 @@ class Engine:
         rows = [dataclasses.asdict(self._opts.get(i, SlotOptions()))
                 for i in range(self.n_slots)]
         self.sp = sampling.SamplingParams.from_rows(rows, self.device)
+        # whether a decode step runs the mirostat truncation and update
+        self._mirostat = any(map(_mirostat, self._opts.values()))
         self._active_dev = torch.tensor(self.active, dtype=torch.int32,
                                         device=self.device)
         self._rln_dev = torch.tensor(self._repeat_n, dtype=torch.int64,
@@ -580,12 +599,18 @@ class Engine:
                 and self.kv.fits_empty(self._ahead(n_tokens)))
 
     def admit(self, slot: int, prompt: np.ndarray,
-              opts: SlotOptions = SlotOptions(),
+              opts: SlotOptions = SlotOptions(), embeds=None,
               mask_row: Optional[np.ndarray] = None) -> int:
         """Prefill ``prompt`` into ``slot``; returns the first sampled
         token, drawn under ``mask_row`` (a packed allowed-token row) when
         one is given. Paged: raises :class:`PagesExhausted` when the pool
-        cannot hold the prompt plus one decode chunk."""
+        cannot hold the prompt plus one decode chunk.
+
+        ``embeds`` [n, D] (numpy or a tensor): a precomputed embedding
+        sequence for the prompt (multimodal: image tokens spliced between
+        text embeddings), prefilled in place of the embedding lookup, which
+        then never sees ``prompt``; its image positions carry a pad id
+        (``vocab_size``) that only the penalty counts see."""
         if self.active[slot]:
             raise RuntimeError(f"slot {slot} busy")
         prompt = np.asarray(prompt, np.int64)
@@ -597,8 +622,18 @@ class Engine:
         self.kv.claim(slot, n, self._ahead(n))
         tokens = np.zeros((1, bucket), np.int64)
         tokens[0, :n] = prompt
+        emb = None
+        if embeds is not None:
+            embeds = torch.as_tensor(embeds)
+            if embeds.shape[0] != n:
+                raise ValueError(f"embeds cover {embeds.shape[0]} positions, "
+                                 f"the prompt {n}")
+            emb = torch.zeros((1, bucket, embeds.shape[1]),
+                              dtype=embeds.dtype, device=self.device)
+            emb[0, :n] = embeds.to(self.device)
         x, ks, vs = decoder.prefill_hidden(
-            self.params, self.cfg, torch.from_numpy(tokens).to(self.device))
+            self.params, self.cfg, torch.from_numpy(tokens).to(self.device),
+            inputs_embeds=emb)
         tok = self._sample_install(slot, prompt, x[:, n - 1], opts,
                                    mask_row)
         self.kv.insert(self.cfg, ks, vs, slot, n)
@@ -656,10 +691,11 @@ class Engine:
                         mask_row: Optional[np.ndarray] = None) -> int:
         """Shared admission tail of ``admit`` and ``extend``: the penalty
         window over the last ``rln`` prompt tokens, the slot's seed
-        (from the slot and the full prompt length), the first token
-        sampled from the last prompt row's hidden state ``x_last`` [1, D]
-        (its logits masked by ``mask_row`` when one is given) and pushed
-        through the window, and the slot state installed."""
+        (from the slot and the full prompt length), the mirostat budget
+        seeded to 2·tau, the first token sampled from the last prompt
+        row's hidden state ``x_last`` [1, D] (its logits masked by
+        ``mask_row`` when one is given; its surprise moves the budget) and
+        pushed through the window, and the slot state installed."""
         cfg, dev, V = self.cfg, self.device, self.cfg.vocab_size
         n = int(prompt.shape[0])
         rln = self._resolve_rln(opts)
@@ -683,8 +719,13 @@ class Engine:
             allowed = unpack_mask(self._words(mask_row), V)
             logits = logits.masked_fill(~allowed[None], sampling.NEG_INF)
         counts_dev = torch.from_numpy(counts).to(dev)
-        tok = int(sampling.sample(logits, counts_dev[None, :V], row,
-                                  [self._generator(slot, n - 1)])[0])
+        self.mu[slot] = 2.0 * opts.mirostat_tau
+        tok, mu = sampling.sample(
+            logits, counts_dev[None, :V], row, [self._generator(slot, n - 1)],
+            self.mu[slot:slot + 1] if _mirostat(opts) else None)
+        tok = int(tok[0])
+        if mu is not None:
+            self.mu[slot] = mu[0]
         # the first token enters the window at its own position n
         if rln > 0:
             counts[ring[n % rmod]] -= 1
@@ -786,7 +827,11 @@ class Engine:
             gens = [self._generator(s, int(self._host_lengths[s]) + t)
                     if self.active[s] else None
                     for s in range(self.n_slots)]
-            tok = sampling.sample(last, self.counts[:, :V], self.sp, gens)
+            tok, mu = sampling.sample(last, self.counts[:, :V], self.sp,
+                                      gens, self.mu if self._mirostat
+                                      else None)
+            if mu is not None:
+                self.mu = torch.where(act_b, mu, self.mu)
             if constrained:
                 ns = self._gtrans_dev[gi, tok]
                 ns = torch.where(ns < 0, torch.full_like(ns, -2), ns)

@@ -74,7 +74,20 @@ for good (the pod's liveness probe then fails). ``begin_drain`` sheds new
 work with 503 + Retry-After while running streams finish; ``drain`` waits
 up to ``TPU_DRAIN_TIMEOUT_S`` and ends stragglers with a ``drain`` frame.
 
-Left for later slices: speculative decoding and async dispatch.
+A multimodal request (``embeds``: a prompt whose image positions carry a
+pad id and whose embedding sequence was spliced from the vision tower's
+output) admits whole, through ``Engine.admit(embeds=...)``: the padded
+ids of two different images are equal, so it never reuses a cached
+prefix, never donates or parks its own, and is never chunked; it cannot
+re-prefill from token ids, so it is preempted only when no other request
+can make room (and then ends with an error), is never a priority victim
+or throttled, and a restart fails it ("multimodal") instead of replaying
+it. A mirostat stream's budget restarts at 2·tau on any re-admission, so
+a restart does not replay it either ("nondeterministic").
+
+Left for later slices: speculative decoding and async dispatch (the
+reference launches dispatch N+1 before fanning out dispatch N; here the
+whole host enqueue of a dispatch is the step, so nothing would overlap).
 """
 
 from __future__ import annotations
@@ -180,7 +193,8 @@ class Request:
     def __init__(self, prompt_ids: Sequence[int], opts: SlotOptions,
                  max_tokens: int, eog_ids: frozenset, constraint=None,
                  deadline: Optional[float] = None,
-                 priority: str = "normal", tenant: str = DEFAULT_TENANT):
+                 priority: str = "normal", tenant: str = DEFAULT_TENANT,
+                 embeds=None):
         with Request._ids_lock:
             self.id = next(Request._ids)
         # admission policy: class, fairness tenant, and the WDRR token
@@ -192,6 +206,8 @@ class Request:
         # a throttled request is not admitted again before this stamp
         self.resume_at = 0.0
         self.prompt_ids = np.asarray(prompt_ids, np.int64)
+        # [n_prompt, D] multimodal prompt embeddings, or None
+        self.embeds = embeds
         # grammar state (ops/constrain.py, ops/schema.py), or None
         self.constraint = constraint
         # the device grammar table for this request's token table: None =
@@ -366,7 +382,7 @@ class Scheduler:
                max_tokens: int, eog_ids: frozenset = frozenset(),
                constraint=None, deadline_s: Optional[float] = None,
                priority: str = "normal", tenant: str = DEFAULT_TENANT,
-               ttft_slo_s: Optional[float] = None) -> Request:
+               ttft_slo_s: Optional[float] = None, embeds=None) -> Request:
         n = len(prompt_ids)
         if not 0 < n < self.engine.max_seq:
             raise ValueError(f"prompt of {n} tokens: need 0 < n < "
@@ -377,7 +393,8 @@ class Scheduler:
         deadline = (time.monotonic() + deadline_s
                     if deadline_s is not None and deadline_s > 0 else None)
         req = Request(prompt_ids, opts, max_tokens, eog_ids, constraint,
-                      deadline=deadline, priority=priority, tenant=tenant)
+                      deadline=deadline, priority=priority, tenant=tenant,
+                      embeds=embeds)
         req.cost = float(n + min(max_tokens, max(16, int(self._avg_decode))))
         victim = None
         # the broken check and the enqueue under the lock the failure path
@@ -673,8 +690,14 @@ class Scheduler:
         """Why a stream cannot replay to the same tokens, or None. Greedy
         streams and seeded ones (a draw keyed on (seed, position)) resume
         identically through the preempt/resume path; an unseeded sampled
-        stream seeds from (slot, prompt length), both of which change."""
+        stream seeds from (slot, prompt length), both of which change, and
+        a mirostat stream's budget restarts at 2·tau. A multimodal prompt
+        cannot re-prefill from token ids at all."""
+        if req.embeds is not None:
+            return "multimodal"
         if req.opts.temperature > 0.0 and req.opts.seed < 0:
+            return "nondeterministic"
+        if req.opts.mirostat:
             return "nondeterministic"
         return None
 
@@ -867,10 +890,12 @@ class Scheduler:
         """End ``req`` in ``slot``. On "stop" and "length" its cache is
         kept for reuse: with the radix cache the full-page prefix of
         everything but the last token (never fed back, so not cached) is
-        donated; otherwise the slot is parked with those ids."""
+        donated; otherwise the slot is parked with those ids. A multimodal
+        request's cache is never kept (its image positions' ids are pads
+        that any other image shares)."""
         parkable = (list(req.prompt_ids) + req.all_tokens)[:-1]
-        park = (keep_cache and reason in ("stop", "length")
-                and len(parkable) > 0)
+        park = (keep_cache and req.embeds is None
+                and reason in ("stop", "length") and len(parkable) > 0)
         if self._use_radix:
             if park:
                 self.engine.donate_prefix(slot, parkable)
@@ -1004,8 +1029,8 @@ class Scheduler:
         """(slot, reuse_len) of the parked slot sharing the longest token
         prefix with the request, or (None, 0). One tail token must remain
         to prefill, the reuse must reach the floor, and the tail's bucket
-        must fit above it."""
-        if self._use_radix:
+        must fit above it. A multimodal request reuses nothing."""
+        if self._use_radix or req.embeds is not None:
             return None, 0
         ids = req.admit_ids
         best, best_m = None, 0
@@ -1108,10 +1133,11 @@ class Scheduler:
                 slot = self._pick_slot(free, len(ids))
             # the slot's parked cache is spoken for either way
             self._parked.pop(slot, None)
-            if self._use_radix:
+            if self._use_radix and req.embeds is None:
                 reuse_len = self._stitch_admission(slot, req)
             piece = self.prefill_chunk
             if (piece and len(ids) - reuse_len > piece
+                    and req.embeds is None
                     and len(ids) + piece <= self.engine.max_seq):
                 if not self._start_chunked(slot, req, reuse_len):
                     return
@@ -1157,6 +1183,7 @@ class Scheduler:
                                             mask_row=mask_row)
                          if reuse_len else
                          self.engine.admit(slot, ids, req.opts,
+                                           embeds=req.embeds,
                                            mask_row=mask_row))
             except PagesExhausted:
                 if not (reuse_len and self._use_radix):
@@ -1482,7 +1509,9 @@ class Scheduler:
         """Make sure every decoding slot has pages for the next chunk:
         evict cached prefixes first, then preempt one running request at
         a time, the lowest class first and the newest admission within
-        it."""
+        it. Multimodal requests go last (their embeddings cannot be
+        re-prefilled from token ids): one that must go ends with an
+        error."""
         while True:
             victims = self.engine.prepare_decode()
             if not victims:
@@ -1492,9 +1521,19 @@ class Scheduler:
             cand = [s for s in victims if self._running[s] is not None]
             if not cand:
                 return  # nothing to act on; the dispatch will raise
-            slot = max(cand, key=lambda s: (self._running[s].rank,
-                                            self._running[s].stats
-                                            .t_admitted))
+            non_mm = [s for s in cand if self._running[s].embeds is None]
+            if not non_mm:
+                slot = cand[0]
+                req = self._running[slot]
+                self._running[slot] = None
+                self.engine.release(slot)
+                self._request_error(req, "preempted under KV-pool "
+                                         "pressure; multimodal requests "
+                                         "cannot resume")
+                continue
+            slot = max(non_mm, key=lambda s: (self._running[s].rank,
+                                              self._running[s].stats
+                                              .t_admitted))
             self._preempt_slot(slot, cause="pool_pressure")
 
     def _preempt_for_priority(self):
@@ -1515,7 +1554,7 @@ class Scheduler:
         want = min(ranks)
         cand = [s for s, r in enumerate(self._running)
                 if r is not None and s not in self._prefilling
-                and r.rank > want]
+                and r.embeds is None and r.rank > want]
         if not cand:
             return
         slot = max(cand, key=lambda s: (self._running[s].rank,
@@ -1530,7 +1569,8 @@ class Scheduler:
         if not self._limiter.enabled:
             return
         for slot, req in list(self._decoding().items()):
-            if req.priority != "best_effort" or req.stats.n_generated <= 0:
+            if (req.priority != "best_effort" or req.embeds is not None
+                    or req.stats.n_generated <= 0):
                 continue
             delay = self._limiter.debt_delay(req.tenant)
             if delay <= 0.0:

@@ -6,8 +6,10 @@ API the HTTP layer calls (prompt and chat templating, option merging, stop
 sequences with holdback, streaming detokenisation, the grammar constraint
 of ``format``, the request budgets: ``deadline_ms``, ``priority``,
 ``tenant`` and ``ttft_slo_ms``, resolved as the reference resolves them,
-and embeddings: mean-pooled final hidden states of a decoder, or a BERT
-encoder's pooled output). Everything below it is token-level.
+images through a llava model's vision tower and projector, spliced into
+the prompt's embeddings, and embeddings: mean-pooled final hidden states
+of a decoder, or a BERT encoder's pooled output). Everything below it is
+token-level.
 """
 
 from __future__ import annotations
@@ -27,10 +29,12 @@ import torch
 from ..device import resolve_device
 from ..models import decoder as D
 from ..models import encoder as E
+from ..models import vision as V
 from ..models.config import ModelConfig
 from ..ops.constrain import JsonConstraint
 from ..ops.schema import SchemaConstraint, compile_schema
 from ..server.metrics import GLOBAL as METRICS
+from ..server.images import decode_image, preprocess
 from ..server.template import DEFAULT_TEMPLATE, Template
 from ..server.tools import to_template_tool_calls, to_template_tools
 from ..tokenizer import StreamDecoder, Tokenizer
@@ -143,8 +147,7 @@ def merge_options(defaults: Dict, request: Optional[Dict]
     if isinstance(stop, str):
         stop = [stop]
     try:
-        if int(o.get("mirostat", 0)) in (1, 2):
-            raise BadRequest("mirostat sampling is not ported yet")
+        mirostat = int(o.get("mirostat", 0))
         so = SlotOptions(
             temperature=float(o.get("temperature", 0.8)),
             top_k=int(o.get("top_k", 40)),
@@ -154,12 +157,14 @@ def merge_options(defaults: Dict, request: Optional[Dict]
             repeat_penalty=float(o.get("repeat_penalty", 1.1)),
             presence_penalty=float(o.get("presence_penalty", 0.0)),
             frequency_penalty=float(o.get("frequency_penalty", 0.0)),
+            # llama.cpp treats any value other than 1/2 as off
+            mirostat=mirostat if mirostat in (1, 2) else 0,
+            mirostat_tau=float(o.get("mirostat_tau", 5.0)),
+            mirostat_eta=float(o.get("mirostat_eta", 0.1)),
             seed=int(o.get("seed", -1)),
             repeat_last_n=int(o.get("repeat_last_n", 64)))
         num_predict = int(o.get("num_predict", 128))
     except (TypeError, ValueError) as e:
-        if isinstance(e, BadRequest):
-            raise
         raise BadRequest(f"invalid options: {e}") from e
     if num_predict < 0:
         num_predict = 1 << 30  # -1 = unlimited (bounded by context)
@@ -220,7 +225,8 @@ class LoadedModel:
     "int4", "bfloat16", "float32") and ``paged`` its kind as the JAX
     server's ``--paged`` does (True: the page pool; False: the dense slot
     cache; None: resolved per model and device); each, when given,
-    replaces the one in ``ecfg``."""
+    replaces the one in ``ecfg``. ``vision`` (a llava model's projector
+    layer): (``models.vision.VisionConfig``, its params on ``device``)."""
 
     def __init__(self, name: str, cfg: ModelConfig, params,
                  tokenizer: Tokenizer, template: Optional[str] = None,
@@ -228,10 +234,12 @@ class LoadedModel:
                  default_params: Optional[Dict] = None,
                  ecfg: Optional[EngineConfig] = None, device="cuda",
                  kv_dtype: Optional[str] = None,
-                 paged: Optional[bool] = None):
+                 paged: Optional[bool] = None,
+                 vision: Optional[Tuple] = None):
         self.device = resolve_device(device)
         self.name = name
         self.cfg = cfg
+        self.vision = vision
         self.tokenizer = tokenizer
         self.template = Template(template or DEFAULT_TEMPLATE)
         self.system = system
@@ -293,6 +301,36 @@ class LoadedModel:
                       "constraining to generic JSON only",
                       file=sys.stderr, flush=True)
         return JsonConstraint.for_tokenizer(self.tokenizer)
+
+    def encode_images(self, images_u8) -> torch.Tensor:
+        """uint8 [H, W, 3] arrays → [n_img, n_patches, D] f32 image
+        tokens (the tower and projector on the model's device)."""
+        vcfg, vparams = self.vision
+        batch = np.stack([preprocess(im, vcfg.image_size)
+                          for im in images_u8])
+        with torch.inference_mode():
+            return V.encode(vcfg, vparams,
+                            torch.from_numpy(batch).to(self.device))
+
+    def splice_images(self, ids: List[int], images_u8
+                      ) -> Tuple[List[int], torch.Tensor]:
+        """Text ids + decoded images → (padded ids, embeds [n, D] f32).
+
+        The image tokens go after the BOS token (llava: the image context
+        precedes the instruction), whatever the template; the padded ids
+        carry the pad id ``vocab_size`` at image positions (only the
+        penalty counts see it)."""
+        img = self.encode_images(images_u8)               # [n_img, N, D]
+        n_img, N, Dm = img.shape
+        with torch.inference_mode():
+            text = D._embed(self.cfg, self.engine.params, torch.tensor(
+                ids, dtype=torch.long, device=self.device)).float()
+        cut = 1 if (ids and self.tokenizer.add_bos
+                    and ids[0] == self.tokenizer.bos_id) else 0
+        embeds = torch.cat([text[:cut], img.reshape(n_img * N, Dm),
+                            text[cut:]])
+        pad = [self.cfg.vocab_size] * (n_img * N)
+        return list(ids[:cut]) + pad + list(ids[cut:]), embeds
 
     def render_prompt(self, prompt: str, system: Optional[str] = None,
                       template: Optional[str] = None,
@@ -356,9 +394,14 @@ class LoadedModel:
                         ) -> Iterator[Tuple[str, Optional[GenerateResult]]]:
         """Yields (text_piece, None)… then ("", final GenerateResult).
 
-        ``images`` (the request's list): every model of the port is
-        text-only, so any image is refused, as the reference refuses one
-        for a model without a vision projector. ``format``: None or ""
+        ``images`` (the request's list: base64 strings, raw bytes, or
+        uint8 [H, W, 3] arrays): on a model without a vision projector a
+        400, as the reference answers; else each is decoded (an
+        undecodable one is a 400, "invalid image: ..."), run through the
+        tower and projector and spliced after the BOS token
+        (:meth:`splice_images`); ``prompt_eval_count`` counts the image
+        tokens, and the returned context holds the real token ids only
+        (a continuation re-prefills without the image). ``format``: None or ""
         asks for free text; "json" or a JSON-schema dict turns on
         grammar-constrained decoding (``ops/constrain.py``,
         ``ops/schema.py``): every token is legal for the grammar, and an
@@ -388,10 +431,16 @@ class LoadedModel:
             prompt_text, add_bos=(not ids) and self.tokenizer.add_bos)
         if not ids:
             raise BadRequest("the prompt encodes to no tokens")
+        embeds = None
+        context_ids = ids
         if images:
-            raise BadRequest(
-                f"model {self.name} has no vision projector; it cannot "
-                f"accept images")
+            if self.vision is None:
+                raise BadRequest(
+                    f"model {self.name} has no vision projector; it cannot "
+                    f"accept images")
+            ids, embeds = self.splice_images(ids, [
+                im if isinstance(im, np.ndarray) else decode_image(im)
+                for im in images])
         max_new = min(num_predict, self.engine.max_seq - len(ids) - 1)
         if max_new < 1:
             raise BadRequest(
@@ -410,7 +459,7 @@ class LoadedModel:
                              "ported to the torch server")
         req = self.scheduler.submit(ids, so, max_new,
                                     eog_ids=frozenset(self.tokenizer.eog_ids),
-                                    constraint=constraint,
+                                    embeds=embeds, constraint=constraint,
                                     deadline_s=resolve_deadline_s(
                                         self.default_params, options),
                                     priority=resolve_priority(
@@ -419,8 +468,8 @@ class LoadedModel:
                                     ttft_slo_s=resolve_ttft_slo_s(
                                         self.default_params, options))
         want_timings = bool((options or {}).get("trace"))
-        return _OwnedStream(self._stream(req, stops, ids, max_new, t0,
-                                         want_timings), req)
+        return _OwnedStream(self._stream(req, stops, context_ids, max_new,
+                                         t0, want_timings), req)
 
     def _stream(self, req, stops, ids, max_new, t0, want_timings=False):
         sd = StreamDecoder(self.tokenizer)

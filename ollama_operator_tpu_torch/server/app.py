@@ -33,14 +33,16 @@ port serves:
   POST /api/generate      generation, streamed (NDJSON) or not; ``suffix``
                           (fill-in-middle) as the reference renders it,
                           ``format`` ("json" or a JSON schema) decoded
-                          under its grammar, ``images`` refused with 400
-                          until vision is ported, ``keep_alive`` parsed as
+                          under its grammar, ``images`` (base64) through a
+                          llava model's vision tower (400 on a model
+                          without a projector), ``keep_alive`` parsed as
                           the reference does
   POST /api/chat          chat-templated generation (NDJSON): system
                           messages merged, ``tools`` rendered through the
                           template's ``.Tools`` and answered as one message
                           with ``tool_calls``, ``format``, ``keep_alive``
-                          (0 with no messages unloads), ``images`` refused
+                          (0 with no messages unloads), ``images`` of
+                          every message
   POST /v1/chat/completions   OpenAI chat (SSE when streamed), with
                           ``response_format`` (json_object, json_schema)
                           and ``tools``
@@ -112,9 +114,11 @@ from .. import __version__
 from ..convert import params_from_numpy
 from ..device import resolve_device
 from ..gguf.reader import GGUFFile
+from ..gguf.lora import apply_lora
 from ..gguf.transcode import (config_from_gguf, encoder_config_from_gguf,
                               is_encoder_arch, load_encoder_params,
-                              load_model as transcode_load)
+                              load_model as transcode_load,
+                              load_vision_params, vision_config_from_gguf)
 from ..models.decoder import check_supported
 from ..ops import cuda_build
 from ..ops import quant as Q
@@ -294,12 +298,6 @@ def apply_engine_dtype(params: Dict[str, Any], engine_dtype: str,
     return out
 
 
-# the model-layer media types the port cannot serve yet: an adapter would
-# be merged into the weights, a projector is a vision tower (ROADMAP
-# Queue 1 item 9); serving the model without them would be wrong
-_UNPORTED_LAYERS = {MT_ADAPTER: "a LoRA adapter (ADAPTER) layer",
-                    MT_PROJECTOR: "a vision projector (PROJECTOR) layer"}
-
 # GGUF general.file_type → Ollama's quantization label
 _FILE_TYPES = {0: "F32", 1: "F16", 2: "Q4_0", 3: "Q4_1", 7: "Q8_0",
                8: "Q5_0", 9: "Q5_1", 10: "Q2_K", 11: "Q3_K_S",
@@ -392,7 +390,9 @@ class ModelManager:
         (``resolve_engine_dtype``: int8 below 4e9 parameters and int4
         above on the card, f32 on the CPU). ``params`` is consumed: its
         leaves are popped as they are converted. Other keywords go to
-        :class:`LoadedModel` (``kv_dtype``, ``paged``, ``ecfg``, ...)."""
+        :class:`LoadedModel` (``kv_dtype``, ``paged``, ``ecfg``, and
+        ``vision``: a (``VisionConfig``, params on the manager's device)
+        pair that makes a llava model of seeded decoder weights)."""
         return self.add(self._build(name, cfg, params, tokenizer, dtype,
                                     **kw))
 
@@ -499,7 +499,10 @@ class ModelManager:
         ``load`` does: resolve its layers, read the GGUF header once
         (refusing what the port cannot serve), resolve the weight dtype
         per model when none was given, parse and transcode (through the
-        cache) before tearing the old model down, apply the template,
+        cache) before tearing the old model down, merge an ``ADAPTER``
+        layer into the weights before they are quantized (a bad adapter
+        is a 400, "adapter: ..."), load a ``PROJECTOR`` layer's vision
+        tower (bf16 on the card, f32 on the CPU), apply the template,
         system and params layers, and build the engine at the serving
         defaults. One store-loaded model is resident at a time."""
         if not self.serve_models:
@@ -518,11 +521,6 @@ class ModelManager:
             gguf_path = layers.get(MT_MODEL)
             if not gguf_path:
                 raise ApiError(500, f"model {name.short} has no model layer")
-            for mt, what in _UNPORTED_LAYERS.items():
-                if mt in layers:
-                    raise ApiError(501, f"model {name.short} has {what}, "
-                                        f"which the torch port does not "
-                                        f"serve yet")
             digest = store.model_digest(name) or ""
             with GGUFFile(gguf_path) as hdr:
                 if is_encoder_arch(hdr.arch):
@@ -556,23 +554,40 @@ class ModelManager:
                 print(f"serving dtype for {name.short}: {engine_dtype} "
                       f"({hcfg.n_params / 1e9:.2f}B params, auto)",
                       file=sys.stderr)
+            dt = transcode_dtype(engine_dtype, self.device)
             cfg, params, tok_md = transcode_load(
-                gguf_path, cache_dir=self.cache_dir,
-                dtype=transcode_dtype(engine_dtype, self.device),
+                gguf_path, cache_dir=self.cache_dir, dtype=dt,
                 digest=digest.replace("sha256:", "")[:24] or None)
+            adapter_path = layers.get(MT_ADAPTER)
+            if adapter_path:
+                # W += (alpha/r)·BA on the host, before quantization
+                try:
+                    params = apply_lora(params, cfg, adapter_path)
+                except ValueError as e:
+                    raise ApiError(400, f"adapter: {e}") from e
             tokenizer = Tokenizer.from_gguf_metadata(tok_md)
             template = self._read_layer_text(layers, MT_TEMPLATE)
             system = self._read_layer_text(layers, MT_SYSTEM)
             params_raw = self._read_layer_text(layers, MT_PARAMS)
             default_params = json.loads(params_raw) if params_raw else {}
             self._unload_store_models()
+            vision = None
+            proj_path = layers.get(MT_PROJECTOR)
+            if proj_path:
+                # a llava mmproj layer: the CLIP tower and MLP projector
+                with GGUFFile(proj_path) as vf:
+                    vcfg = vision_config_from_gguf(vf)
+                    vision = (vcfg, params_from_numpy(
+                        load_vision_params(vf, vcfg, dtype=dt),
+                        self.device))
             ecfg = self.ecfg or EngineConfig(max_seq_len=min(
                 cfg.max_seq_len, int(default_params.get("num_ctx", 4096))))
             lm = self._build(
                 name.short, cfg, params_from_numpy(params, self.device),
                 tokenizer, engine_dtype, template=template, system=system,
                 default_params=default_params,
-                ecfg=resolve_serving_defaults(ecfg, cfg, self.device))
+                ecfg=resolve_serving_defaults(ecfg, cfg, self.device),
+                vision=vision)
             del params
             lm.digest = digest
             return self._install(lm)
@@ -889,8 +904,9 @@ class ModelManager:
         Modelfile does not replace (its parameters merged under the
         Modelfile's); FROM anything else is a GGUF path on the server's
         filesystem, copied into the store. TEMPLATE, SYSTEM, PARAMETER,
-        LICENSE and ADAPTER lines add their layers (an ADAPTER model is
-        stored, and refused when loaded). ``progress(status, ...)``."""
+        LICENSE and ADAPTER lines add their layers (an ADAPTER is a path on
+        the server, merged into the weights when the model loads).
+        ``progress(status, ...)``."""
         store = self.require_store()
         mf = parse_modelfile(modelfile_text)
         if not mf.from_:

@@ -85,7 +85,8 @@ def test_apply_penalties():
     jsp = dataclasses.replace(jsp, **{k: jnp.asarray(v, jnp.float32)
                                       for k, v in vals.items()})
     rows = [dict(temperature=0.0, top_k=40, top_p=0.9, min_p=0.0,
-                 typical_p=1.0, **{k: v[b] for k, v in vals.items()})
+                 typical_p=1.0, mirostat=0, mirostat_tau=5.0,
+                 mirostat_eta=0.1, **{k: v[b] for k, v in vals.items()})
             for b in range(B)]
     tsp = tsampling.SamplingParams.from_rows(rows, "cpu")
     j = jsampling.apply_penalties(jnp.asarray(logits), jnp.asarray(counts),
@@ -94,9 +95,10 @@ def test_apply_penalties():
                                   torch.from_numpy(counts), tsp)
     np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6,
                                atol=1e-6)
-    assert (tsampling.sample(torch.from_numpy(logits),
-                             torch.from_numpy(counts), tsp).numpy()
-            == np.asarray(jnp.argmax(j, axis=-1))).all()
+    toks, mu = tsampling.sample(torch.from_numpy(logits),
+                                torch.from_numpy(counts), tsp)
+    assert mu is None
+    assert (toks.numpy() == np.asarray(jnp.argmax(j, axis=-1))).all()
 
 
 @pytest.mark.parametrize("shape", [(64, 32), (2, 128, 96)])

@@ -13,8 +13,11 @@ vocabulary) with template and params layers on the loopback.
   codes and keys on the same store;
 - the keep-alive reaper unloads an idle store model (a stepped clock), and
   the next request loads it again;
-- a model with an adapter or projector layer is refused with 501 (a
-  mixture-of-experts GGUF serves: ``tests/test_torch_moe_gguf.py``), and
+- a model whose adapter or projector layer is no GGUF answers as the JAX
+  handler answers on the same store (the adapter 400 "adapter: ...", the
+  projector 500); served adapters and projectors are in
+  ``tests/test_torch_lora.py`` and ``tests/test_torch_multimodal_serving.py``
+  (a mixture-of-experts GGUF serves: ``tests/test_torch_moe_gguf.py``), and
   an encoder (a BERT GGUF) is served as the JAX handler serves it: 400 for
   generation, the JAX vectors from /api/embed (the other embedding and
   authoring routes: ``tests/test_torch_authoring.py``); a store-only
@@ -319,13 +322,16 @@ def test_store_only_refuses_generation(servers, registry):
 
 
 @pytest.mark.parametrize("name,what", [
-    ("adapter", "ADAPTER"), ("projector", "PROJECTOR"),
+    ("adapter", "adapter: "), ("projector", "not a GGUF file"),
     ("bert", "embedding model")])
 def test_unported_models_are_refused(tmp_path, registry, name, what):
-    """Adapter and projector models are refused with 501. The encoder was
-    refused too until the port served embeddings: it now answers as the
-    JAX handler does on the same store (generation 400 with its message,
-    /api/embed its vectors)."""
+    """The adapter and projector models (whose layers hold bytes that are
+    no GGUF) were refused with 501 until the port merged adapters and
+    served vision towers: they now answer as the JAX handler does on the
+    same store, the adapter with its 400 ("adapter: <path>: not a GGUF
+    file"), the projector with its 500. The encoder was refused too until
+    the port served embeddings: it now answers as the JAX handler does
+    (generation 400 with its message, /api/embed its vectors)."""
     _reg, host = registry
     mm = tapp.ModelManager(str(tmp_path / "s"), cache_dir=str(
         tmp_path / "c"), device="cpu", ecfg=_ecfg(False))
@@ -336,12 +342,12 @@ def test_unported_models_are_refused(tmp_path, registry, name, what):
         gen = {"model": _ref(host, name), "prompt": "hi"}
         status, text = _call(httpd.server_address[1], "POST",
                              "/api/generate", gen)
+        jm = japp.ModelManager(str(tmp_path / "j"), cache_dir=str(
+            tmp_path / "jc"), ecfg=_ecfg(True))
+        jm.client.pull(_ref(host, name))
+        jhttpd = japp.serve(jm, "127.0.0.1", 0)
+        jport = jhttpd.server_address[1]
         if name == "bert":
-            jm = japp.ModelManager(str(tmp_path / "j"), cache_dir=str(
-                tmp_path / "jc"), ecfg=_ecfg(True))
-            jm.client.pull(_ref(host, name))
-            jhttpd = japp.serve(jm, "127.0.0.1", 0)
-            jport = jhttpd.server_address[1]
             assert (status, _json(text)) == (400, _json(
                 _call(jport, "POST", "/api/generate", gen)[1]))
             assert what in _json(text)["error"]
@@ -356,14 +362,16 @@ def test_unported_models_are_refused(tmp_path, registry, name, what):
             ps = mm.ps()
             assert [m["details"]["serving_dtype"] for m in ps] == [
                 "float32"]
+            assert not os.path.exists(str(tmp_path / "c"))   # uncached
         else:
-            assert status == 501
-            assert what in _json(text)["error"]
-            with pytest.raises(tapp.ApiError) as e:
-                mm.load(_ref(host, name))
-            assert e.value.status == 501
+            jstatus, jtext = _call(jport, "POST", "/api/generate", gen)
+            # each message names the layer's blob in its own store
+            got = _json(text)["error"].replace(str(tmp_path / "s"), "S")
+            want = _json(jtext)["error"].replace(str(tmp_path / "j"), "S")
+            assert (status, got) == (jstatus, want)
+            assert status == (400 if name == "adapter" else 500)
+            assert what in got
             assert mm.ps() == []
-        assert not os.path.exists(str(tmp_path / "c"))   # nothing transcoded
     finally:
         for h in (httpd, jhttpd):
             if h is not None:

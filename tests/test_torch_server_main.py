@@ -4,8 +4,9 @@ subprocesses on the CPU, as a deployment starts them: a store-only server,
 ``$OLLAMA_HOST``), then a model server with ``--device cpu --preload`` on
 the pulled store that answers ``/api/generate`` with the tokens of an
 in-process load of the same store. Without CUDA the default ``--device
-cuda`` exits non-zero with its message; parallel plans and a model the
-port cannot serve are refused at startup.
+cuda`` exits non-zero with its message; parallel plans are refused at
+startup, and so is the preload of a model whose adapter layer is no GGUF,
+with the reference's "adapter: ..." message.
 """
 
 import json
@@ -157,7 +158,7 @@ def test_store_pull_then_serve(tmp_path, registry):
     ([], "CUDA is not available; pass --device cpu"),
     (["--device", "cpu", "--tp", "2"], "not ported yet"),
     (["--device", "cpu", "--preload", "PRELOAD"],
-     "does not serve yet"),
+     "adapter: "),
 ])
 def test_startup_refusals(tmp_path, registry, args, message):
     _reg, host = registry
